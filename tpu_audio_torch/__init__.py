@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of tpu_audio for NVIDIA Hopper (H100).
+
+The layout mirrors `tpu_audio/` module for module (`ops/`, `nn/`,
+`models/`), so every ported module has one JAX reference module. Plain
+tensor code is PyTorch; each Pallas kernel of the JAX package becomes a
+hand-written CUDA C++ kernel under `csrc/`, bound through `ctypes` by
+`ops/kernels/_build.py`.
+
+Importing this package imports neither jax nor `tpu_audio`, and builds no
+kernel: the kernels compile on the first launch on a CUDA tensor.
+
+Ported so far: Whisper batch transcription (`models/whisper/batch.py`,
+`transcribe_windows`) with its log-mel front-end, the fused bf16 encoder
+blocks and the int8 cross-K/V decode step.
+"""

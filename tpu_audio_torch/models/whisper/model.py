@@ -1,0 +1,284 @@
+"""Whisper encoder/decoder (port of tpu_audio/models/whisper/model.py:
+init_params, encode, precompute_cross_kv, init_state, decode_step).
+
+Architecture (reference: package/STT/Whisper/Layers/AudioEncoder.swift:16-96,
+TextDecoder.swift:17-97, MultiHeadAttention.swift:85-135):
+  encoder: conv1(k3,s1,p1)+gelu → conv2(k3,s2,p1)+gelu → +sinusoids →
+           pre-norm blocks → ln_post
+  decoder: tok_emb + learned pos_emb → blocks [self-attn (KV cache),
+           cross-attn (precomputed encoder K/V), mlp] → ln → logits = h @ E.T
+  attention scale (d/h)^-0.25 applied to BOTH q and k before the product.
+
+`Whisper` holds the JAX tree's parameters with the same keys and the
+stacked (L, …) block layout. Every encoder block runs through the two
+fused-encoder kernels (`ops/kernels/fused_encoder.py`) and torch's GELU
+MLP. Decode steps of one token over an int8 cross-K/V state run the
+cross-attention kernel (`ops/kernels/cross_kv_attention.py`) per layer;
+prefill dequantises per layer. The JAX package's B=1 whole-step kernel
+(fused_whisper_step) is not ported yet, so B=1 takes the same per-layer
+path as B ≥ 2. `forward_cross_qk` (word timestamps) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpu_audio_torch.convert import params_from_numpy
+from tpu_audio_torch.models.whisper.config import WhisperConfig
+from tpu_audio_torch.nn.attention import attend, decode_mask
+from tpu_audio_torch.nn.layers import (conv1d, embedding, embedding_as_linear,
+                                       gelu, layer_norm, linear,
+                                       sinusoidal_positions)
+from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tpu_audio_torch.ops.kvcache import KVCache
+
+
+# ------------------------------------------------------------------ params
+
+def init_params(seed: int, cfg: WhisperConfig, dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cpu") -> dict:
+    """Random parameters from a numpy seed, with the tree, shapes and
+    initialisation ranges of the JAX `init_params`, converted by
+    `params_from_numpy` (so conv weights come out as (O, I, K))."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, fan_in):
+        scale = np.float32(1.0 / math.sqrt(fan_in))
+        return (rng.random(shape, dtype=np.float32) * 2 - 1) * scale
+
+    def lin(lyr, fan_in, fan_out, bias=True):
+        p = {"weight": uniform((lyr, fan_out, fan_in), fan_in)}
+        if bias:
+            p["bias"] = uniform((lyr, fan_out), fan_in)
+        return p
+
+    def norm(shape):
+        return {"weight": np.ones(shape, np.float32),
+                "bias": np.zeros(shape, np.float32)}
+
+    def blocks(lyr, d, cross):
+        def attn():
+            return {"q": lin(lyr, d, d), "k": lin(lyr, d, d, bias=False),
+                    "v": lin(lyr, d, d), "o": lin(lyr, d, d)}
+
+        p = {"attn": attn(), "ln1": norm((lyr, d)),
+             "mlp": {"fc1": lin(lyr, d, 4 * d), "fc2": lin(lyr, 4 * d, d)},
+             "ln2": norm((lyr, d))}
+        if cross:
+            p["cross_attn"] = attn()
+            p["ln_cross"] = norm((lyr, d))
+        return p
+
+    def conv(c_in, c_out):
+        return {"weight": uniform((3, c_in, c_out), 3 * c_in),
+                "bias": uniform((c_out,), 3 * c_in)}
+
+    da, dt = cfg.n_audio_state, cfg.n_text_state
+    tree = {
+        "encoder": {"conv1": conv(cfg.n_mels, da), "conv2": conv(da, da),
+                    "blocks": blocks(cfg.n_audio_layer, da, False),
+                    "ln_post": norm((da,))},
+        "decoder": {
+            "token_embedding": {"weight": rng.standard_normal(
+                (cfg.n_vocab, dt), dtype=np.float32) * np.float32(0.02)},
+            "positional_embedding": rng.standard_normal(
+                (cfg.n_text_ctx, dt), dtype=np.float32) * np.float32(0.02),
+            "blocks": blocks(cfg.n_text_layer, dt, True),
+            "ln": norm((dt,))},
+    }
+    return params_from_numpy(tree, device, dtype)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: sub-dicts become submodules and
+    leaves non-trainable parameters. `tree["name"]` and `"name" in tree`
+    read it like the JAX param dicts; `layer(i)` slices the stacked leaves
+    into a plain dict of views."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def layer(self, i: int) -> dict:
+        out = {name: m.layer(i) for name, m in self._modules.items()}
+        out.update({name: p[i] for name, p in self._parameters.items()})
+        return out
+
+
+# ------------------------------------------------------------------ state
+
+@dataclass
+class DecoderState:
+    cache: KVCache          # self-attention cache (L, B, n_text_ctx, H, hd)
+    cross_k: torch.Tensor   # (L, B, 1500, H, hd), already scaled by (d/h)^-0.25
+    cross_v: torch.Tensor
+
+
+@dataclass
+class DecoderStateQ8:
+    """Decoder state with int8 cross-K/V (per-channel scales over T), read
+    by the cross_kv_attention kernel at each single-token step."""
+
+    cache: KVCache
+    cross_k8: torch.Tensor   # (L, B, T_pad, H·hd) int8
+    cross_v8: torch.Tensor
+    cross_ksc: torch.Tensor  # (L, B, H·hd) f32
+    cross_vsc: torch.Tensor
+
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+# ------------------------------------------------------------------ model
+
+class Whisper(nn.Module):
+    """Whisper over a parameter tree from `init_params` or
+    `convert.params_from_numpy`.
+
+    The packed QKV weight of every encoder block (`fe.pack_qkv_weights`,
+    attention scale folded in) is computed once here, in f32 and stored in
+    the parameters' dtype."""
+
+    def __init__(self, cfg: WhisperConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = ParamTree(params["encoder"])
+        self.decoder = ParamTree(params["decoder"])
+        attn = params["encoder"]["blocks"]["attn"]
+        w, b = fe.pack_qkv_weights(attn, cfg.n_audio_head, attn["q"]["weight"].dtype)
+        self.register_buffer("qkv_weight", w, persistent=False)  # (L, 3D, D)
+        self.register_buffer("qkv_bias", b, persistent=False)    # (L, 3D) f32
+        pos = sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
+        self.register_buffer("audio_positions", torch.from_numpy(pos).to(w.device),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.qkv_weight.device
+
+    # -------------------------------------------------------------- encoder
+
+    def encode(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel (B, 2·n_audio_ctx, n_mels) → audio features (B, n_audio_ctx, D)
+        in mel's dtype."""
+        cfg, p = self.cfg, self.encoder
+        x = gelu(conv1d(p["conv1"], mel, stride=1, padding=1))
+        x = gelu(conv1d(p["conv2"], x, stride=2, padding=1))
+        x = x + self.audio_positions.to(x.dtype)
+        blocks = p["blocks"]
+        w_qkv = self.qkv_weight.to(x.dtype)
+        ln1, ln2, o = blocks["ln1"], blocks["ln2"], blocks["attn"]["o"]
+        for i in range(cfg.n_audio_layer):
+            q, k, v = fe.ln_qkv(x, ln1["weight"][i].float(), ln1["bias"][i].float(),
+                                w_qkv[i], self.qkv_bias[i], cfg.n_audio_head)
+            y, hn = fe.attn_oproj_ln(q, k, v, x, o["weight"][i].to(x.dtype),
+                                     o["bias"][i].float(), ln2["weight"][i].float(),
+                                     ln2["bias"][i].float(), t_valid=x.shape[1])
+            mlp = blocks["mlp"].layer(i)
+            x = y + linear(mlp["fc2"], gelu(linear(mlp["fc1"], hn)))
+        return layer_norm(p["ln_post"], x)
+
+    # -------------------------------------------------------------- decoder
+
+    def precompute_cross_kv(self, audio_features: torch.Tensor):
+        """Project encoder output into per-layer cross K/V once per window:
+        two (L, B, T, H, hd) tensors, K already scaled."""
+        cfg = self.cfg
+        h = cfg.n_text_head
+        scale = (cfg.n_text_state // h) ** -0.25
+        cross = self.decoder["blocks"]["cross_attn"]
+        ks, vs = [], []
+        for i in range(cfg.n_text_layer):
+            bp = cross.layer(i)
+            ks.append(_heads(linear(bp["k"], audio_features), h) * scale)
+            vs.append(_heads(linear(bp["v"], audio_features), h))
+        return torch.stack(ks), torch.stack(vs)
+
+    def init_state(self, audio_features: torch.Tensor, batch: int = 1,
+                   dtype: torch.dtype = torch.float32,
+                   kv_int8: bool = False) -> DecoderState | DecoderStateQ8:
+        """kv_int8=True quantizes the cross-K/V to int8 at per-channel
+        scales, once per window."""
+        cfg = self.cfg
+        ck, cv = self.precompute_cross_kv(audio_features)
+        cache = KVCache.create(cfg.n_text_layer, batch, cfg.n_text_ctx,
+                               cfg.n_text_head, cfg.n_text_state // cfg.n_text_head,
+                               dtype=dtype, device=audio_features.device)
+        if kv_int8:
+            k8, ks, v8, vs = ckv.quantize_cross_kv(ck, cv)
+            return DecoderStateQ8(cache=cache, cross_k8=k8, cross_v8=v8,
+                                  cross_ksc=ks, cross_vsc=vs)
+        return DecoderState(cache=cache, cross_k=ck, cross_v=cv)
+
+    def decode_step(self, tokens: torch.Tensor, state: DecoderState | DecoderStateQ8):
+        """tokens (B, T) fed at positions state.cache.pos.. → (logits (B, T, V),
+        state). Serves prefill (T = n_init) and decode (T = 1). The state's
+        self-attention cache is updated IN PLACE; the same state object is
+        returned."""
+        cfg, p = self.cfg, self.decoder
+        b, t = tokens.shape
+        h, d = cfg.n_text_head, cfg.n_text_state
+        scale = (d // h) ** -0.25
+        cache = state.cache
+        q8 = isinstance(state, DecoderStateQ8)
+
+        x = embedding(p["token_embedding"], tokens)
+        idx = cache.pos + torch.arange(t, device=tokens.device)
+        x = x + p["positional_embedding"].index_select(0, idx)[None].to(x.dtype)
+        mask = decode_mask(cache.max_len, cache.pos, t)
+
+        for i in range(cfg.n_text_layer):
+            bp = p["blocks"].layer(i)
+            # self-attention with cache
+            hn = layer_norm(bp["ln1"], x)
+            q = _heads(linear(bp["attn"]["q"], hn), h) * scale
+            k = _heads(linear(bp["attn"]["k"], hn), h) * scale
+            v = _heads(linear(bp["attn"]["v"], hn), h)
+            cache.write(i, k, v)
+            o = attend(q, cache.k[i].to(q.dtype), cache.v[i].to(q.dtype), mask)
+            x = x + linear(bp["attn"]["o"], o.reshape(b, t, d))
+            # cross-attention (K/V precomputed)
+            hn = layer_norm(bp["ln_cross"], x)
+            qc = _heads(linear(bp["cross_attn"]["q"], hn), h) * scale
+            if q8 and t == 1:
+                oc = ckv.cross_attention_decode(
+                    qc[:, 0].float(), state.cross_k8, state.cross_v8,
+                    state.cross_ksc[i], state.cross_vsc[i], i,
+                    t_valid=cfg.n_audio_ctx, n_heads=h)[:, None].to(qc.dtype)
+            elif q8:
+                ckl = ckv.dequant_layer(state.cross_k8[i], state.cross_ksc[i],
+                                        cfg.n_audio_ctx, h)
+                cvl = ckv.dequant_layer(state.cross_v8[i], state.cross_vsc[i],
+                                        cfg.n_audio_ctx, h)
+                oc = attend(qc, ckl.to(qc.dtype), cvl.to(qc.dtype))
+            else:
+                oc = attend(qc, state.cross_k[i].to(qc.dtype),
+                            state.cross_v[i].to(qc.dtype))
+            x = x + linear(bp["cross_attn"]["o"], oc.reshape(b, t, d))
+            # mlp
+            hn = layer_norm(bp["ln2"], x)
+            x = x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
+
+        cache.advance(t)
+        x = layer_norm(p["ln"], x)
+        return embedding_as_linear(p["token_embedding"], x), state
