@@ -10,6 +10,9 @@ Importing this package imports neither jax nor `tpu_audio`, and builds no
 kernel: the kernels compile on the first launch on a CUDA tensor.
 
 Ported so far: Whisper batch transcription (`models/whisper/batch.py`,
-`transcribe_windows`) with its log-mel front-end, the fused bf16 encoder
-blocks and the int8 cross-K/V decode step.
+`transcribe_windows`) and single-stream transcription through the public
+API (`api/stt.py` → `models/whisper/pipeline.WhisperPipeline` →
+`decoding.SegmentDecoder`), with the log-mel front-end, the fused bf16
+encoder blocks, the int8 cross-K/V decode step, the int8 (W8A8) decoder
+serving tree and the whole B=1 decoder step.
 """

@@ -1,10 +1,15 @@
 // Helpers shared by the kernels of tpu_audio_torch: warp and block
-// reductions, and the dynamic shared-memory opt-in.
+// reductions, float conversion, and the dynamic shared-memory opt-in.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tpa {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(signed char v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

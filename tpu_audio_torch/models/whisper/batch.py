@@ -19,7 +19,7 @@ import torch
 
 from tpu_audio_torch.models.whisper.decoding import (NEG_INF,
                                                      MAX_INITIAL_TIMESTAMP_INDEX,
-                                                     DecodingResult,
+                                                     SYNC_EVERY, DecodingResult,
                                                      build_blank_mask,
                                                      build_suppress_mask,
                                                      compression_ratio)
@@ -27,8 +27,6 @@ from tpu_audio_torch.models.whisper.model import Whisper
 from tpu_audio_torch.models.whisper.pipeline import (MelExtractor, N_FRAMES,
                                                      _pad_frames)
 from tpu_audio_torch.models.whisper.tokenizer import WhisperTokenizer
-
-SYNC_EVERY = 8  # decode steps between host reads of the `finished` flags
 
 
 class BatchSegmentDecoder:

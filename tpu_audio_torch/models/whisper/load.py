@@ -1,0 +1,34 @@
+"""Whisper serving trees (port of tpu_audio/models/whisper/load.py:
+serve_tree_int8).
+
+Checkpoint loading (`load`, `sanitize`, the safetensors key remap) is not
+ported yet (ROADMAP A7); trees come from `model.init_params` or from
+`convert.params_from_numpy`.
+"""
+
+from __future__ import annotations
+
+from tpu_audio_torch.ops import quant
+
+
+def serve_tree_int8(tree: dict, decoder: bool = True,
+                    encoder: bool = True) -> dict:
+    """Per-channel int8 W8A8 serving tree: the block matmul weights of the
+    chosen halves, and the decoder's tied token embedding, become
+    {"weight_i8", "scale_i8"} dicts; convs, norms, biases and positions
+    stay as they are. Stacked (L, O, I) leaves keep the JAX layout.
+
+    `Whisper` runs an int8 decoder; an int8 encoder (`encoder=True`) needs
+    the w8a8 encoder kernels, which are not ported yet (ROADMAP B3), and
+    `Whisper` raises on it."""
+    out = {**tree}
+    if encoder:
+        enc = quant.requantize_tree_int8(tree["encoder"])
+        out["encoder"] = quant.quantize_tree_int8(
+            enc, predicate=lambda k, v: "blocks" in k)
+    if decoder:
+        dec = quant.requantize_tree_int8(tree["decoder"])
+        out["decoder"] = quant.quantize_tree_int8(
+            dec, predicate=lambda k, v: "blocks" in k
+            or k == "token_embedding.weight")
+    return out

@@ -12,11 +12,17 @@ TextDecoder.swift:17-97, MultiHeadAttention.swift:85-135):
 `Whisper` holds the JAX tree's parameters with the same keys and the
 stacked (L, …) block layout. Every encoder block runs through the two
 fused-encoder kernels (`ops/kernels/fused_encoder.py`) and torch's GELU
-MLP. Decode steps of one token over an int8 cross-K/V state run the
-cross-attention kernel (`ops/kernels/cross_kv_attention.py`) per layer;
-prefill dequantises per layer. The JAX package's B=1 whole-step kernel
-(fused_whisper_step) is not ported yet, so B=1 takes the same per-layer
-path as B ≥ 2. `forward_cross_qk` (word timestamps) is not ported yet.
+MLP. Over an int8 cross-K/V state, a single-token step at B=1 runs the
+whole decoder in one launch (`ops/kernels/fused_whisper_step.py`), for fp
+and int8 decoder weights alike; at B ≥ 2 it runs the cross-attention
+kernel (`ops/kernels/cross_kv_attention.py`) per layer; prefill
+dequantises per layer.
+
+The decoder may be the int8 serving tree (`load.serve_tree_int8(...,
+encoder=False)`): its linears and the tied lm head then run the int8
+matmul kernels (`ops/kernels/int8_matmul.py`) through `nn.layers`. The
+int8 encoder needs the w8a8 encoder kernels, which are not ported yet
+(ROADMAP B3). `forward_cross_qk` (word timestamps) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +42,13 @@ from tpu_audio_torch.nn.layers import (conv1d, embedding, embedding_as_linear,
                                        sinusoidal_positions)
 from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
 from tpu_audio_torch.ops.kvcache import KVCache
+
+
+def _holds_int8(tree: dict) -> bool:
+    return any(k == "weight_i8" or (isinstance(v, dict) and _holds_int8(v))
+               for k, v in tree.items())
 
 
 # ------------------------------------------------------------------ params
@@ -99,7 +111,9 @@ class ParamTree(nn.Module):
     """A nested dict of tensors as a module: sub-dicts become submodules and
     leaves non-trainable parameters. `tree["name"]` and `"name" in tree`
     read it like the JAX param dicts; `layer(i)` slices the stacked leaves
-    into a plain dict of views."""
+    into a plain dict of views. A stacked int8 weight is not sliced: the
+    layer's dict carries the whole "weight_i8_stacked" and "layer_idx" i,
+    which `int8_linear` hands to the stacked kernel."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -119,7 +133,11 @@ class ParamTree(nn.Module):
 
     def layer(self, i: int) -> dict:
         out = {name: m.layer(i) for name, m in self._modules.items()}
-        out.update({name: p[i] for name, p in self._parameters.items()})
+        for name, p in self._parameters.items():
+            if name == "weight_i8":
+                out.update(weight_i8_stacked=p, layer_idx=i)
+            else:
+                out[name] = p[i]
         return out
 
 
@@ -161,9 +179,18 @@ class Whisper(nn.Module):
 
     def __init__(self, cfg: WhisperConfig, params: dict):
         super().__init__()
+        if _holds_int8(params["encoder"]):
+            raise NotImplementedError(
+                "an int8 encoder needs the w8a8 encoder kernels, which are not "
+                "ported yet (ROADMAP B3): use serve_tree_int8(..., encoder=False)")
         self.cfg = cfg
         self.encoder = ParamTree(params["encoder"])
         self.decoder = ParamTree(params["decoder"])
+        # the B=1 step's small vectors in f32, as buffers so .to() moves them
+        self._step_keys = []
+        for name, t in fws.step_vectors(self.decoder).items():
+            self.register_buffer(f"step_{name}", t, persistent=False)
+            self._step_keys.append(name)
         attn = params["encoder"]["blocks"]["attn"]
         w, b = fe.pack_qkv_weights(attn, cfg.n_audio_head, attn["q"]["weight"].dtype)
         self.register_buffer("qkv_weight", w, persistent=False)  # (L, 3D, D)
@@ -175,6 +202,12 @@ class Whisper(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.qkv_weight.device
+
+    def step_weights(self) -> fws.StepWeights:
+        """What `fused_whisper_decode_step` reads: views of the decoder's
+        weights and the f32 vector buffers."""
+        return fws.StepWeights.of(self.decoder, {
+            name: getattr(self, f"step_{name}") for name in self._step_keys})
 
     # -------------------------------------------------------------- encoder
 
@@ -245,6 +278,20 @@ class Whisper(nn.Module):
         x = embedding(p["token_embedding"], tokens)
         idx = cache.pos + torch.arange(t, device=tokens.device)
         x = x + p["positional_embedding"].index_select(0, idx)[None].to(x.dtype)
+
+        if q8 and b == 1 and t == 1:
+            # single-stream serving: the whole decoder step in one launch,
+            # which writes this token's K/V slot into the cache
+            lyr = cfg.n_text_layer
+            hfin = fws.fused_whisper_decode_step(
+                self.step_weights(), x[:, 0], cache.pos,
+                cache.k.view(lyr, cache.max_len, d), cache.v.view(lyr, cache.max_len, d),
+                state.cross_k8, state.cross_ksc, state.cross_v8, state.cross_vsc,
+                n_heads=h, t_valid=cfg.n_audio_ctx)
+            cache.advance(1)
+            return embedding_as_linear(p["token_embedding"],
+                                       hfin[:, None].to(x.dtype)), state
+
         mask = decode_mask(cache.max_len, cache.pos, t)
 
         for i in range(cfg.n_text_layer):

@@ -4,7 +4,8 @@ sinusoidal_positions).
 
 Conventions kept from the JAX module:
   - linear weights are (out_features, in_features);
-  - sequence tensors are channels-last, (B, T, C).
+  - sequence tensors are channels-last, (B, T, C);
+  - a param dict without "weight" is quantised (`ops/quant.py`).
 Changed for PyTorch: conv1d weights are (out, in, kernel), torch's own
 layout (the JAX tree stores (kernel, in, out); `convert.params_from_numpy`
 transposes).
@@ -16,18 +17,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_audio_torch.ops import quant
+
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
+    if "weight" not in p:
+        return quant.quantized_linear(p, x)
     bias = p["bias"].to(x.dtype) if "bias" in p else None
     return F.linear(x, p["weight"].to(x.dtype), bias)
 
 
 def embedding(p, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table; an int8 table's rows are dequantised to f32."""
+    if "weight" not in p:
+        return quant.dequantize_rows(p, ids)
     return p["weight"][ids]
 
 
 def embedding_as_linear(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding output head: logits = x @ E.T."""
+    """Tied-embedding output head: logits = x @ E.T (an int8 table goes
+    through the int8 matmul, never dequantised whole)."""
+    if "weight" not in p:
+        return quant.quantized_linear(p, x)
     return x @ p["weight"].to(x.dtype).T
 
 

@@ -1,8 +1,9 @@
 """Builds the CUDA kernels of `tpu_audio_torch/csrc/` and binds them with ctypes.
 
-Every `csrc/*.cu` is compiled by one `nvcc` call for Hopper (`sm_90a`)
-into a shared library with a plain C interface, under
-`build/tpu_audio_torch/` at the root of the checkout. The file name
+Every `csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own `nvcc`
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, under `build/tpu_audio_torch/` at the
+root of the checkout. The file name
 carries a hash of the sources and flags, so a changed source builds anew
 and an unchanged one is loaded as it is. Nothing is built when a module is
 imported: the first kernel launch builds.
@@ -26,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpu_audio_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -61,14 +62,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    link = [_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, log) for cmd, log, proc in zip(cmds, logs, procs) if proc.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, logs[-1]))
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{log[-8000:]}")
     os.replace(tmp, out)
     return out
 
