@@ -30,7 +30,20 @@ Phases (any failure raises and the script exits non-zero):
      against the f32 plain path on prefill and three teacher-forced steps,
      with faults planted in the decoder step;
   6. the mixed batch-16 row: `transcribe_windows` of phase 4's clips on
-     the int8 decoder tree, wall time beside phase 4's.
+     the int8 decoder tree, wall time beside phase 4's;
+  7. the full-w8a8 rows (`serve_tree_int8`: int8 encoder, decoder and lm
+     head, int8 cross-K/V): the int8 encoder's time at batch 16 against the
+     bf16 encoder's, their features' cosine, `transcribe_windows` of phase
+     4's clips, the STT engine at B=1 (detect_language + transcribe of 4 s,
+     a timed 30 s window), and the kernel path against the f32 plain path on
+     2 windows with faults planted in the int8 encoder chain.
+
+Phase 3 also holds the four W8A8 encoder-block kernels against their plain
+versions on block 0 of the w8a8 tree at batch 16, with planted faults on
+inputs where every term matters. Each kernel is timed beside its bound
+(the larger of its operations over the H100's dense peak for their type
+and its bytes over 3.35 TB/s) and, where one PyTorch call computes the same
+function or its product, that call's time.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -61,6 +74,9 @@ SLICE_RATIO = 1.5
 SINGLE_CLIP_SECONDS = 4      # phase 5's transcribe clip (one window)
 POS = 200                    # the decoder step's position in phase 3
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
+# H100 SXM dense peaks (NVIDIA's data sheet, no sparsity) and memory rate
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -142,6 +158,32 @@ def planted_faults(name: str, outputs, faults, rel: float) -> None:
         log(f"control {name}, {label}: {text}: outside the limit")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: dict, n_bytes: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for work of
+    `ops` operations by type ("bf16", "int8", "f32") moving `n_bytes` (each
+    input read once, each output written once)."""
+    t_ops = 1e3 * sum(n / PEAK[kind] for kind, n in ops.items())
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_row(name: str, source: str, replaces: str, err: float, ms: float, pms: float,
+               roof: tuple[float, str], library: float | None, why: str = "") -> dict:
+    """One kernel's entry of the JSON line; logs its bound and yardstick."""
+    bound_ms, bound_by = roof
+    log(f"bound {name}: {bound_ms:.4f} ms by {bound_by}; kernel {ms:.4f} ms = "
+        f"{bound_ms / ms:.3f} of the bound")
+    log(f"library {name}: " + (f"{library:.4f} ms" if library is not None
+                               else f"none ({why})"))
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+
+
 @contextmanager
 def patched(obj, name: str, fn):
     """Replace obj.name with fn inside the block."""
@@ -151,6 +193,14 @@ def patched(obj, name: str, fn):
         yield
     finally:
         setattr(obj, name, saved)
+
+
+def faulty(obj, name: str, fn, run):
+    """run, with obj.name replaced by fn while it runs."""
+    def call():
+        with patched(obj, name, fn):
+            return run()
+    return call
 
 
 @contextmanager
@@ -222,8 +272,11 @@ def check_int8_matmul(model_i8, randn, rows: list) -> None:
                          lambda: i8mm.int8_matmul_plain(x, w, sc), 20)
     log(f"time int8_matmul lm head (1, {w.shape[1]}) x {tuple(w.shape)}: kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms")
-    rows.append(("int8_matmul", "tpu_audio_torch/csrc/int8_matmul.cu",
-                 "tpu_audio/ops/pallas/int8_matmul.py:50", i8mm, err, ms, pms))
+    o, i = w.shape
+    rows.append(kernel_row("int8_matmul", "tpu_audio_torch/csrc/int8_matmul.cu",
+                           "tpu_audio/ops/pallas/int8_matmul.py:50", err, ms, pms,
+                           bound({"int8": 2 * i * o}, nbytes(x, w, sc) + 4 * o), None,
+                           "torch._int_mm takes more than 16 rows; this call has 1"))
 
     layer, err = model_i8.cfg.n_text_layer - 1, 0.0
     for n in (1, 16):
@@ -244,8 +297,169 @@ def check_int8_matmul(model_i8, randn, rows: list) -> None:
                          lambda: i8mm.int8_matmul_stacked_plain(x, w_st, sc, layer), 20)
     log(f"time int8_matmul_stacked fc1 layer {layer} (16, {w_st.shape[2]}) x "
         f"{tuple(w_st.shape)}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    rows.append(("int8_matmul_stacked", "tpu_audio_torch/csrc/int8_matmul.cu",
-                 "tpu_audio/ops/pallas/int8_matmul.py:116", i8mm, err, ms, pms))
+    _, o, i = w_st.shape
+    rows.append(kernel_row("int8_matmul_stacked", "tpu_audio_torch/csrc/int8_matmul.cu",
+                           "tpu_audio/ops/pallas/int8_matmul.py:116", err, ms, pms,
+                           bound({"int8": 2 * 16 * i * o},
+                                 nbytes(x, w_st[layer], sc) + 4 * 16 * o), None,
+                           "torch._int_mm takes more than 16 rows; this call has 16"))
+
+
+def check_int8_encoder(model, randn, rows: list) -> None:
+    """Phase 3, the four W8A8 encoder-block kernels on block 0 of the w8a8
+    tree at batch 16, T = 1500, each against its plain version (rel 2e-2,
+    cosine 0.999; fc1's codes at most one step apart in at most 1 % of the
+    entries) and timed. Then planted faults, each of which must land
+    outside the limit, on inputs where the faulted term is as large as the
+    rest: x with a mean and scale of its own for the LayerNorm; attention-
+    sized q, k, v over a small residual; a bias as large as fc1's product; a
+    residual as small as fc2's."""
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+
+    cfg = model.cfg
+    t, d, h = cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_audio_head
+    hd, m = d // h, BATCH * t
+    blocks = model.encoder["blocks"]
+    ln1, ln2 = blocks["ln1"], blocks["ln2"]
+    o, fc1, fc2 = blocks["attn"]["o"], blocks["mlp"]["fc1"], blocks["mlp"]["fc2"]
+    ln_w, ln_b = ln1["weight"][0].float(), ln1["bias"][0].float()
+    w_qkv, cs_qkv, b_qkv = model.qkv_weight[0], model.qkv_scale[0], model.qkv_bias[0]
+    wo, cso, bo = o["weight_i8"][0], o["scale_i8"][0], o["bias"][0].float()
+    g2, b2 = ln2["weight"][0].float(), ln2["bias"][0].float()
+    w1, cs1, bias1 = fc1["weight_i8"][0], fc1["scale_i8"][0], fc1["bias"][0].float()
+    w2, cs2, bias2 = fc2["weight_i8"][0], fc2["scale_i8"][0], fc2["bias"][0].float()
+    ff = w1.shape[0]
+    shape = f"(16, {t}, {d})"
+
+    def codes(*size):
+        return torch.randint(-127, 128, size, device=w1.device, dtype=torch.int8)
+
+    def int_mm_ms(k, n, w):
+        a = codes(m, k)
+        log(f"library: torch._int_mm ({m}, {k}) x ({k}, {n}) s8, the product alone")
+        return time_ms(lambda: torch._int_mm(a, w.T), 10)
+
+    # ln_qkv_int8
+    x = (randn(BATCH, t, d) * 3 + 1).to(torch.bfloat16)
+
+    def qkv_plain(cs=cs_qkv, b=b_qkv):
+        return fe8.ln_qkv_int8_plain(x, ln_w, ln_b, w_qkv, cs, b, h)
+
+    qkv = fe8.ln_qkv_int8(x, ln_w, ln_b, w_qkv, cs_qkv, b_qkv, h)
+    err = max(compare(f"ln_qkv_int8 {n} (16, {h}, {t}, {hd}) bf16", g, r, rel=2e-2)
+              for n, g, r in zip("qkv", qkv, qkv_plain()))
+    unfold = torch.ones(3 * d, device=x.device)
+    unfold[:2 * d] = hd ** 0.25
+    planted_faults("ln_qkv_int8", qkv, [
+        ("q and k without the hd^-0.25 fold",
+         lambda: qkv_plain(cs=cs_qkv * unfold, b=b_qkv * unfold)),
+        ("LayerNorm skipped", faulty(fe8, "_ln_f32", lambda x, w, b, eps: x, qkv_plain)),
+    ], rel=2e-2)
+    ms, pms = timed_pair(lambda: fe8.ln_qkv_int8(x, ln_w, ln_b, w_qkv, cs_qkv, b_qkv, h),
+                         qkv_plain, 10)
+    rows.append(kernel_row("ln_qkv_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:330", err, ms, pms,
+                           bound({"int8": 2 * m * d * 3 * d},
+                                 nbytes(x, ln_w, ln_b, w_qkv, cs_qkv, b_qkv, *qkv)),
+                           int_mm_ms(d, 3 * d, w_qkv)))
+
+    # attn_oproj_ln_int8 on block 0's q, k, v
+    attn_args = (*qkv, x, wo, cso, bo, g2, b2, t)
+    y, hn = fe8.attn_oproj_ln_int8(*attn_args)
+    err = max(compare(f"attn_oproj_ln_int8 {n} {shape} bf16", g, r, rel=2e-2)
+              for n, g, r in zip(("y", "h"), (y, hn), fe8.attn_oproj_ln_int8_plain(*attn_args)))
+    ms, pms = timed_pair(lambda: fe8.attn_oproj_ln_int8(*attn_args),
+                         lambda: fe8.attn_oproj_ln_int8_plain(*attn_args), 5)
+    roof = bound({"bf16": 4 * BATCH * h * t * t * hd, "int8": 2 * m * d * d},
+                 nbytes(*attn_args[:9], y, hn))
+    del qkv, attn_args
+    hshape = (BATCH, h, t, hd)
+    qa, ka = (randn(*hshape, dtype=torch.bfloat16, scale=0.5) for _ in range(2))
+    va = randn(*hshape, dtype=torch.bfloat16)
+    xa = randn(BATCH, t, d, dtype=torch.bfloat16, scale=0.1)
+    boa = randn(d, scale=0.1)
+    t_mask = 1000
+    swap = torch.arange(h, device=qa.device).view(-1, 2).flip(1).reshape(-1)
+
+    def attn_plain(q=qa, k=ka, v=va, x=xa, c=cso, w=wo, t_valid=t_mask):
+        return fe8.attn_oproj_ln_int8_plain(q, k, v, x, w, c, boa, g2, b2, t_valid)
+
+    got = fe8.attn_oproj_ln_int8(qa, ka, va, xa, wo, cso, boa, g2, b2, t_mask)
+    err = max(err, *(compare(f"attn_oproj_ln_int8 {n}, attention-sized inputs, t_valid {t_mask}",
+                             g, r, rel=2e-2) for n, g, r in zip(("y", "h"), got, attn_plain())))
+    planted_faults("attn_oproj_ln_int8", got, [
+        ("the attention dropped", lambda: attn_plain(v=torch.zeros_like(va))),
+        ("wo untransposed", lambda: attn_plain(w=wo.T.contiguous())),
+        ("t_valid ignored", lambda: attn_plain(t_valid=t)),
+        ("the two heads of each pair swapped",
+         lambda: attn_plain(q=qa[:, swap], k=ka[:, swap], v=va[:, swap])),
+        ("cso dropped", lambda: attn_plain(c=torch.ones_like(cso))),
+        ("the residual dropped", lambda: attn_plain(x=torch.zeros_like(xa))),
+        ("LN2 dropped (h = y)", lambda: (attn_plain()[0],) * 2),
+    ], rel=2e-2)
+    rows.append(kernel_row("attn_oproj_ln_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:423", err, ms, pms, roof, None,
+                           "no one PyTorch call computes attention, an int8 o-projection and "
+                           "LayerNorm"))
+    del got, qa, ka, va, xa
+
+    # fc1_gelu_int8 on block 0's h; held on the dequantised codes, codes x scale
+    def dequant(out):
+        return out[0].float() * out[1]
+
+    def steps(got, ref):
+        step = (got[0].int() - ref[0].int()).abs()
+        share = (step > 0).float().mean().item()
+        log(f"fc1_gelu_int8 codes: {share:.3e} of them one step from plain, "
+            f"largest step {step.max().item()}")
+        if step.max().item() > 1 or share > 0.01:
+            raise AssertionError("fc1_gelu_int8: codes outside one step in 1 % of entries")
+
+    g8 = fe8.fc1_gelu_int8(hn, w1, cs1, bias1)
+    ref = fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias1)
+    err = compare(f"fc1_gelu_int8 codes x scale (16, {t}, {ff})", dequant(g8), dequant(ref),
+                  rel=2e-2)
+    steps(g8, ref)
+    ms, pms = timed_pair(lambda: fe8.fc1_gelu_int8(hn, w1, cs1, bias1),
+                         lambda: fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias1), 10)
+    rows.append(kernel_row("fc1_gelu_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:508", err, ms, pms,
+                           bound({"int8": 2 * m * d * ff}, nbytes(hn, w1, cs1, bias1, *g8)),
+                           int_mm_ms(d, ff, w1)))
+    bias_big = randn(ff, scale=0.5)
+
+    def fc1_plain(b=bias_big):
+        return (dequant(fe8.fc1_gelu_int8_plain(hn, w1, cs1, b)),)
+
+    big = fe8.fc1_gelu_int8(hn, w1, cs1, bias_big)
+    err = max(err, compare("fc1_gelu_int8 codes x scale, bias as large as the product",
+                           dequant(big), fc1_plain()[0], rel=2e-2))
+    steps(big, fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias_big))
+    planted_faults("fc1_gelu_int8", (dequant(big),), [
+        ("GELU dropped", faulty(fe8, "_gelu", lambda a: a, fc1_plain)),
+        ("the bias dropped", lambda: fc1_plain(torch.zeros_like(bias_big))),
+    ], rel=2e-2)
+    rows[-1]["max_abs_err"] = err
+
+    # fc2_residual_int8 on those codes and block 0's y
+    def fc2_plain(gq=g8[0], sg=g8[1], y=y):
+        return fe8.fc2_residual_int8_plain(gq, sg, y, w2, cs2, bias2)
+
+    out = fe8.fc2_residual_int8(*g8, y, w2, cs2, bias2)
+    err = compare(f"fc2_residual_int8 {shape} bf16", out, fc2_plain(), rel=2e-2)
+    ys = randn(BATCH, t, d, dtype=torch.bfloat16, scale=0.3)
+    small = fe8.fc2_residual_int8(*big, ys, w2, cs2, bias2)
+    err = max(err, compare("fc2_residual_int8, a residual as small as the product", small,
+                           fc2_plain(*big, ys), rel=2e-2))
+    planted_faults("fc2_residual_int8", (small,), [
+        ("the residual dropped", lambda: (fc2_plain(*big, torch.zeros_like(ys)),)),
+        ("sg ignored", lambda: (fc2_plain(big[0], torch.ones_like(big[1]), ys),)),
+    ], rel=2e-2)
+    ms, pms = timed_pair(lambda: fe8.fc2_residual_int8(*g8, y, w2, cs2, bias2), fc2_plain, 10)
+    rows.append(kernel_row("fc2_residual_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:561", err, ms, pms,
+                           bound({"int8": 2 * m * ff * d}, nbytes(*g8, y, w2, cs2, bias2, out)),
+                           int_mm_ms(ff, d, w2)))
 
 
 def history_only(q, k, v, k_hist, v_hist, rnd):
@@ -336,10 +550,18 @@ def check_decoder_step(models: dict, cfg, dev, randn, rows: list) -> None:
             lambda: fws.fused_whisper_decode_step_plain(sw, x, pos, kc_p, vc_p, k8, ks, v8,
                                                         vs, n_heads=h, t_valid=t_valid), 20)
         log(f"time fused_whisper_decode_step {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if label == "int8":  # the weights of the slice
-            rows.append(("fused_whisper_decode_step",
-                         "tpu_audio_torch/csrc/fused_whisper_step.cu",
-                         "tpu_audio/ops/pallas/fused_whisper_step.py:303", fws, err, ms, pms))
+        if label == "int8":  # the weights of the slice: every weight, scale and
+            # vector once, the cache history to POS, the valid cross rows, the
+            # new slots and h
+            read = [*sw.w.values(), *sw.scale.values(), *sw.vec.values(), kc[:, :POS],
+                    vc[:, :POS], k8[:, :, :t_valid], v8[:, :, :t_valid], ks, vs, x]
+            ops = {"int8": 2 * sum(w.numel() for w in sw.w.values()),
+                   "f32": 4 * lyr * (POS + 1 + t_valid) * d}
+            rows.append(kernel_row(
+                "fused_whisper_decode_step", "tpu_audio_torch/csrc/fused_whisper_step.cu",
+                "tpu_audio/ops/pallas/fused_whisper_step.py:303", err, ms, pms,
+                bound(ops, nbytes(*read) + 4 * d + 2 * nbytes(kc[:, POS])), None,
+                "no one PyTorch call runs a decoder step"))
 
 
 def single_stream(model_i8, tok, clips, mel, dev, card: str) -> dict:
@@ -492,9 +714,9 @@ def single_stream(model_i8, tok, clips, mel, dev, card: str) -> dict:
     return launches
 
 
-def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> dict:
+def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> float:
     """Phase 6: bench.py's "bf16-enc + int8 decoder + int8 cross-KV" row at
-    batch 16 through transcribe_windows; returns its launch counts."""
+    batch 16 through transcribe_windows; returns its wall time."""
     from tpu_audio_torch.models.whisper import batch as wbatch
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
@@ -521,6 +743,185 @@ def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> dict:
         f"+ int8 cross-KV: {wall:.3f} s wall, {audio_s / wall:.1f}x real time, "
         f"{sum(len(r.tokens) for r in results)} tokens (phase 4, bf16 weights: "
         f"{wall_bf16:.3f} s) ({card})")
+    return wall
+
+
+def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dict:
+    """Phase 7: bench.py's "full w8a8" row at batch 16 and its
+    "single-stream w8a8" row, on the full w8a8 tree; returns the launch
+    counts of the batch-16 run."""
+    from tpu_audio_torch.api.stt import WhisperEngine
+    from tpu_audio_torch.models.whisper import batch as wbatch
+    from tpu_audio_torch.models.whisper.pipeline import (N_FRAMES, MelExtractor,
+                                                         WhisperPipeline, _pad_frames)
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+    from tpu_audio_torch.ops.kernels import fused_mel
+    from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+
+    cfg = model.cfg
+    mods = (fused_mel, fe, fe8, ckv, i8mm, fws)
+
+    # 1. the encoders alone on phase 4's 16 windows, by CUDA events
+    extractor = MelExtractor(cfg.n_mels, dev)
+    windows = []
+    for clip in clips:
+        mel = extractor(clip)
+        windows += [_pad_frames(mel[s:s + N_FRAMES], N_FRAMES)
+                    for s in range(0, mel.shape[0] - N_FRAMES, N_FRAMES)]
+    mel16 = torch.stack(windows[:BATCH]).to(torch.bfloat16)
+
+    def encode(m):
+        with torch.inference_mode():
+            return m.encode(mel16)
+
+    def encode_ms(m, iters=2):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            encode(m)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    feats_i8, feats_bf16 = encode(model), encode(model_bf16)  # warm-up, and the features
+    times = {"int8": [], "bf16": []}
+    for label in ("int8", "bf16", "bf16", "int8"):
+        times[label].append(encode_ms(model if label == "int8" else model_bf16))
+    d, t, lyr, ff = cfg.n_audio_state, cfg.n_audio_ctx, cfg.n_audio_layer, 4 * cfg.n_audio_state
+    # bench.py's count: the q, k, v, o projections, q k^T and attention . v,
+    # fc1 and fc2, and the two convolutions
+    mm_ops = BATCH * lyr * (2 * t * d * d * 4 + 2 * 2 * t * d * ff)
+    other = BATCH * (lyr * 2 * 2 * t * t * d + 2 * (3000 * 3 * cfg.n_mels * d + 1500 * 3 * d * d))
+    roof, _ = bound({"int8": mm_ops, "bf16": other}, 0)
+    for label, ms in times.items():
+        ms = sum(ms) / len(ms)
+        rate = (mm_ops + other) / ms / 1e9
+        peak = PEAK[label]
+        log(f"w8a8 encoder, batch 16: {label} {ms:.3f} ms (runs {times[label]}), "
+            f"{rate:.1f} T{'OP' if label == 'int8' else 'FLOP'}/s = "
+            f"{1e12 * rate / peak:.4f} of {peak / 1e12:.0f}; the int8 encoder's bound "
+            f"{roof:.3f} ms ({card})")
+    _, e, cos = measure(feats_i8, feats_bf16)
+    log(f"w8a8 encoder features against bf16 (16, {t}, {d}): cosine {cos:.6f}, rel {e:.3e}")
+    if not cos > 0.999:
+        raise AssertionError("the int8 encoder's features are not within cosine 0.999 of bf16")
+    del feats_i8, feats_bf16
+
+    # 2. transcribe_windows at batch 16
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts, results = wbatch.transcribe_windows(model, tok, clips, batch_size=BATCH,
+                                               kv_int8=True, return_results=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(*mods)
+    log(f"full w8a8 batch launches: {launches}")
+    need = ("fused_log_mel", "cross_attention_decode", "int8_matmul", "int8_matmul_stacked")
+    if (any(launches[n] != lyr for n in fe8.LAUNCHES) or any(launches[n] for n in fe.LAUNCHES)
+            or not all(launches[n] > 0 for n in need)):
+        raise AssertionError(f"full w8a8 batch: expected {lyr} launches of each int8 encoder "
+                             f"kernel, none of the bf16 ones, and the decoder's: {launches}")
+    if len(texts) != N_CLIPS or len(results) != BATCH or not all(
+            math.isfinite(r.avg_logprob) and all(0 <= x < cfg.n_vocab for x in r.tokens)
+            for r in results):
+        raise AssertionError("full w8a8 batch: wrong count of texts or windows, a token "
+                             "outside the vocabulary or a NaN log-prob")
+    audio_s = N_CLIPS * CLIP_SECONDS
+    log(f"full w8a8 batch: transcribe_windows, {BATCH} windows, int8 encoder + decoder + "
+        f"cross-KV: {wall:.3f} s wall, {audio_s / wall:.1f}x real time, "
+        f"{sum(len(r.tokens) for r in results)} tokens (phase 4, bf16: {walls['bf16']:.3f} s; "
+        f"phase 6, int8 decoder: {walls['mixed']:.3f} s) ({card})")
+
+    # 3. single stream through the STT engine
+    pipe = WhisperPipeline(model, tok, compute_dtype=torch.bfloat16, kv_int8=True)
+    engine = WhisperEngine.from_pipeline(pipe)
+    clip = clips[0][:SINGLE_CLIP_SECONDS * 16000]
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    language, probs = engine.detect_language(clip)
+    result = engine.transcribe(clip, language=None)
+    torch.cuda.synchronize()
+    single = launch_counts(*mods)
+    log(f"single-stream w8a8 launches: {single}")
+    if not (all(single[n] > 0 for n in (*fe8.LAUNCHES, "fused_whisper_decode_step",
+                                         "int8_matmul")) and result.language == language
+            and math.isclose(sum(probs.values()), 1.0, rel_tol=1e-3)):
+        raise AssertionError(f"single-stream w8a8: a kernel never launched or the result "
+                             f"is wrong: {single}, {result!r}")
+    log(f"single-stream w8a8: STT engine detect_language + transcribe(language=None) of "
+        f"{SINGLE_CLIP_SECONDS} s: language {language}, {len(result.segments)} segments, "
+        f"{time.perf_counter() - t0:.3f} s wall ({card})")
+    window = _pad_frames(pipe.mel_extractor(clips[1][:30 * 16000])[:N_FRAMES], N_FRAMES)
+    stats = {"steps": 0}
+
+    def timed():
+        stats["steps"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting(model, "decode_step", stats, "steps"):
+            r = pipe.decoder.decode(window, language="en", temperature=0.0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, stats["steps"], r
+
+    timed()  # warm-up
+    for w, n, r in (timed(), timed()):
+        log(f"single-stream w8a8 decode: 1 window with its int8 encode, {n} decoder steps "
+            f"({len(r.tokens)} tokens), {w:.4f} s, {1e3 * w / n:.4f} ms per step, "
+            f"{30.0 / w:.2f}x real time ({card})")
+
+    # 4. the kernel path against the f32 plain path on 2 windows, as phase 4
+    mel = mel16[:2]
+    init = torch.tensor([tok.sot_sequence()] * 2, device=dev)
+    plain_mods = (fe8, ckv, i8mm, fws)
+
+    def run_path(m, dtype):
+        with torch.inference_mode():
+            feats = m.encode(mel.to(dtype))
+            state = m.init_state(feats, batch=2, dtype=dtype, kv_int8=True)
+            _, state = m.decode_step(init, state)
+            logits, _ = m.decode_step(init[:, -1:], state)
+        return feats, logits
+
+    ref_model = copy.deepcopy(model).float()
+    with plain_kernels(*plain_mods):
+        exact = run_path(ref_model, torch.float32)
+        plain_out = run_path(model, torch.bfloat16)
+    del ref_model
+    outputs = ("encoder features (2, 1500, 1280)", "decode-step logits (2, 1, 51866)")
+    p_err = [measure(p, r)[1] for p, r in zip(plain_out, exact)]
+
+    def held(label, out, control):
+        readings = [(measure(k, r)[1] / pe, measure(k, r)[2])
+                    for k, r, pe in zip(out, exact, p_err)]
+        text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
+                         for name, (q, c) in zip(outputs, readings))
+        inside = all(q <= SLICE_RATIO and c > 0.999 for q, c in readings)
+        if inside == control:
+            raise AssertionError(f"full w8a8 {label}: {text}: "
+                                 + ("the check cannot see it" if control else
+                                    f"outside ratio {SLICE_RATIO} / cosine 0.999"))
+        log(f"{'control ' if control else ''}full w8a8 {label} against f32: {text}"
+            + (": outside the limit" if control else f" (plain bf16 rel {p_err})"))
+
+    held("kernel path", run_path(model, torch.bfloat16), control=False)
+    attn, fc2 = fe8.attn_oproj_ln_int8, fe8.fc2_residual_int8
+    chain_faults = [
+        ("wo untransposed", "attn_oproj_ln_int8",
+         lambda q, k, v, x, w, *a, **kw: attn(q, k, v, x, w.T.contiguous(), *a, **kw)),
+        ("LN2 dropped (h = y)", "attn_oproj_ln_int8",
+         lambda *a, **kw: (attn(*a, **kw)[0],) * 2),
+        ("the fc2 residual dropped", "fc2_residual_int8",
+         lambda g, sg, y, *a: fc2(g, sg, torch.zeros_like(y), *a)),
+    ]
+    for label, name, fault in chain_faults:
+        with patched(fe8, name, fault):
+            held(label, run_path(model, torch.bfloat16), control=True)
     return launches
 
 
@@ -566,12 +967,15 @@ def main() -> None:
     model = wmodel.Whisper(cfg, params)
     # the int8 decoder tree: bf16 encoder (shared), int8 decoder and lm head
     model_i8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params, encoder=False))
+    # the full w8a8 tree: int8 encoder, decoder and lm head
+    model_w8a8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params))
     del params
     torch.cuda.synchronize()
-    log(f"models: large-v3-turbo random bf16 weights (seed {SEED}) and their int8 "
-        f"decoder tree in {time.perf_counter() - t0:.1f} s")
+    log(f"models: large-v3-turbo random bf16 weights (seed {SEED}), their int8 decoder "
+        f"tree and their full w8a8 tree in {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------- 3. kernels against plain
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
@@ -585,8 +989,14 @@ def main() -> None:
     err = compare("fused_log_mel (3001, 128) f32", got, ref, atol=1e-3)
     ms, pms = timed_pair(lambda: fused_mel.fused_log_mel(audio, n_mels=cfg.n_mels),
                          lambda: fused_mel.fused_log_mel_plain(audio, n_mels=cfg.n_mels), 20)
-    rows.append(("fused_log_mel", "tpu_audio_torch/csrc/fused_mel.cu",
-                 "tpu_audio/ops/pallas/fused_mel.py:44", fused_mel, err, ms, pms))
+    basis, fb = fused_mel._constants(cfg.n_mels, dev)
+    frames = got.shape[0]
+    rows.append(kernel_row("fused_log_mel", "tpu_audio_torch/csrc/fused_mel.cu",
+                           "tpu_audio/ops/pallas/fused_mel.py:44", err, ms, pms,
+                           bound({"f32": 2 * frames * (basis.numel() + fb.numel())},
+                                 nbytes(audio, basis, fb, got)), None,
+                           "no one PyTorch call computes a log-mel: torch.stft is the "
+                           "spectrum alone"))
 
     # encoder block 0 at batch 16
     t_audio, d = cfg.n_audio_ctx, cfg.n_audio_state
@@ -600,8 +1010,16 @@ def main() -> None:
     err = max(compare(f"ln_qkv {n} (16, 20, 1500, 64) bf16", g, r, rel=2e-2)
               for n, g, r in zip("qkv", got, ref))
     ms, pms = timed_pair(lambda: fe.ln_qkv(*qkv_args), lambda: fe.ln_qkv_plain(*qkv_args), 10)
-    rows.append(("ln_qkv", "tpu_audio_torch/csrc/fused_encoder.cu",
-                 "tpu_audio/ops/pallas/fused_encoder.py:114", fe, err, ms, pms))
+    m_rows = BATCH * t_audio
+    xn, w_qkv = randn(m_rows, d, dtype=torch.bfloat16), model.qkv_weight[0]
+    lib_ms = time_ms(lambda: torch.matmul(xn, w_qkv.T), 10)
+    rows.append(kernel_row("ln_qkv", "tpu_audio_torch/csrc/fused_encoder.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:114", err, ms, pms,
+                           bound({"bf16": 2 * m_rows * d * 3 * d},
+                                 nbytes(*qkv_args[:5], *got)), lib_ms))
+    log(f"library ln_qkv is torch.matmul of the same bf16 product ({m_rows}, {d}) x "
+        f"({d}, {3 * d}) alone, without the LayerNorm and the head-major scatter")
+    del xn
 
     wo, bo = o["weight"][0], o["bias"][0].float()
     g2, b2 = ln2["weight"][0].float(), ln2["bias"][0].float()
@@ -612,6 +1030,9 @@ def main() -> None:
               for n, g, r in zip(("y", "h"), got, ref))
     ms, pms = timed_pair(lambda: fe.attn_oproj_ln(*attn_args),
                          lambda: fe.attn_oproj_ln_plain(*attn_args), 5)
+    hd = d // cfg.n_audio_head
+    attn_roof = bound({"bf16": 4 * BATCH * cfg.n_audio_head * t_audio * t_audio * hd
+                       + 2 * m_rows * d * d}, nbytes(*attn_args[:8], *got))
     del got, ref, attn_args, qkv_args, x
 
     # In the block above the attention adds ~1 % to the residual x, so y and
@@ -640,8 +1061,10 @@ def main() -> None:
         ("the residual dropped", lambda: plain(x=torch.zeros_like(xa))),
         ("LN2 dropped (h = y)", lambda: (plain()[0],) * 2),
     ], rel=2e-2)
-    rows.append(("attn_oproj_ln", "tpu_audio_torch/csrc/fused_encoder.cu",
-                 "tpu_audio/ops/pallas/fused_encoder.py:207", fe, err, ms, pms))
+    rows.append(kernel_row("attn_oproj_ln", "tpu_audio_torch/csrc/fused_encoder.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:207", err, ms, pms, attn_roof,
+                           None, "no one PyTorch call computes attention, o-projection and "
+                           "LayerNorm; scaled_dot_product_attention is the attention alone"))
     del got, qa, ka, va, xa
 
     # cross-attention decode over int8 K/V of 4 layers at batch 16
@@ -657,16 +1080,25 @@ def main() -> None:
                   ckv.cross_attention_decode_plain(*cross_args, **kw), atol=2e-2)
     ms, pms = timed_pair(lambda: ckv.cross_attention_decode(*cross_args, **kw),
                          lambda: ckv.cross_attention_decode_plain(*cross_args, **kw), 50)
-    rows.append(("cross_attention_decode", "tpu_audio_torch/csrc/cross_kv_attention.cu",
-                 "tpu_audio/ops/pallas/cross_kv_attention.py:112", ckv, err, ms, pms))
+    read = (q, k8[layer, :, :t_audio], v8[layer, :, :t_audio], ks[layer], vs[layer])
+    rows.append(kernel_row("cross_attention_decode", "tpu_audio_torch/csrc/cross_kv_attention.cu",
+                           "tpu_audio/ops/pallas/cross_kv_attention.py:112", err, ms, pms,
+                           bound({"f32": 4 * BATCH * h * t_audio * hd}, nbytes(*read, q)), None,
+                           "no one PyTorch call attends over int8 keys and values with "
+                           "their scales"))
     del k8, v8, ks, vs, cross_args
 
     check_int8_matmul(model_i8, randn, rows)
     check_decoder_step({"int8": model_i8, "bf16": model}, cfg, dev, randn, rows)
-    for name, *_, ms, pms in rows:
-        log(f"time {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms ({card})")
+    check_int8_encoder(model_w8a8, randn, rows)
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ({card})")
+    log(f"phase 3 wall: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------------------- 4. the slice
+    t_phase = time.perf_counter()
     tok = WhisperTokenizer(BPE({bytes([i]): i for i in range(256)}), True,
                            cfg.num_languages)
     rng = np.random.default_rng(SEED)
@@ -757,18 +1189,28 @@ def main() -> None:
         if all(q <= SLICE_RATIO and c > 0.999 for q, c in readings):
             raise AssertionError(f"slice: the check cannot see {label} ({text})")
         log(f"control slice, {label}: {text}: outside the limit")
+    log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------- 5. single stream, 6. mixed
+    t_phase = time.perf_counter()
     single = single_stream(model_i8, tok, clips, mel, dev, card)
     launches.update({name: single[name] for name in
                      ("fused_whisper_decode_step", "int8_matmul", "int8_matmul_stacked")})
-    del model
-    mixed_batch(model_i8, tok, clips, wall, card)
+    log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    walls = {"bf16": wall, "mixed": mixed_batch(model_i8, tok, clips, wall, card)}
+    log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f} s")
+    del model_i8
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for name, src, replaces, _, err, ms, pms in rows]}), flush=True)
+    # ------------------------------------------------------- 7. full w8a8
+    t_phase = time.perf_counter()
+    w8a8 = full_w8a8(model_w8a8, model, tok, clips, dev, walls, card)
+    launches.update({name: w8a8[name] for name in
+                     ("ln_qkv_int8", "attn_oproj_ln_int8", "fc1_gelu_int8", "fc2_residual_int8")})
+    log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f} s")
+
+    print(json.dumps({"kernels": [{**r, "launches": launches[r["name"]]} for r in rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -85,7 +85,7 @@ def test_plain_step_matches_pallas(rng, weights, cache_dtype, pos):
         jnp.asarray(vsc), n_heads=4, hd=64, t_valid=t, interpret=True)
 
     tact = torch.bfloat16 if weights == "bfloat16" else torch.float32
-    dec = params_from_numpy(numpy_tree(params), dtype=tact)["decoder"]
+    dec = params_from_numpy(numpy_tree(params), dtype=tact, device="cpu")["decoder"]
     tdt = getattr(torch, cache_dtype)
     kc, vc = (torch.from_numpy(c).to(tdt) for c in cache)
     before = kc.clone()
@@ -109,7 +109,7 @@ def test_decode_step_rollout_matches_jax(rng, jax_kernels, int8):  # noqa: F811
     most one of the six (near-tie logits of random weights, as the JAX
     package's rollout test allows)."""
     params = decoder_tree(rng, int8)
-    model = tmodel.Whisper(CFG, params_from_numpy(numpy_tree(params)))
+    model = tmodel.Whisper(CFG, params_from_numpy(numpy_tree(params), device="cpu"))
     feats = (rng.standard_normal((1, CFG.n_audio_ctx, 256)) * 0.3).astype(np.float32)
     jstate = jmodel.init_state(params, JCFG, jnp.asarray(feats), kv_int8=True)
     tstate = model.init_state(torch.from_numpy(feats), kv_int8=True)
@@ -132,7 +132,7 @@ def test_decode_step_rollout_matches_jax(rng, jax_kernels, int8):  # noqa: F811
 
 def test_wrapper_refuses_other_devices(rng):
     params = decoder_tree(rng, True)
-    sw = fws.StepWeights.of(params_from_numpy(numpy_tree(params))["decoder"])
+    sw = fws.StepWeights.of(params_from_numpy(numpy_tree(params), device="cpu")["decoder"])
     d = 256
     kc = torch.zeros(2, 16, d, device="meta")
     k8 = torch.zeros(2, 1, 128, d, dtype=torch.int8, device="meta")

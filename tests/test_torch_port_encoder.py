@@ -62,7 +62,8 @@ def test_linear_layer_norm_gelu_embedding(rng):
     ln = {"weight": rng.standard_normal(32).astype(np.float32),
           "bias": rng.standard_normal(32).astype(np.float32)}
     x = rng.standard_normal((2, 5, 32)).astype(np.float32)
-    tp, tln, tx = params_from_numpy(p), params_from_numpy(ln), torch.from_numpy(x)
+    tp, tln = params_from_numpy(p, device="cpu"), params_from_numpy(ln, device="cpu")
+    tx = torch.from_numpy(x)
     np.testing.assert_allclose(layers.linear(tp, tx).numpy(),
                                np.asarray(jlayers.linear(to_jax(p), jnp.asarray(x))), **TOL)
     np.testing.assert_allclose(layers.layer_norm(tln, tx).numpy(),
@@ -74,7 +75,8 @@ def test_linear_layer_norm_gelu_embedding(rng):
     np.testing.assert_array_equal(layers.embedding(tp, torch.from_numpy(ids)).numpy(),
                                   np.asarray(jlayers.embedding(to_jax(p), jnp.asarray(ids))))
     np.testing.assert_allclose(
-        layers.embedding_as_linear(params_from_numpy({"weight": p["weight"]}), tx).numpy(),
+        layers.embedding_as_linear(params_from_numpy({"weight": p["weight"]}, device="cpu"),
+                                   tx).numpy(),
         np.asarray(jlayers.embedding_as_linear({"weight": jnp.asarray(p["weight"])},
                                                jnp.asarray(x))), **TOL)
     assert np.array_equal(layers.sinusoidal_positions(300, 64),
@@ -88,7 +90,7 @@ def test_conv1d_matches_jax_layout(rng, stride):
     tree = {"conv1": {"weight": rng.standard_normal((3, 6, 10)).astype(np.float32),
                       "bias": rng.standard_normal(10).astype(np.float32)}}
     x = rng.standard_normal((2, 20, 6)).astype(np.float32)
-    tp = params_from_numpy(tree)["conv1"]
+    tp = params_from_numpy(tree, device="cpu")["conv1"]
     assert tuple(tp["weight"].shape) == (10, 6, 3)
     got = layers.conv1d(tp, torch.from_numpy(x), stride=stride, padding=1)
     ref = jlayers.conv1d_mxu(to_jax(tree["conv1"]), jnp.asarray(x), stride=stride,
@@ -118,7 +120,7 @@ def test_pack_qkv_weights_is_the_packed_layout(rng):
     """Pair-packed columns [h2g | h2g+1] per group are head-major order, so
     the port's (3D, D) packed weight is exactly the TPU's (D, 3D) transposed."""
     p = block_params(rng, 256)["attn"]
-    w, b = fe.pack_qkv_weights(params_from_numpy(p), 4, torch.float32)
+    w, b = fe.pack_qkv_weights(params_from_numpy(p, device="cpu"), 4, torch.float32)
     jw, jb = jfe.pack_qkv_weights(to_jax(p), 4, jnp.float32)
     np.testing.assert_array_equal(w.numpy(), np.asarray(jw).T)
     np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
@@ -138,7 +140,7 @@ def test_block_phases_match_pallas(rng, t, k_bias):
     jy, jh = jfe.attn_oproj_ln(jq, jk, jv, jnp.asarray(x), jp["attn"]["o"], jp["ln2"],
                                t_valid=t, block_q=128, interpret=True)
 
-    tp = params_from_numpy(p)
+    tp = params_from_numpy(p, device="cpu")
     w, bias = fe.pack_qkv_weights(tp["attn"], n_heads, torch.float32)
     tx = torch.from_numpy(x)
     q, k, v = fe.ln_qkv(tx, tp["ln1"]["weight"], tp["ln1"]["bias"], w, bias, n_heads)
@@ -174,7 +176,7 @@ def test_attn_oproj_ln_masks_keys_past_t_valid(rng):
 
 def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices(rng):
     d, n_heads = 128, 2
-    p = params_from_numpy(block_params(rng, d))
+    p = params_from_numpy(block_params(rng, d), device="cpu")
     w, bias = fe.pack_qkv_weights(p["attn"], n_heads, torch.float32)
     x = torch.from_numpy(rng.standard_normal((1, 8, d)).astype(np.float32))
     before = dict(fe.LAUNCHES)

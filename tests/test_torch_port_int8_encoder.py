@@ -1,0 +1,385 @@
+"""PyTorch port, the full-w8a8 Whisper encoder against the JAX package on
+the CPU: the plain versions of the four W8A8 encoder-block kernels
+(`ops/kernels/fused_encoder_int8.py`) against the Pallas kernels in
+interpret mode, the whole int8 `Whisper.encode` against the JAX `encode`
+with its int8 kernels patched on, and decoding on the full w8a8 tree
+through `transcribe_windows` and `SegmentDecoder`.
+
+Tiny widths: d 256, 4 heads of 64 (two head pairs), ff 512 for the kernels,
+T = 200 and 600, which the JAX wrappers pad to 256 and 640 and the port does
+not: only the first T rows of JAX's outputs are compared.
+
+Tolerances. Every int32 sum is exact on both sides, so the outputs differ
+only where an f32 value feeding a row quantisation differs in its last bit
+(two sums in another order) and lands on the other side of a rounding
+boundary: that moves one code by one step and a whole row's outputs by
+about a quantisation step. So the kernels' bf16-free outputs are held
+`quantised_close`: at least 99 % of the entries within 1e-5 of max|ref|
+and all of them within 5e-3 (measured: at most 0.25 % beyond 1e-5, max
+2.8e-4 for y and h, 1.2e-3 for q, k, v at T = 600). Row-wide instead of
+per-pair quantisation of the attention output puts ~97 % of y's entries
+beyond 1e-5; the test shows that it fails. fc1's codes may differ by one
+step in at most 1 % of the entries (the exact erf against the TPU kernel's
+rational erf), its row scales by rel 1e-6 where a row's codes agree; fc2 is
+held at rel 1e-5.
+"""
+
+import functools
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_port_encoder import packed_to_head_major
+from tests.test_torch_port_int8 import jax_kernels  # noqa: F401
+from tests.test_torch_port_pipeline import same_features, tokenizers
+from tpu_audio.models.whisper import batch as jbatch
+from tpu_audio.models.whisper import decoding as jdecoding
+from tpu_audio.models.whisper import load as jload
+from tpu_audio.models.whisper import model as jmodel
+from tpu_audio.models.whisper.config import WhisperConfig as JWhisperConfig
+from tpu_audio.ops import quant as jquant
+from tpu_audio.ops.pallas import fused_encoder as jfe
+from tpu_audio_torch.convert import params_from_numpy
+from tpu_audio_torch.models.whisper import batch as tbatch
+from tpu_audio_torch.models.whisper import decoding as tdecoding
+from tpu_audio_torch.models.whisper import load as tload
+from tpu_audio_torch.models.whisper import model as tmodel
+from tpu_audio_torch.models.whisper import pipeline as tpipeline
+from tpu_audio_torch.models.whisper.config import WhisperConfig
+from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+from tpu_audio_torch.ops.kernels.int8_matmul import quantize_rows
+from tpu_audio_torch.ops.kvcache import KVCache
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+D, HEADS, FF = 256, 4, 512
+JAX_KERNELS = ("ln_qkv_packed_int8", "attn_oproj_ln_int8", "fc1_gelu_int8",
+               "fc2_residual_int8")
+DIMS = dict(n_mels=80, n_audio_ctx=300, n_audio_state=256, n_audio_head=4,
+            n_audio_layer=2, n_vocab=51865, n_text_ctx=16, n_text_state=256,
+            n_text_head=4, n_text_layer=2)
+
+
+def rel(got, ref) -> np.ndarray:
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    return np.abs(got - ref) / np.abs(ref).max()
+
+
+def quantised_close(got, ref, share=0.01, tight=1e-5, loose=5e-3) -> bool:
+    """At least 1 - share of the entries within `tight` of max|ref|, and all
+    of them within `loose` (see the module docstring)."""
+    e = rel(got, ref)
+    return e.max() <= loose and (e > tight).mean() <= share
+
+
+def cosine(a, b) -> float:
+    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.fixture
+def jax_encoder_kernels(monkeypatch):
+    """The JAX package's four int8 encoder kernels in interpret mode, their
+    TPU gates on: without this the JAX `encode` on the CPU takes the per-op
+    path, which multiplies by dequantised weights."""
+    for name in JAX_KERNELS:
+        monkeypatch.setattr(jfe, name, functools.partial(getattr(jfe, name), interpret=True))
+    monkeypatch.setattr(jfe, "supported_int8", lambda *a, **k: True)
+    monkeypatch.setattr(jfe, "probe_int8", lambda *a, **k: True)
+
+
+@pytest.fixture(scope="module")
+def block():
+    """One int8 encoder block (random fp weights, then per-channel int8;
+    random LayerNorm parameters) in both packages' layouts."""
+    rng = np.random.default_rng(0)
+
+    def lin(o, i, bias=True):
+        w = rng.standard_normal((o, i)).astype(np.float32) * 0.05
+        p = dict(jquant.quantize_array_int8(w))
+        if bias:
+            p["bias"] = rng.standard_normal((o,)).astype(np.float32) * 0.05
+        return p
+
+    def norm():
+        return {"weight": (1 + 0.1 * rng.standard_normal(D)).astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(D)).astype(np.float32)}
+
+    tree = {"attn": {"q": lin(D, D), "k": lin(D, D, bias=False), "v": lin(D, D),
+                     "o": lin(D, D)},
+            "mlp": {"fc1": lin(FF, D), "fc2": lin(D, FF)}, "ln1": norm(), "ln2": norm()}
+    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, device="cpu")
+
+
+def run_jax_block(jp, x, t):
+    """The four JAX kernels on x (B, t, D); q, k, v come back head-major."""
+    jq, jk, jv = jfe.ln_qkv_packed_int8(jnp.asarray(x), jp["ln1"], jp["attn"], HEADS,
+                                        block_t=128, interpret=True)
+    jy, jh = jfe.attn_oproj_ln_int8(jq, jk, jv, jnp.asarray(x), jp["attn"]["o"], jp["ln2"],
+                                    t_valid=t, block_q=128, interpret=True)
+    jg, jsg = jfe.fc1_gelu_int8(jh, jp["mlp"]["fc1"], block_t=128, interpret=True)
+    jout = jfe.fc2_residual_int8(jg, jsg, jy, jp["mlp"]["fc2"], block_t=128, interpret=True)
+    qkv = [torch.from_numpy(packed_to_head_major(a, t).copy()) for a in (jq, jk, jv)]
+    return qkv, jy, jh, jg, jsg, jout
+
+
+@pytest.fixture(scope="module", params=[200, 600])
+def jax_block(request, block):
+    jp, _ = block
+    t = request.param
+    x = (np.random.default_rng(t).standard_normal((2, t, D)) * 0.3).astype(np.float32)
+    return t, x, run_jax_block(jp, x, t)
+
+
+def oproj_args(tp):
+    o = tp["attn"]["o"]
+    return o["weight_i8"], o["scale_i8"], o["bias"], tp["ln2"]["weight"], tp["ln2"]["bias"]
+
+
+# ------------------------------------------------------------ the kernels
+
+def test_pack_qkv_weights_int8_is_the_packed_layout(block):
+    """The port's (3D, D) codes are the TPU's pair-packed (D, 3D) transposed
+    (pair-packed columns are head-major order); scales and bias equal."""
+    jp, tp = block
+    w, cs, b = fe8.pack_qkv_weights_int8(tp["attn"], HEADS)
+    jw, jcs, jb = jfe.pack_qkv_weights_int8(jp["attn"], HEADS)
+    assert w.dtype == torch.int8 and cs.dtype == b.dtype == torch.float32
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw).T)
+    np.testing.assert_array_equal(cs.numpy(), np.asarray(jcs))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+
+
+def test_ln_qkv_int8_plain_matches_pallas(block, jax_block):
+    _, tp = block
+    t, x, (qkv_ref, *_) = jax_block
+    w, cs, b = fe8.pack_qkv_weights_int8(tp["attn"], HEADS)
+    got = fe8.ln_qkv_int8(torch.from_numpy(x), tp["ln1"]["weight"], tp["ln1"]["bias"],
+                          w, cs, b, HEADS)
+    for g, r in zip(got, qkv_ref):
+        assert tuple(g.shape) == (2, HEADS, t, D // HEADS)
+        assert quantised_close(g.numpy(), r.numpy()), rel(g.numpy(), r.numpy()).max()
+
+
+def per_row_oproj(q, k, v, x, wo, cso, bo, g2, b2, t_valid):
+    """attn_oproj_ln_int8 with the attention output quantised over the
+    whole row instead of per head pair (the XLA w8a8 path's rule)."""
+    b, h, t, hd = q.shape
+    a = fe.attention_plain(q, k, v, t_valid).transpose(1, 2).reshape(b, t, h * hd)
+    aq, sa = quantize_rows(a)
+    y = x + bo + fe8._s8_product(aq, wo) * sa * cso.reshape(-1)
+    return y, fe8._ln_f32(y, g2, b2, 1e-5)
+
+
+def test_attn_oproj_ln_int8_plain_matches_pallas(block, jax_block):
+    """Per-pair quantisation: y and h quantised_close to the TPU kernel; the
+    same with row-wide quantisation is not."""
+    _, tp = block
+    t, x, (qkv, jy, jh, *_) = jax_block
+    args = (*qkv, torch.from_numpy(x), *oproj_args(tp))
+    y, h = fe8.attn_oproj_ln_int8(*args, t_valid=t)
+    for g, r in ((y, jy), (h, jh)):
+        assert quantised_close(g.numpy(), np.asarray(r)), rel(g.numpy(), r).max()
+    y_row, h_row = per_row_oproj(*args, t_valid=t)
+    for g, r in ((y_row, jy), (h_row, jh)):
+        assert not quantised_close(g.numpy(), np.asarray(r))
+        assert (rel(g.numpy(), r) > 1e-5).mean() > 0.5
+
+
+def test_fc1_gelu_int8_plain_matches_pallas(block, jax_block):
+    _, tp = block
+    t, _, (_, _, jh, jg, jsg, _) = jax_block
+    f1 = tp["mlp"]["fc1"]
+    codes, sg = fe8.fc1_gelu_int8(torch.from_numpy(np.asarray(jh)), f1["weight_i8"],
+                                  f1["scale_i8"], f1["bias"])
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (2, t, FF)
+    assert sg.dtype == torch.float32 and tuple(sg.shape) == (2, t, 1)
+    jg, jsg = np.asarray(jg)[:, :t].astype(np.int32), np.asarray(jsg)[:, :t]
+    step = np.abs(codes.numpy().astype(np.int32) - jg)
+    assert step.max() <= 1 and (step > 0).mean() <= 0.01
+    same = (step == 0).all(axis=-1)
+    np.testing.assert_allclose(sg.numpy()[same], jsg[same], rtol=1e-6)
+
+
+def test_fc2_residual_int8_plain_matches_pallas(block, jax_block):
+    _, tp = block
+    t, _, (_, jy, _, jg, jsg, jout) = jax_block
+    f2 = tp["mlp"]["fc2"]
+    got = fe8.fc2_residual_int8(torch.from_numpy(np.asarray(jg)[:, :t].copy()),
+                                torch.from_numpy(np.asarray(jsg)[:, :t].copy()),
+                                torch.from_numpy(np.asarray(jy)), f2["weight_i8"],
+                                f2["scale_i8"], f2["bias"])
+    assert rel(got.numpy(), jout).max() <= 1e-5
+
+
+def test_attn_oproj_ln_int8_masks_keys_past_t_valid(block):
+    _, tp = block
+    rng = np.random.default_rng(1)
+    t, t_valid = 40, 25
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, HEADS, t, 64)).astype(np.float32))
+               for _ in range(3))
+    x = torch.from_numpy(rng.standard_normal((1, t, D)).astype(np.float32))
+    y, _ = fe8.attn_oproj_ln_int8(q, k, v, x, *oproj_args(tp), t_valid=t_valid)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, t_valid:] = 100.0
+    v2[:, :, t_valid:] = -100.0
+    y2, _ = fe8.attn_oproj_ln_int8(q, k2, v2, x, *oproj_args(tp), t_valid=t_valid)
+    # held quantised_close, not bit-equal: the CPU matmul's summation order
+    # may differ between the two calls, and a last-bit change can move a code
+    assert quantised_close(y2.numpy(), y.numpy())
+    y3, _ = fe8.attn_oproj_ln_int8(q, k2, v2, x, *oproj_args(tp), t_valid=t)
+    assert not quantised_close(y3.numpy(), y.numpy())
+
+
+# ------------------------------------------------------- the whole encoder
+
+def w8a8_trees(**dims):
+    """The full w8a8 serving tree (int8 encoder, decoder and lm head) of one
+    JAX init, in both packages."""
+    jcfg = JWhisperConfig(**{**DIMS, **dims})
+    jp = jload.serve_tree_int8(jmodel.init_params(jax.random.PRNGKey(0), jcfg))
+    model = tmodel.Whisper(WhisperConfig(**{**DIMS, **dims}),
+                           params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"))
+    return jp, jcfg, model
+
+
+@pytest.fixture(scope="module")
+def encoder_trees():
+    return w8a8_trees()
+
+
+def test_int8_encode_matches_the_jax_kernels(encoder_trees, jax_encoder_kernels, monkeypatch):
+    """`Whisper.encode` on the int8 tree against the JAX `encode` through
+    its four kernels, 2 blocks at T = 300: a code that moves in block 1
+    moves its row in block 2, so up to 20 % of the entries may lie beyond
+    1e-4 of max|ref| (measured 8.8 %), all within 5e-3 (measured 2.9e-3),
+    cosine > 0.99999. The JAX per-op path (dequantised weights, not what the
+    kernels compute) fails the same limit."""
+    jp, jcfg, model = encoder_trees
+    mel = (np.random.default_rng(0).standard_normal((2, 600, 80)) * 0.5).astype(np.float32)
+    ref = np.asarray(jmodel.encode(jp, jcfg, jnp.asarray(mel)))
+    got = model.encode(torch.from_numpy(mel)).numpy()
+    assert got.shape == (2, 300, 256)
+    assert quantised_close(got, ref, share=0.2, tight=1e-4)
+    assert cosine(got, ref) > 0.99999
+    monkeypatch.setattr(jfe, "supported_int8", lambda *a, **k: False)
+    monkeypatch.setattr(jfe, "supported", lambda *a, **k: False)
+    per_op = np.asarray(jmodel.encode(jp, jcfg, jnp.asarray(mel)))
+    assert not quantised_close(got, per_op, share=0.2, tight=1e-4)
+
+
+def test_w8a8_tree_runs_the_four_int8_kernels_per_block(encoder_trees, monkeypatch):
+    """Whisper builds on the full w8a8 tree; one `encode` calls each int8
+    wrapper once per block and no bf16 encoder wrapper, and on CPU tensors
+    nothing launches."""
+    _, _, model = encoder_trees
+    assert model.int8_encoder and model.qkv_weight.dtype == torch.int8
+    calls = {name: 0 for name in (*fe8.LAUNCHES, *fe.LAUNCHES)}
+    for mod in (fe8, fe):
+        for name in mod.LAUNCHES:
+            def spy(*args, _fn=getattr(mod, name), _name=name, **kwargs):
+                calls[_name] += 1
+                return _fn(*args, **kwargs)
+            monkeypatch.setattr(mod, name, spy)
+    launches = dict(fe8.LAUNCHES)
+    model.encode(torch.zeros(1, 600, 80))
+    assert calls == {**{n: DIMS["n_audio_layer"] for n in fe8.LAUNCHES},
+                     **{n: 0 for n in fe.LAUNCHES}}
+    assert fe8.LAUNCHES == launches
+    mixed = tload.serve_tree_int8(tmodel.init_params(0, WhisperConfig(**DIMS), device="cpu"))
+    mixed["encoder"]["blocks"]["mlp"]["fc2"] = {"weight": torch.zeros(2, 256, 1024),
+                                                "bias": torch.zeros(2, 256)}
+    with pytest.raises(ValueError, match="all int8 or all fp"):
+        tmodel.Whisper(WhisperConfig(**DIMS), mixed)
+
+
+# ------------------------------------------------- decoding, the full tree
+
+def test_segment_decoder_on_the_w8a8_tree_matches(encoder_trees, jax_kernels,  # noqa: F811
+                                                  monkeypatch):
+    """Greedy B=1 decode on the full w8a8 tree, int8 cross-K/V, both
+    packages fed the same encoder features (int8 activations amplify
+    last-bit differences of two encoders): tokens equal, log-probs within
+    1e-4."""
+    jp, jcfg, model = encoder_trees
+    mel = (np.random.default_rng(3).standard_normal((600, 80)) * 0.5).astype(np.float32)
+    same_features(monkeypatch, model, jp, jcfg, mel)
+    ttok, jtok = tokenizers()
+    got = tdecoding.SegmentDecoder(model, ttok, torch.float32, kv_int8=True).decode(
+        mel, temperature=0.0)
+    ref = jdecoding.SegmentDecoder(jp, jcfg, jtok, jnp.float32, kv_int8=True).decode(
+        mel, temperature=0.0)
+    assert got.tokens == ref.tokens and len(got.tokens) > 0
+    assert got.avg_logprob == pytest.approx(ref.avg_logprob, abs=1e-4)
+    assert got.no_speech_prob == pytest.approx(ref.no_speech_prob, abs=1e-4)
+
+
+def test_transcribe_windows_on_the_w8a8_tree_matches(jax_kernels, monkeypatch):  # noqa: F811
+    """Batch transcription of 2 clips (3 windows, one batch of 4) on the
+    full w8a8 tree in f32 with float cross-K/V, both packages fed the same
+    encoder features: the same texts."""
+    jp, jcfg, model = w8a8_trees(n_audio_ctx=1500)
+    feats = (np.random.default_rng(5).standard_normal((4, 1500, 256)) * 0.5).astype(np.float32)
+    monkeypatch.setattr(jmodel, "encode", lambda *args: jnp.asarray(feats))
+    monkeypatch.setattr(model, "encode", lambda m: torch.from_numpy(feats).to(m.dtype))
+    monkeypatch.setattr(jbatch, "BatchSegmentDecoder",
+                        functools.partial(jbatch.BatchSegmentDecoder, compute_dtype=jnp.float32))
+    monkeypatch.setattr(tbatch, "BatchSegmentDecoder",
+                        functools.partial(tbatch.BatchSegmentDecoder,
+                                          compute_dtype=torch.float32))
+    rng = np.random.default_rng(6)
+    clips = [(rng.standard_normal(16000 * 2) * 0.1).astype(np.float32),
+             (rng.standard_normal(16000 * 35) * 0.1).astype(np.float32)]
+    ttok, jtok = tokenizers()
+    got, results = tbatch.transcribe_windows(model, ttok, clips, batch_size=4,
+                                             return_results=True)
+    ref = jbatch.transcribe_windows(jp, jcfg, jtok, clips, batch_size=4)
+    assert len(results) == 3 and all(len(r.tokens) > 0 for r in results)
+    assert got == ref
+
+
+# ------------------------------------------------------------- the surface
+
+def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices(block):
+    _, tp = block
+    x = torch.zeros(1, 8, D)
+    w, cs, b = fe8.pack_qkv_weights_int8(tp["attn"], HEADS)
+    ln1, f1, f2 = tp["ln1"], tp["mlp"]["fc1"], tp["mlp"]["fc2"]
+    before = dict(fe8.LAUNCHES)
+    q, k, v = fe8.ln_qkv_int8(x, ln1["weight"], ln1["bias"], w, cs, b, HEADS)
+    y, h = fe8.attn_oproj_ln_int8(q, k, v, x, *oproj_args(tp), t_valid=8)
+    g, sg = fe8.fc1_gelu_int8(h, f1["weight_i8"], f1["scale_i8"], f1["bias"])
+    fe8.fc2_residual_int8(g, sg, y, f2["weight_i8"], f2["scale_i8"], f2["bias"])
+    assert fe8.LAUNCHES == before
+    meta = {name: a.to("meta") for name, a in (("x", x), ("q", q), ("h", h), ("g", g))}
+    for call in (
+            lambda: fe8.ln_qkv_int8(meta["x"], ln1["weight"], ln1["bias"], w, cs, b, HEADS),
+            lambda: fe8.attn_oproj_ln_int8(meta["q"], k, v, x, *oproj_args(tp), t_valid=8),
+            lambda: fe8.fc1_gelu_int8(meta["h"], f1["weight_i8"], f1["scale_i8"], f1["bias"]),
+            lambda: fe8.fc2_residual_int8(meta["g"], sg, y, f2["weight_i8"], f2["scale_i8"],
+                                          f2["bias"])):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_constructors_default_to_the_card():
+    """The port's entry points build on the card unless the caller asks
+    for the CPU; without a card, leaving the device out fails instead of
+    running on the CPU."""
+    for fn in (params_from_numpy, tmodel.init_params, tpipeline.MelExtractor,
+               KVCache.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    cfg = WhisperConfig(n_audio_state=64, n_audio_head=2, n_audio_layer=1,
+                        n_text_state=64, n_text_head=2, n_text_layer=1)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tmodel.init_params(0, cfg)
+        with pytest.raises((RuntimeError, AssertionError)):
+            KVCache.create(1, 1, 4, 2, 4)

@@ -55,7 +55,7 @@ def build(int8: bool, **dims):
     if int8:
         params = jload.serve_tree_int8(params, encoder=False)
     model = tmodel.Whisper(WhisperConfig(**{**DIMS, **dims}),
-                           params_from_numpy(jax.tree.map(np.asarray, params)))
+                           params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"))
     return params, jcfg, model
 
 

@@ -52,7 +52,7 @@ def cosine(a, b) -> float:
 @pytest.fixture(scope="module")
 def setup():
     jparams = jmodel.init_params(jax.random.PRNGKey(0), JCFG)
-    model = tmodel.Whisper(CFG, params_from_numpy(jax.tree.map(np.asarray, jparams)))
+    model = tmodel.Whisper(CFG, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"))
     rng = np.random.default_rng(0)
     mel = (rng.standard_normal((2, 2 * CFG.n_audio_ctx, CFG.n_mels)) * 0.1).astype(np.float32)
     feats = np.array(jmodel.encode(jparams, JCFG, jnp.asarray(mel)))
@@ -81,7 +81,7 @@ def test_params_from_numpy_keeps_the_tree(setup):
 
 def test_init_params_has_the_jax_tree():
     jparams = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), JCFG))
-    tparams = tmodel.init_params(0, CFG)
+    tparams = tmodel.init_params(0, CFG, device="cpu")
     jflat = {jax.tree_util.keystr(p): leaf.shape
              for p, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]}
     tflat = {jax.tree_util.keystr(p): tuple(leaf.shape)
@@ -163,7 +163,7 @@ def test_temperature_sampling_uses_the_generator(setup):
 def test_transcribe_windows_multi_clip():
     ttok, _ = byte_tokenizers()
     cfg = WhisperConfig(**{**DIMS, "n_audio_ctx": 1500})
-    full = tmodel.Whisper(cfg, tmodel.init_params(1, cfg))
+    full = tmodel.Whisper(cfg, tmodel.init_params(1, cfg, device="cpu"))
     rng = np.random.default_rng(1)
     clips = [np.zeros(16000 * 2, np.float32),
              (rng.standard_normal(16000 * 35) * 0.1).astype(np.float32)]
@@ -174,7 +174,7 @@ def test_transcribe_windows_multi_clip():
 
 
 def test_kv_cache_updates_in_place():
-    cache = KVCache.create(2, 1, 8, 2, 4, dtype=torch.float32)
+    cache = KVCache.create(2, 1, 8, 2, 4, dtype=torch.float32, device="cpu")
     k = torch.ones(1, 3, 2, 4)
     cache.write(1, k, 2 * k)
     cache.advance(3)
@@ -217,7 +217,7 @@ def test_port_imports_without_jax():
         "from tpu_audio_torch.models.whisper.config import WhisperConfig\n"
         "cfg = WhisperConfig(n_audio_state=64, n_audio_head=2, n_audio_layer=1,\n"
         "                    n_text_state=64, n_text_head=2, n_text_layer=1)\n"
-        "m = model.Whisper(cfg, model.init_params(0, cfg))\n"
+        "m = model.Whisper(cfg, model.init_params(0, cfg, device='cpu'))\n"
         "assert not [k for k in sys.modules if k.split('.')[0] == 'tpu_audio'], 'tpu_audio'\n"
         "print('ok', sum(p.numel() for p in m.parameters()))\n")
     proc = _run_isolated(code)

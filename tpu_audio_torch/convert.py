@@ -33,10 +33,11 @@ def _leaf(a, conv: bool, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: dict, device: torch.device | str = "cpu",
+def params_from_numpy(tree: dict, device: torch.device | str = "cuda",
                       dtype: torch.dtype = torch.float32,
                       _conv: bool = False) -> dict:
-    """JAX param pytree → the port's parameter tree on `device`, floating
+    """JAX param pytree → the port's parameter tree on `device` (the card
+    unless the caller asks for the CPU), floating
     leaves cast to `dtype` (int8 scales stay float32). A "weight" leaf
     under a key starting with "conv" is a convolution kernel and is
     transposed (K, I, O) → (O, I, K)."""

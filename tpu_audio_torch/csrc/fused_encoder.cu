@@ -11,7 +11,9 @@
 //                  masked, f32 softmax, division after PV), then that head's
 //                  slice of the o-projection accumulated in f32 into a
 //                  (16, D) shared-memory accumulator that starts at x + bias;
-//                  finally y = acc (bf16) and h = LayerNorm2(acc).
+//                  finally y = acc (bf16) and h = LayerNorm2(acc). The
+//                  per-head attention is `attention_tile.cuh`, shared with
+//                  the int8 kernel of fused_encoder_int8.cu.
 //
 // Bound on the H100: tensor-core arithmetic. At large-v3-turbo batch 16
 // (B*T = 24000 rows, D = 1280, 20 heads) one block is 236 GFLOP of QKV GEMM,
@@ -33,10 +35,12 @@
 
 #include <cstdint>
 
+#include "attention_tile.cuh"
 #include "common.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+namespace attn = tpa::attn;
 
 namespace {
 
@@ -149,38 +153,11 @@ ln_qkv_kernel(const bf16* __restrict__ x,         // (M, D), M = B*T
 }
 
 // ----------------------------------------------------------- attn_oproj_ln
-namespace ao {
-constexpr int BQ = 16, BKV = 64, HD = 64, kThreads = 128, kWarps = 4;
-constexpr int LDH = HD + 8;   // bf16 tiles (q, k, v, p)
-constexpr int LDS = BKV + 4;  // f32 score tile
-constexpr int LDO = HD + 4;   // f32 per-head output tile
-constexpr float kMasked = -1e30f;
-inline int smem_bytes(int d) {
-  return BQ * (d + 4) * 4            // o-projection accumulator
-         + BQ * LDH * 2              // q tile, then the head's attention output
-         + 2 * BKV * LDH * 2         // k, v tiles
-         + BQ * LDS * 4              // scores
-         + BQ * LDH * 2              // probabilities (bf16)
-         + BQ * LDO * 4              // running PV sum
-         + 2 * BQ * 4;               // running max and sum
-}
-}  // namespace ao
-
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int rows,
-                                          int n_rows) {
-  // rows x HD bf16 from src (row stride HD) into dst (row stride LDH); rows past
-  // n_rows are zero.
-  using namespace ao;
-  for (int i = threadIdx.x; i < rows * HD / 8; i += kThreads) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<long>(row0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+inline int attn_smem_bytes(int d) {
+  return attn::BQ * (d + 4) * 4 + attn::kTileBytes;  // o-projection accumulator + tile
 }
 
-__global__ void __launch_bounds__(ao::kThreads)
+__global__ void __launch_bounds__(attn::kThreads)
 attn_oproj_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,           // (B, H, T, HD)
                      const bf16* __restrict__ x,           // (B, T, D) residual
@@ -189,22 +166,15 @@ attn_oproj_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ g2, const float* __restrict__ b2,  // (D)
                      bf16* __restrict__ y, bf16* __restrict__ hout,  // (B, T, D)
                      int T, int H, int t_valid, float eps) {
-  using namespace ao;
+  using namespace attn;
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * HD;
   const int lda = D + 4;
   float* acc = reinterpret_cast<float*>(smem);          // BQ x lda
-  bf16* Qs = reinterpret_cast<bf16*>(acc + BQ * lda);    // BQ x LDH
-  bf16* Ks = Qs + BQ * LDH;                              // BKV x LDH
-  bf16* Vs = Ks + BKV * LDH;                             // BKV x LDH
-  float* Ss = reinterpret_cast<float*>(Vs + BKV * LDH);  // BQ x LDS
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * LDS);     // BQ x LDH
-  float* Os = reinterpret_cast<float*>(Ps + BQ * LDH);   // BQ x LDO
-  float* row_m = Os + BQ * LDO;                          // BQ
-  float* row_l = row_m + BQ;                             // BQ
+  const Tile tile = carve(smem + BQ * lda * 4);
 
   const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
@@ -214,90 +184,13 @@ attn_oproj_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   for (int hh = 0; hh < H; ++hh) {
-    const long head = (static_cast<long>(b) * H + hh) * T * HD;
-    load_rows(Qs, q + head, q0, BQ, T);
-    for (int i = tid; i < BQ * HD; i += kThreads) Os[(i / HD) * LDO + i % HD] = 0.f;
-    if (tid < BQ) {
-      row_m[tid] = kMasked;
-      row_l[tid] = 0.f;
-    }
-    __syncthreads();
-
-    for (int kv0 = 0; kv0 < t_valid; kv0 += BKV) {
-      load_rows(Ks, k + head, kv0, BKV, T);
-      load_rows(Vs, v + head, kv0, BKV, T);
-      __syncthreads();
-
-      {  // S = Q K^T; warp w owns key columns [16w, 16w + 16)
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-        wmma::fill_fragment(s, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < HD; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(a, Qs + kk, LDH);
-          wmma::load_matrix_sync(bk, Ks + warp * 16 * LDH + kk, LDH);
-          wmma::mma_sync(s, a, bk, s);
-        }
-        wmma::store_matrix_sync(Ss + warp * 16, s, LDS, wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      {  // online softmax: 8 threads per query row, 8 keys each
-        const int r = tid >> 3, sub = tid & 7;
-        float sv[8];
-        float mx = kMasked;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = sub * 8 + j;
-          sv[j] = kv0 + c < t_valid ? Ss[r * LDS + c] : kMasked;
-          mx = fmaxf(mx, sv[j]);
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-        const float m_old = row_m[r];
-        const float m_new = fmaxf(m_old, mx);
-        const float corr = expf(m_old - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float p = sv[j] <= kMasked ? 0.f : expf(sv[j] - m_new);
-          psum += p;
-          Ps[r * LDH + sub * 8 + j] = __float2bfloat16(p);
-          Os[r * LDO + sub * 8 + j] *= corr;
-        }
-        psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-        psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-        psum += __shfl_xor_sync(0xffffffffu, psum, 4);
-        __syncwarp();
-        if (sub == 0) {
-          row_m[r] = m_new;
-          row_l[r] = row_l[r] * corr + psum;
-        }
-      }
-      __syncthreads();
-
-      {  // O += P V; warp w owns output channels [16w, 16w + 16)
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-        wmma::load_matrix_sync(o, Os + warp * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BKV; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(a, Ps + kk, LDH);
-          wmma::load_matrix_sync(bv, Vs + kk * LDH + warp * 16, LDH);
-          wmma::mma_sync(o, a, bv, o);
-        }
-        wmma::store_matrix_sync(Os + warp * 16, o, LDO, wmma::mem_row_major);
-      }
-      __syncthreads();
-    }
+    const long off = (static_cast<long>(b) * H + hh) * T * HD;
+    attn::head(tile, q + off, k + off, v + off, q0, T, t_valid);
 
     // this head's attention output (bf16) replaces the q tile
     for (int i = tid; i < BQ * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
-      Qs[r * LDH + c] = __float2bfloat16(Os[r * LDO + c] / row_l[r]);
+      tile.q[r * LDH + c] = __float2bfloat16(tile.o[r * LDO + c] / tile.l[r]);
     }
     __syncthreads();
 
@@ -309,7 +202,7 @@ attn_oproj_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < HD; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        wmma::load_matrix_sync(a, Qs + kk, LDH);
+        wmma::load_matrix_sync(a, tile.q + kk, LDH);
         wmma::load_matrix_sync(bw, wo + static_cast<long>(n0) * D + hh * HD + kk, D);
         wmma::mma_sync(c, a, bw, c);
       }
@@ -318,26 +211,7 @@ attn_oproj_ln_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  // y = acc; h = LayerNorm2(acc), statistics in f32 (two passes)
-  for (int r = warp; r < BQ; r += kWarps) {
-    const int t = q0 + r;
-    if (t >= T) continue;
-    const float* row = acc + r * lda;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += row[c];
-    const float mu = tpa::warp_sum(s) / D;
-    float ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mu;
-      ss += d * d;
-    }
-    const float rstd = rsqrtf(tpa::warp_sum(ss) / D + eps);
-    const long o = (static_cast<long>(b) * T + t) * D;
-    for (int c = lane; c < D; c += 32) {
-      y[o + c] = __float2bfloat16(row[c]);
-      hout[o + c] = __float2bfloat16((row[c] - mu) * rstd * g2[c] + b2[c]);
-    }
-  }
+  store_y_ln(acc, lda, g2, b2, y, hout, b, q0, T, D, eps);
 }
 
 }  // namespace
@@ -359,11 +233,11 @@ extern "C" int tpa_attn_oproj_ln(const bf16* q, const bf16* k, const bf16* v, co
                                  const bf16* wo, const float* bo, const float* g2,
                                  const float* b2, bf16* y, bf16* h, int batch, int T, int H,
                                  int t_valid, float eps, cudaStream_t stream) {
-  const int smem = ao::smem_bytes(H * ao::HD);
+  const int smem = attn_smem_bytes(H * tpa::attn::HD);
   cudaError_t err = tpa::allow_smem(attn_oproj_ln_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + ao::BQ - 1) / ao::BQ, batch);
-  attn_oproj_ln_kernel<<<grid, ao::kThreads, smem, stream>>>(q, k, v, x, wo, bo, g2, b2, y, h,
+  const dim3 grid((T + tpa::attn::BQ - 1) / tpa::attn::BQ, batch);
+  attn_oproj_ln_kernel<<<grid, tpa::attn::kThreads, smem, stream>>>(q, k, v, x, wo, bo, g2, b2, y, h,
                                                              T, H, t_valid, eps);
   return static_cast<int>(cudaGetLastError());
 }

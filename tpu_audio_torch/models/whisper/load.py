@@ -18,9 +18,9 @@ def serve_tree_int8(tree: dict, decoder: bool = True,
     {"weight_i8", "scale_i8"} dicts; convs, norms, biases and positions
     stay as they are. Stacked (L, O, I) leaves keep the JAX layout.
 
-    `Whisper` runs an int8 decoder; an int8 encoder (`encoder=True`) needs
-    the w8a8 encoder kernels, which are not ported yet (ROADMAP B3), and
-    `Whisper` raises on it."""
+    `Whisper` runs both halves: an int8 decoder through the int8 matmul
+    kernels, an int8 encoder (`encoder=True`, the full w8a8 tree) through
+    the W8A8 encoder-block kernels (`ops/kernels/fused_encoder_int8.py`)."""
     out = {**tree}
     if encoder:
         enc = quant.requantize_tree_int8(tree["encoder"])

@@ -10,19 +10,21 @@ TextDecoder.swift:17-97, MultiHeadAttention.swift:85-135):
   attention scale (d/h)^-0.25 applied to BOTH q and k before the product.
 
 `Whisper` holds the JAX tree's parameters with the same keys and the
-stacked (L, …) block layout. Every encoder block runs through the two
-fused-encoder kernels (`ops/kernels/fused_encoder.py`) and torch's GELU
-MLP. Over an int8 cross-K/V state, a single-token step at B=1 runs the
-whole decoder in one launch (`ops/kernels/fused_whisper_step.py`), for fp
-and int8 decoder weights alike; at B ≥ 2 it runs the cross-attention
-kernel (`ops/kernels/cross_kv_attention.py`) per layer; prefill
-dequantises per layer.
+stacked (L, …) block layout. An fp encoder block runs through the two
+bf16 fused-encoder kernels (`ops/kernels/fused_encoder.py`) and torch's
+GELU MLP; an int8 one (`load.serve_tree_int8`, the w8a8 serving tree)
+through the four W8A8 kernels (`ops/kernels/fused_encoder_int8.py`:
+LN + QKV, attention + o-projection + LN2, fc1 + GELU, fc2 + residual), as
+the JAX package's `_encode_blocks_fused_int8`. Over an int8 cross-K/V
+state, a single-token step at B=1 runs the whole decoder in one launch
+(`ops/kernels/fused_whisper_step.py`), for fp and int8 decoder weights
+alike; at B ≥ 2 it runs the cross-attention kernel
+(`ops/kernels/cross_kv_attention.py`) per layer; prefill dequantises per
+layer.
 
-The decoder may be the int8 serving tree (`load.serve_tree_int8(...,
-encoder=False)`): its linears and the tied lm head then run the int8
-matmul kernels (`ops/kernels/int8_matmul.py`) through `nn.layers`. The
-int8 encoder needs the w8a8 encoder kernels, which are not ported yet
-(ROADMAP B3). `forward_cross_qk` (word timestamps) is not ported yet.
+An int8 decoder's linears and the tied lm head run the int8 matmul
+kernels (`ops/kernels/int8_matmul.py`) through `nn.layers`.
+`forward_cross_qk` (word timestamps) is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,22 +44,28 @@ from tpu_audio_torch.nn.layers import (conv1d, embedding, embedding_as_linear,
                                        sinusoidal_positions)
 from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
 from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
 from tpu_audio_torch.ops.kvcache import KVCache
 
 
-def _holds_int8(tree: dict) -> bool:
-    return any(k == "weight_i8" or (isinstance(v, dict) and _holds_int8(v))
-               for k, v in tree.items())
+def _int8_blocks(blocks: dict) -> bool:
+    """Whether the encoder's block linears are int8 (all of them) or fp."""
+    linears = [blocks["attn"][n] for n in "qkvo"] + [blocks["mlp"][n] for n in ("fc1", "fc2")]
+    n_int8 = sum("weight_i8" in p for p in linears)
+    if n_int8 not in (0, len(linears)):
+        raise ValueError("the encoder's block linears must be all int8 or all fp")
+    return n_int8 > 0
 
 
 # ------------------------------------------------------------------ params
 
 def init_params(seed: int, cfg: WhisperConfig, dtype: torch.dtype = torch.float32,
-                device: torch.device | str = "cpu") -> dict:
+                device: torch.device | str = "cuda") -> dict:
     """Random parameters from a numpy seed, with the tree, shapes and
     initialisation ranges of the JAX `init_params`, converted by
-    `params_from_numpy` (so conv weights come out as (O, I, K))."""
+    `params_from_numpy` (so conv weights come out as (O, I, K)), on the card
+    unless `device` says otherwise."""
     rng = np.random.default_rng(seed)
 
     def uniform(shape, fan_in):
@@ -173,16 +181,13 @@ class Whisper(nn.Module):
     """Whisper over a parameter tree from `init_params` or
     `convert.params_from_numpy`.
 
-    The packed QKV weight of every encoder block (`fe.pack_qkv_weights`,
-    attention scale folded in) is computed once here, in f32 and stored in
-    the parameters' dtype."""
+    The packed QKV weight of every encoder block, attention scale folded
+    in, is computed once here: for fp blocks in f32 and stored in the
+    parameters' dtype (`fe.pack_qkv_weights`); for int8 blocks as int8 codes
+    with f32 column scales (`fe8.pack_qkv_weights_int8`)."""
 
     def __init__(self, cfg: WhisperConfig, params: dict):
         super().__init__()
-        if _holds_int8(params["encoder"]):
-            raise NotImplementedError(
-                "an int8 encoder needs the w8a8 encoder kernels, which are not "
-                "ported yet (ROADMAP B3): use serve_tree_int8(..., encoder=False)")
         self.cfg = cfg
         self.encoder = ParamTree(params["encoder"])
         self.decoder = ParamTree(params["decoder"])
@@ -192,7 +197,12 @@ class Whisper(nn.Module):
             self.register_buffer(f"step_{name}", t, persistent=False)
             self._step_keys.append(name)
         attn = params["encoder"]["blocks"]["attn"]
-        w, b = fe.pack_qkv_weights(attn, cfg.n_audio_head, attn["q"]["weight"].dtype)
+        self.int8_encoder = _int8_blocks(params["encoder"]["blocks"])
+        if self.int8_encoder:
+            w, cs, b = fe8.pack_qkv_weights_int8(attn, cfg.n_audio_head)
+            self.register_buffer("qkv_scale", cs, persistent=False)  # (L, 3D) f32
+        else:
+            w, b = fe.pack_qkv_weights(attn, cfg.n_audio_head, attn["q"]["weight"].dtype)
         self.register_buffer("qkv_weight", w, persistent=False)  # (L, 3D, D)
         self.register_buffer("qkv_bias", b, persistent=False)    # (L, 3D) f32
         pos = sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
@@ -218,6 +228,8 @@ class Whisper(nn.Module):
         x = gelu(conv1d(p["conv1"], mel, stride=1, padding=1))
         x = gelu(conv1d(p["conv2"], x, stride=2, padding=1))
         x = x + self.audio_positions.to(x.dtype)
+        if self.int8_encoder:
+            return layer_norm(p["ln_post"], self._encode_blocks_int8(x))
         blocks = p["blocks"]
         w_qkv = self.qkv_weight.to(x.dtype)
         ln1, ln2, o = blocks["ln1"], blocks["ln2"], blocks["attn"]["o"]
@@ -230,6 +242,25 @@ class Whisper(nn.Module):
             mlp = blocks["mlp"].layer(i)
             x = y + linear(mlp["fc2"], gelu(linear(mlp["fc1"], hn)))
         return layer_norm(p["ln_post"], x)
+
+    def _encode_blocks_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """The w8a8 blocks: four kernels per block on layer i's views of the
+        stacked int8 leaves."""
+        cfg, blocks = self.cfg, self.encoder["blocks"]
+        ln1, ln2 = blocks["ln1"], blocks["ln2"]
+        o, fc1, fc2 = blocks["attn"]["o"], blocks["mlp"]["fc1"], blocks["mlp"]["fc2"]
+        for i in range(cfg.n_audio_layer):
+            q, k, v = fe8.ln_qkv_int8(x, ln1["weight"][i].float(), ln1["bias"][i].float(),
+                                      self.qkv_weight[i], self.qkv_scale[i],
+                                      self.qkv_bias[i], cfg.n_audio_head)
+            y, hn = fe8.attn_oproj_ln_int8(q, k, v, x, o["weight_i8"][i], o["scale_i8"][i],
+                                           o["bias"][i].float(), ln2["weight"][i].float(),
+                                           ln2["bias"][i].float(), t_valid=x.shape[1])
+            g, sg = fe8.fc1_gelu_int8(hn, fc1["weight_i8"][i], fc1["scale_i8"][i],
+                                      fc1["bias"][i].float())
+            x = fe8.fc2_residual_int8(g, sg, y, fc2["weight_i8"][i], fc2["scale_i8"][i],
+                                      fc2["bias"][i].float())
+        return x
 
     # -------------------------------------------------------------- decoder
 

@@ -42,7 +42,7 @@ class MelExtractor:
     (x+4)/4 normalisation follow (the clip is a global max in Whisper).
     """
 
-    def __init__(self, n_mels: int, device: torch.device | str = "cpu"):
+    def __init__(self, n_mels: int, device: torch.device | str = "cuda"):
         self.n_mels = n_mels
         self.device = torch.device(device)
 

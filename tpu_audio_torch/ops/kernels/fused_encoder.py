@@ -106,16 +106,24 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 # --------------------------------------------------------- attn_oproj_ln
 
+def attention_plain(q, k, v, t_valid: int) -> torch.Tensor:
+    """Head-major q, k, v (B, H, T, hd) (scale folded in) → the attention
+    output (B, H, T, hd) in f32, as the kernels compute it: keys ≥ t_valid
+    masked, f32 softmax, the exponentials rounded to v's dtype before the
+    value product, the division after it."""
+    scores = q.float() @ k.float().transpose(-1, -2)       # (B, H, T, T)
+    keys = torch.arange(q.shape[2], device=q.device)
+    scores = scores.masked_fill(keys >= t_valid, MASKED)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    return (e.to(v.dtype) @ v).float() / e.sum(-1, keepdim=True)
+
+
 def attn_oproj_ln_plain(q, k, v, x, wo, bo, ln2_w, ln2_b, t_valid: int,
                         eps: float = 1e-5):
     """Plain PyTorch version of `attn_oproj_ln`."""
     b, h, t, hd = q.shape
     d = h * hd
-    scores = q.float() @ k.float().transpose(-1, -2)       # (B, H, T, T)
-    keys = torch.arange(t, device=q.device)
-    scores = scores.masked_fill(keys >= t_valid, MASKED)
-    e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    r = (e.to(v.dtype) @ v).float() / e.sum(-1, keepdim=True)
+    r = attention_plain(q, k, v, t_valid)
     attn = r.to(x.dtype).transpose(1, 2).reshape(b, t, d)
     y = x.float() + bo.float() + (attn @ wo.to(x.dtype).T).float()
     h_out = F.layer_norm(y, (d,), ln2_w.float(), ln2_b.float(), eps)

@@ -23,7 +23,7 @@ class KVCache:
     @staticmethod
     def create(layers: int, batch: int, max_len: int, heads: int,
                head_dim: int, dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> "KVCache":
+               device: torch.device | str = "cuda") -> "KVCache":
         shape = (layers, batch, max_len, heads, head_dim)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),
