@@ -38,12 +38,24 @@ Phases (any failure raises and the script exits non-zero):
      a timed 30 s window), and the kernel path against the f32 plain path on
      2 windows with faults planted in the int8 encoder chain.
 
+  8. Fun-ASR-Nano at full width (SenseVoice encoder, adaptor, Qwen3-0.6B
+     decoder) on random weights through `STT.funasr()` →
+     `FunASREngine.from_params` → transcribe and translate of a 10 s clip,
+     on the bf16 tree and the q4 and int8 LLM trees; the launch counters,
+     the split of a transcribe (encode, prefill, ms per decode step), and
+     the kernel path against the f32 plain path on the prefill logits and
+     three teacher-forced steps, with faults planted in the whole-stack step.
+
 Phase 3 also holds the four W8A8 encoder-block kernels against their plain
-versions on block 0 of the w8a8 tree at batch 16, with planted faults on
-inputs where every term matters. Each kernel is timed beside its bound
-(the larger of its operations over the H100's dense peak for their type
-and its bytes over 3.35 TB/s) and, where one PyTorch call computes the same
-function or its product, that call's time.
+versions on block 0 of the w8a8 tree at batch 16, and the q4/q8
+dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
+with planted faults on inputs where every term matters. Each kernel is
+timed beside its bound (the larger of its operations over the H100's dense
+peak for their type and its bytes over 3.35 TB/s) and, where one PyTorch
+call computes the same function or its product, that call's time.
+
+`python3 chip_smoke.py --funasr-only` runs phases 1, 2, Fun-ASR's part of
+phase 3, and phase 8: a short check of the Fun-ASR kernels.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -73,6 +85,10 @@ N_CLIPS = 4
 SLICE_RATIO = 1.5
 SINGLE_CLIP_SECONDS = 4      # phase 5's transcribe clip (one window)
 POS = 200                    # the decoder step's position in phase 3
+STEP_POS, STEP_START = 300, 40  # the Qwen3 step's position and first valid slot in phase 3
+FUNASR_CLIP_SECONDS = 10     # phase 8's clip
+FUNASR_MAX_NEW = 48          # tokens per transcribe (random weights rarely stop early)
+FUNASR_CACHE = 1024          # prompt (~370 slots for 10 s) + new tokens
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # H100 SXM dense peaks (NVIDIA's data sheet, no sparsity) and memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -925,6 +941,391 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
     return launches
 
 
+def funasr_trees(dev) -> dict:
+    """Fun-ASR-Nano at full width on random bf16 weights (numpy seed), and
+    its two quantised LLM trees: "q4", the MLX group-affine format of the
+    published checkpoints (`quantize_tree` of the LLM subtree only; the
+    encoder's 3-D FSMN weights stay fp), and "int8", that tree requantised
+    to fused per-channel int8 (the JAX package's serving recipe)."""
+    from tpu_audio_torch.models.funasr import model as fmodel
+    from tpu_audio_torch.ops import quant
+
+    params = fmodel.init_params(SEED, fmodel.FunASRConfig(), torch.bfloat16, dev)
+    q4 = dict(params, llm=quant.quantize_tree(params["llm"], bits=4, group=64))
+    int8 = dict(params, llm=quant.requantize_tree_int8(q4["llm"]))
+    return {"bf16": params, "q4": q4, "int8": int8}
+
+
+def check_quant_matmul(trees: dict, randn, rows: list) -> None:
+    """Phase 3, the q4/q8 dequant-matmul: the tied lm head (151936, 1024)
+    and layer 0's gate (3072, 1024) at 1 and 16 rows, bits 4 (the q4
+    tree's own words) and 8 (the bf16 weights quantised to q8), against the
+    plain version at rel 1e-4 (both f32; the kernel folds each group's
+    affine in as s·Σxq + b·Σx, so the sums differ in order only), with two
+    planted faults that must land outside."""
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+
+    llm_q4, llm_bf16 = trees["q4"]["llm"], trees["bf16"]["llm"]
+    gate = {k: v[0] for k, v in llm_q4["layers"]["mlp"]["gate"].items()}
+    leaves = {(4, "lm head"): llm_q4["embed"], (4, "gate layer 0"): gate,
+              (8, "lm head"): quant.quantize_array(llm_bf16["embed"]["weight"], 8),
+              (8, "gate layer 0"): quant.quantize_array(
+                  llm_bf16["layers"]["mlp"]["gate"]["weight"][0], 8)}
+    unpack = qmm.unpack_words
+
+    def reversed_order(packed, bits):
+        q = unpack(packed, bits)
+        return q.reshape(*q.shape[:-1], -1, 32 // bits).flip(-1).reshape(q.shape)
+
+    err, timing = 0.0, {}
+    for (bits, label), leaf in leaves.items():
+        packed, sc, bi = leaf[f"weight_q{bits}"], leaf["scales"], leaf["biases"]
+        o, i = packed.shape[0], sc.shape[1] * qmm.GROUP
+        for n in (1, 16):
+            x = randn(n, i)
+            got = qmm.quant_matmul(x, packed, sc, bi, bits=bits)
+            err = max(err, compare(f"quant_matmul q{bits} {label} ({n}, {i}) x ({o}, {i})", got,
+                                   qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits),
+                                   rel=1e-4))
+            if n == 1 and label == "lm head":
+                planted_faults(f"quant_matmul q{bits} {label}", (got,), [
+                    ("nibble order reversed", faulty(
+                        qmm, "unpack_words", reversed_order,
+                        lambda: (qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits),))),
+                    ("group bias dropped", lambda: (qmm.quant_matmul_plain(
+                        x, packed, sc, torch.zeros_like(bi), bits=bits),)),
+                ], rel=1e-4)
+        x = randn(1, i)
+        timing[(bits, label)] = timed_pair(
+            lambda: qmm.quant_matmul(x, packed, sc, bi, bits=bits),
+            lambda: qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits), 20)
+        log(f"time quant_matmul q{bits} {label} (1, {i}) x ({o}, {i}): kernel "
+            f"{timing[(bits, label)][0]:.4f} ms, plain {timing[(bits, label)][1]:.4f} ms")
+    head = leaves[(4, "lm head")]
+    o, i = head["weight_q4"].shape[0], head["scales"].shape[1] * qmm.GROUP
+    x = randn(1, i)
+    w_bf16 = quant.dequantize(head).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    lib_ms = time_ms(lambda: torch.nn.functional.linear(xb, w_bf16), 20)
+    log(f"library quant_matmul: F.linear of the bf16 dequantised lm head ({o}, {i}) at 1 row, "
+        f"the product alone")
+    ms, pms = timing[(4, "lm head")]
+    rows.append(kernel_row("quant_matmul", "tpu_audio_torch/csrc/quant_matmul.cu",
+                           "tpu_audio/ops/pallas/quant_matmul.py:72", err, ms, pms,
+                           bound({"f32": 2 * i * o},
+                                 nbytes(x, head["weight_q4"], head["scales"], head["biases"])
+                                 + 4 * o), lib_ms))
+    del w_bf16
+
+
+def fresh_dropped(q, k, v, k_hist, v_hist, rnd):
+    """The whole-stack step's attention with the current token's own term
+    dropped (a planted fault)."""
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    h = q.shape[0]
+    k_hist, v_hist = fs._kv_heads(k_hist, h), fs._kv_heads(v_hist, h)
+    w = torch.softmax(torch.einsum("htd,hd->ht", k_hist, q), dim=-1)
+    return torch.einsum("ht,htd->hd", rnd(w), rnd(v_hist))
+
+
+def check_fused_step(trees: dict, dev, randn, rows: list) -> None:
+    """Phase 3, the whole-stack Qwen3 step at Fun-ASR-Nano's shapes on the
+    bf16 and int8 trees (bf16 and f32 activations, as the main path gives
+    them), bf16 cache filled to STEP_POS, first valid slot STEP_START. The
+    inputs make every term matter: random norm and q/k-norm weights, a
+    history whose scores have std ~3 (peaked), slots before `start` with
+    keys std 10 (they would dominate if read), a residual of std 0.5. A
+    second check at pos = start + 1 makes the fresh term one of two. Planted
+    faults (in the plain version) must land outside rel 2e-2 / cosine 0.999.
+    The bf16-activation case has no planted faults: one f32 sum that
+    rounds across a bf16 boundary can read up to 1.5e-3 at two layers, and
+    leaving the probabilities' bf16 rounding out reads 4.6e-3, too close
+    to tell apart (on the card). The err of the JSON row is the largest
+    over both trees' checks."""
+    from tpu_audio_torch.models.funasr.model import QWEN3_06B as cfg
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    lyr, kvh, hd, s_max = cfg.n_layers, cfg.kv_heads, cfg.hd, 512
+    kc = torch.zeros(lyr, kvh, s_max, hd, dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :STEP_START] = randn(lyr, kvh, STEP_START, hd, dtype=torch.bfloat16, scale=10.0)
+    vc[:, :, :STEP_START] = randn(lyr, kvh, STEP_START, hd, dtype=torch.bfloat16, scale=10.0)
+    n_hist = STEP_POS - STEP_START
+    kc[:, :, STEP_START:STEP_POS] = randn(lyr, kvh, n_hist, hd, dtype=torch.bfloat16, scale=3.0)
+    vc[:, :, STEP_START:STEP_POS] = randn(lyr, kvh, n_hist, hd, dtype=torch.bfloat16, scale=2.0)
+    start = torch.tensor(STEP_START, device=dev)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=kvh, hd=hd, eps=cfg.norm_eps)
+    err, row = 0.0, None
+    for label in ("bf16", "int8"):
+        full = dict(fs.prepare_stack(transformer.fuse_fp_tree(trees[label]["llm"])))
+        full.update(ln1=1 + 0.3 * randn(lyr, cfg.dim), ln2=1 + 0.3 * randn(lyr, cfg.dim),
+                    norm=1 + 0.3 * randn(cfg.dim), qknorm=1 + 0.3 * randn(lyr, 2, hd))
+        # All 28 layers with f32 activations: no bf16 rounding between the
+        # layers, so kernel and plain agree to f32 summation order and the
+        # planted faults stand out. bf16 activations (the bf16 tree's) on
+        # layers 0-1 only: a 1e-7 difference in an f32 sum can flip a bf16
+        # rounding of hn, and 28 layers of peaked attention amplify such
+        # flips to rel 1e-2..4e-2 between two right implementations.
+        cases = [(f"{lyr} layers, f32 activations", full, torch.float32, lyr)]
+        if label == "bf16":
+            cases.insert(0, ("layers 0-1, bf16 activations",
+                             {k: v if k == "norm" else v[:2] for k, v in full.items()},
+                             torch.bfloat16, 2))
+        for desc, stack, dtype, n_layers in cases:
+            x = randn(1, cfg.dim, dtype=dtype, scale=0.5)
+
+            def run(step, p, st=stack, s0=start, x=x, n_layers=n_layers):
+                pos = torch.tensor(p, device=dev)
+                cos, sin = fs.make_cos_sin(pos, cfg.inv_freq())
+                kc_, vc_ = kc[:n_layers].clone(), vc[:n_layers].clone()
+                h = step(st, x, pos, s0, cos, sin, kc_, vc_, **kw)
+                return h, kc_[:, :, p], vc_[:, :, p]
+
+            def plain(p=STEP_POS, run=run, **over):
+                return run(fs.fused_decode_step_plain, p, **over)
+
+            names = ("h", "k slot", "v slot")
+            tag = f"fused_decode_step {label} weights, {desc}"
+            got = run(fs.fused_decode_step, STEP_POS)
+            err = max(err, *(compare(f"{tag}: {n}, pos {STEP_POS}, start {STEP_START}", g, r,
+                                     rel=2e-2) for n, g, r in zip(names, got, plain())))
+            if n_layers < lyr:
+                continue
+            faults = [
+                ("qk-norm dropped", lambda: plain(st={k: v for k, v in stack.items()
+                                                      if k != "qknorm"})),
+                ("RoPE on the wrong half", faulty(fs, "_rope", lambda v, c, s: v * c + torch.cat(
+                    [v[..., hd // 2:], -v[..., :hd // 2]], -1) * s, plain)),
+                ("KV head j % KVH in place of j // G", faulty(
+                    fs, "_kv_heads", lambda t, n: t.repeat(n // t.shape[0], *[1] * (t.dim() - 1)),
+                    plain)),
+                ("start ignored", lambda: plain(s0=torch.zeros_like(start))),
+                ("the final norm dropped", faulty(fs, "_final_norm", lambda v, w, eps: v, plain)),
+            ]
+            if label == "int8":
+                faults.append(("int8 scales not applied", lambda: plain(st={
+                    k: (torch.ones_like(v) if k in ("sqkv", "so", "sgateup", "sdown") else v)
+                    for k, v in stack.items()})))
+            planted_faults(tag, got, faults, rel=2e-2)
+            p1 = STEP_START + 1
+            got = run(fs.fused_decode_step, p1)
+            err = max(err, *(compare(f"{tag}: {n}, pos {p1} (one history slot)", g, r, rel=2e-2)
+                             for n, g, r in zip(names, got, plain(p1))))
+            planted_faults(f"{tag}, pos {p1}", got, [
+                ("the fresh term dropped", faulty(fs, "_attention", fresh_dropped,
+                                                  lambda: plain(p1)))], rel=2e-2)
+        # timed on the whole stack with the main path's activations
+        stack = full
+        x = randn(1, cfg.dim, dtype=torch.bfloat16 if label == "bf16" else torch.float32,
+                  scale=0.5)
+        pos = torch.tensor(STEP_POS, device=dev)
+        cos, sin = fs.make_cos_sin(pos, cfg.inv_freq())
+        args = (stack, x, pos, start, cos, sin, kc, vc)  # rewrites slot STEP_POS in place
+        ms, pms = timed_pair(lambda: fs.fused_decode_step(*args, **kw),
+                             lambda: fs.fused_decode_step_plain(*args, **kw), 20)
+        log(f"time fused_decode_step {label} (Qwen3-0.6B, pos {STEP_POS}, start {STEP_START}): "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        if label == "bf16":
+            weights = [stack[f"w{n}"] for n in ("qkv", "o", "gateup", "down")]
+            vectors = [v for k, v in stack.items() if not k.startswith("w")]
+            read = [*weights, *vectors, kc[:, :, STEP_START:STEP_POS],
+                    vc[:, :, STEP_START:STEP_POS], x]
+            ops = {"f32": 2 * sum(w.numel() for w in weights)
+                   + 4 * lyr * cfg.n_heads * (n_hist + 1) * hd}
+            row = (ms, pms, bound(ops, nbytes(*read) + 4 * cfg.dim
+                                  + 2 * nbytes(kc[:, :, STEP_POS])))
+    ms, pms, roof = row
+    rows.append(kernel_row("fused_decode_step", "tpu_audio_torch/csrc/fused_step.cu",
+                           "tpu_audio/ops/pallas/fused_step.py:239", err, ms, pms, roof, None,
+                           "no one PyTorch call runs a decoder-stack step"))
+
+
+def funasr_slice(trees: dict, dev, card: str) -> dict:
+    """Phase 8: Fun-ASR-Nano through the public entry point on the bf16, q4
+    and int8 trees: `STT.funasr()` → `FunASREngine.from_params` →
+    transcribe, then translate, of a numpy-seeded 10 s clip; the launch
+    counters; the split of a transcribe (encode + merge, prefill, ms per
+    decode step); and the kernel path against the f32 plain path on the
+    prefill logits and three teacher-forced steps, with faults planted in
+    the whole-stack step. Returns the launch counts of the three runs."""
+    from tpu_audio_torch.api.stt import STT
+    from tpu_audio_torch.api.stt_funasr import build_prompt_text
+    from tpu_audio_torch.models.funasr import model as fmodel
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops import frontends, quant
+    from tpu_audio_torch.ops.decoding import decode_loop
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    mods = (fs, qmm, i8mm)
+    cfg = fmodel.FunASRConfig()
+    lcfg = cfg.llm
+    rng = np.random.default_rng(SEED + 8)
+    clip = (rng.standard_normal(FUNASR_CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
+    need = {"bf16": ("fused_decode_step",), "q4": ("quant_matmul",),
+            "int8": ("fused_decode_step", "int8_matmul")}
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    for label, tree in trees.items():
+        engine = STT.funasr().from_params(tree, cfg, max_cache=FUNASR_CACHE)
+        gen = engine.generator
+        reset(*mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.transcribe(clip, max_new_tokens=FUNASR_MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res2 = engine.translate(clip, target_language="de", max_new_tokens=FUNASR_MAX_NEW)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0 - wall
+        launches = launch_counts(*mods)
+        log(f"funasr {label} launches (transcribe + translate): {launches}")
+        if not all(launches[n] > 0 for n in need[label]) or (
+                label == "q4" and launches["fused_decode_step"]):
+            raise AssertionError(f"funasr {label}: a kernel of the path never launched, or the "
+                                 f"q4 tree took the whole-stack step: {launches}")
+        for n in total:
+            total[n] += launches[n]
+        if not (isinstance(res.text, str) and isinstance(res2.text, str)
+                and res.duration == FUNASR_CLIP_SECONDS):
+            raise AssertionError(f"funasr {label}: transcribe returned {res!r}")
+
+        # the split of one transcribe: encode + merge, prefill, decode steps
+        feats = frontends.funasr_features(torch.as_tensor(clip, device=dev))
+        pre, post = (engine.tokenizer.encode(s) for s in build_prompt_text())
+        stats = {"steps": 0}
+        step = transformer.forward
+
+        def counted(*a, **k):
+            stats["steps"] += 1
+            return step(*a, **k)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        (x, shift), t_enc = timed(lambda: gen.prefill_inputs(pre, post, feats))
+        llm = gen.params["llm"]
+
+        def prefill():
+            cache, extra = transformer.decode_cache_and_mask(lcfg, FUNASR_CACHE, shift,
+                                                             gen.fused, device=dev)
+            h, cache = transformer.forward_hidden(llm, lcfg, x, cache, extra)
+            return cache, extra, transformer.logits(llm, lcfg, h[:, -1:])[:, 0].float()
+
+        def decode(cache, extra, first_logits):  # the generator's greedy loop
+            def step_fn(tok, c):
+                lg, c = transformer.forward(llm, lcfg, tok, c, extra_mask=extra)
+                return lg[:, -1].float(), c
+            return decode_loop(step_fn, cache, first_logits.argmax(-1), FUNASR_MAX_NEW - 1,
+                               eos_ids=engine._eos_ids, sampler=SamplerConfig(temperature=0.0),
+                               pad_id=engine._eos_ids[0])
+
+        runs = []
+        for _ in range(2):
+            state, t_pre = timed(prefill)
+            stats["steps"] = 0
+            with patched(transformer, "forward", counted):
+                out, t_dec = timed(lambda: decode(*state))
+            n = max(stats["steps"], 1)
+            runs.append(f"prefill {1e3 * t_pre:.2f} ms, {1e3 * t_dec / n:.4f} ms per step")
+        toks = out.tokens[0, :int(out.lengths[0])].tolist()
+        if not all(0 <= tok < lcfg.vocab_size for tok in toks):
+            raise AssertionError(f"funasr {label}: a token outside the vocabulary")
+        log(f"funasr {label}: STT.funasr transcribe of {FUNASR_CLIP_SECONDS} s: {wall:.3f} s wall "
+            f"({FUNASR_CLIP_SECONDS / wall:.2f}x real time), translate {wall2:.3f} s; split: "
+            f"features + encode + merge {1e3 * t_enc:.2f} ms; {x.shape[1]} prompt slots, "
+            f"{n} decode steps ({len(toks) + 1} tokens), two runs: {'; '.join(runs)}; "
+            f"text {res.text[:40]!r} ({card})")
+
+        # the kernel path against the f32 plain path: prefill logits and
+        # three teacher-forced steps; the plain bf16 path's distance from
+        # f32 (bf16 cache and, on the bf16 tree, activations) is the scale
+        forced = tuple(t % lcfg.vocab_size for t in (100, 2000, 50000))
+
+        def run_path(llm, x_in, cache_dtype):
+            with torch.inference_mode():
+                cache, extra = transformer.decode_cache_and_mask(
+                    lcfg, FUNASR_CACHE, shift, gen.fused, dtype=cache_dtype, device=dev)
+                h, cache = transformer.forward_hidden(llm, lcfg, x_in, cache, extra)
+                out = [transformer.logits(llm, lcfg, h[:, -1:])[:, 0]]
+                for t in forced:
+                    lg, cache = transformer.forward(llm, lcfg, torch.tensor([[t]], device=dev),
+                                                    cache, extra)
+                    out.append(lg[:, -1])
+            return torch.cat(out).float()
+
+        llm32 = {k: v for k, v in quant._flatten(llm).items()}
+        llm32 = quant._unflatten({k: v.float() if v.is_floating_point() else v
+                                  for k, v in llm32.items()})
+        with plain_kernels(*mods):
+            exact = run_path(llm32, x.float(), torch.float32)
+            plain_out = run_path(llm, x, torch.bfloat16)
+        del llm32
+        kernel_out = run_path(llm, x, torch.bfloat16)
+        p_err = {}
+        for name, sl in (("prefill logits (1, 151936)", slice(0, 1)),
+                         ("step logits (3, 151936)", slice(1, 4))):
+            _, e_k, cos_k = measure(kernel_out[sl], exact[sl])
+            _, e_p, cos_p = measure(plain_out[sl], exact[sl])
+            p_err[name] = e_p
+            msg = (f"funasr {label} {name} against f32: kernels rel {e_k:.3e} cosine "
+                   f"{cos_k:.6f}, plain rel {e_p:.3e} cosine {cos_p:.6f}, ratio {e_k / e_p:.3f}")
+            if not (e_k <= SLICE_RATIO * e_p and cos_k > 0.999):
+                raise AssertionError(f"{msg}: outside ratio {SLICE_RATIO} / cosine 0.999")
+            log(msg)
+        if not gen.fused:
+            continue
+        kernel = fs.fused_decode_step
+        faults = {
+            "qk-norm dropped": lambda st, *a, **k: kernel(
+                {n: v for n, v in st.items() if n != "qknorm"}, *a, **k),
+            "the layers in reverse order": lambda st, *a, **k: kernel(
+                {n: v.flip(0) if n.startswith("w") else v for n, v in st.items()}, *a, **k),
+            "the o-projection dropped": lambda st, *a, **k: kernel(
+                {**st, "so": torch.zeros_like(st["so"])}, *a, **k),
+        }
+        if label == "int8":
+            faults["int8 scales not applied"] = lambda st, *a, **k: kernel(
+                {n: (torch.ones_like(v) if n in ("sqkv", "so", "sgateup", "sdown") else v)
+                 for n, v in st.items()}, *a, **k)
+        e_p = p_err["step logits (3, 151936)"]
+        for name, fault in faults.items():
+            with patched(fs, "fused_decode_step", fault):
+                out = run_path(llm, x, torch.bfloat16)
+            _, e_k, cos_k = measure(out[1:], exact[1:])
+            text = f"step logits ratio {e_k / e_p:.3f} cosine {cos_k:.6f}"
+            if e_k <= SLICE_RATIO * e_p and cos_k > 0.999:
+                raise AssertionError(f"funasr {label}: the check cannot see {name} ({text})")
+            log(f"control funasr {label}, {name}: {text}: outside the limit")
+    return total
+
+
+def randn_on(dev):
+    """randn(*shape, dtype, scale) on `dev` from a generator seeded with SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    return randn
+
+
+def print_result(rows: list, launches: dict) -> None:
+    """The last two lines: the per-kernel JSON and the ok line."""
+    print(json.dumps({"kernels": [{**r, "launches": launches[r["name"]]} for r in rows]}),
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
@@ -957,8 +1358,15 @@ def main() -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc and load) -> {lib_path.name}")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "error")):
             log(f"  ptxas: {line.strip()}")
+    if "--funasr-only" in sys.argv[1:]:  # phases 1, 2, Fun-ASR's part of 3, and 8
+        rows, randn = [], randn_on(dev)
+        trees = funasr_trees(dev)
+        check_quant_matmul(trees, randn, rows)
+        check_fused_step(trees, dev, randn, rows)
+        print_result(rows, funasr_slice(trees, dev, card))
+        return
 
     # ------------------------------------------------ model (random weights)
     cfg = PRESETS["large-v3-turbo"]
@@ -976,11 +1384,7 @@ def main() -> None:
 
     # ------------------------------------------- 3. kernels against plain
     t_phase = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    rows, randn = [], randn_on(dev)
 
     # fused_log_mel: one 30 s chunk with its 200-sample margins
     audio = randn(30 * 16000 + 400, scale=0.1)
@@ -1091,6 +1495,13 @@ def main() -> None:
     check_int8_matmul(model_i8, randn, rows)
     check_decoder_step({"int8": model_i8, "bf16": model}, cfg, dev, randn, rows)
     check_int8_encoder(model_w8a8, randn, rows)
+    t0 = time.perf_counter()
+    trees = funasr_trees(dev)
+    torch.cuda.synchronize()
+    log(f"models: Fun-ASR-Nano random bf16 weights (seed {SEED}), its q4 and int8 LLM trees "
+        f"in {time.perf_counter() - t0:.1f} s")
+    check_quant_matmul(trees, randn, rows)
+    check_fused_step(trees, dev, randn, rows)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -1208,12 +1619,14 @@ def main() -> None:
     launches.update({name: w8a8[name] for name in
                      ("ln_qkv_int8", "attn_oproj_ln_int8", "fc1_gelu_int8", "fc2_residual_int8")})
     log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f} s")
+    del model, model_w8a8
 
-    print(json.dumps({"kernels": [{**r, "launches": launches[r["name"]]} for r in rows]}),
-          flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    # ------------------------------------------------------- 8. Fun-ASR
+    t_phase = time.perf_counter()
+    fun = funasr_slice(trees, dev, card)
+    launches.update({name: fun[name] for name in ("fused_decode_step", "quant_matmul")})
+    log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f} s")
+    print_result(rows, launches)
 
 
 if __name__ == "__main__":

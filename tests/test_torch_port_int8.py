@@ -226,12 +226,14 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices(rng):
 
 
 def test_unported_formats_raise():
-    q4 = {"weight_q4": np.zeros((4, 8), np.uint32), "scales": np.ones((4, 1)),
-          "biases": np.zeros((4, 1))}
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tquant.requantize_tree_int8({"blocks": {"q": q4}})
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tquant.quantized_linear(q4, torch.zeros(2, 8))
+    """The W4A8 serving layouts (ROADMAP B6) raise; the group-affine q4/q8
+    format is ported (tests/test_torch_port_quant_q4.py)."""
+    q4p = {"weight_q4p": np.zeros((4, 32), np.int8), "scales": np.ones((4, 1)),
+           "biases": np.zeros((4, 1))}
+    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+        tquant.requantize_tree_int8({"blocks": {"q": q4p}})
+    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
+        tquant.quantized_linear(q4p, torch.zeros(2, 64))
 
 
 def test_new_modules_import_without_jax_nvcc_or_cuda():

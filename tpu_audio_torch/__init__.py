@@ -14,5 +14,7 @@ Ported so far: Whisper batch transcription (`models/whisper/batch.py`,
 API (`api/stt.py` → `models/whisper/pipeline.WhisperPipeline` →
 `decoding.SegmentDecoder`), with the log-mel front-end, the fused bf16
 encoder blocks, the int8 cross-K/V decode step, the int8 (W8A8) decoder
-serving tree and the whole B=1 decoder step.
+serving tree and the whole B=1 decoder step; and Fun-ASR-Nano through
+`api/stt_funasr.py` on the shared decoder stack (`nn/transformer.py`),
+with bf16, group-affine q4 and int8 LLM weights.
 """

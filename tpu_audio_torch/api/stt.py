@@ -1,13 +1,15 @@
-"""Public STT API: the engine contract and the Whisper factory (port of
-tpu_audio/api/stt.py: STTEngineBase, WhisperEngine, STT.whisper).
+"""Public STT API: the engine contract and the factories (port of
+tpu_audio/api/stt.py: STTEngineBase, WhisperEngine, STT.whisper, and
+STT.fun_asr as `STT.funasr`).
 
 `STT.whisper(...)` returns an engine with load / transcribe / translate /
 detect_language / transcribe_batch / warmup / stop / unload / cleanup and
-the is_transcribing / transcription_time state. Loading checkpoints
-(`load()`, the model matrix and the safetensors remap) and audio files are
-not ported yet (ROADMAP A7): build an engine around a pipeline with
-`WhisperEngine.from_pipeline` and pass sample arrays. FunASR comes with
-its engine (ROADMAP A10).
+the is_transcribing / transcription_time state; `STT.funasr(...)` the
+Fun-ASR engine (`api/stt_funasr.py`: transcribe / translate /
+transcribe_streaming). Loading checkpoints (`load()`: the model matrix,
+the safetensors remap, tokenizer.json) and audio files are not ported yet
+(ROADMAP A7, A10): build an engine with `WhisperEngine.from_pipeline` or
+`FunASREngine.from_params` and pass sample arrays.
 """
 
 from __future__ import annotations
@@ -157,3 +159,9 @@ class STT:
     def whisper(model: str = "tiny", quantization: str = "fp16",
                 repo: str | None = None) -> WhisperEngine:
         return WhisperEngine(model, quantization, repo)
+
+    @staticmethod
+    def funasr(model_type: str = "nano", quantization: str = "q4"):
+        from tpu_audio_torch.api.stt_funasr import FunASREngine
+
+        return FunASREngine(model_type, quantization)

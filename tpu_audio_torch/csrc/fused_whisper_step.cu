@@ -44,13 +44,15 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "decode_step.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace tpa::step;
+
 constexpr int HD = 64;
-constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxSplit = 32;      // key chunks per head (one lane each when merging)
 constexpr int kBlocksPerSm = 2;
 constexpr int kPart = HD + 2;      // a partial: max, sum, P.V[64]
@@ -77,25 +79,8 @@ struct Params {
   int L, D, hidden, H, S, t_pad, t_valid, split;
 };
 
-template <typename T>
-__host__ __device__ constexpr int per_vec() {  // elements per 16-byte vector
-  return 16 / static_cast<int>(sizeof(T));
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T>
-__device__ __forceinline__ float dot_vec(const int4& raw, const float* a) {
-  const T* e = reinterpret_cast<const T*>(&raw);
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < per_vec<T>(); ++j) s = fmaf(tpa::to_float(e[j]), a[j], s);
-  return s;
-}
 
 // LayerNorm of the D-vector x (global) with wb = (weight, bias) into
 // `out` (shared memory), rounded to bf16 when `rb`. Called by the whole block.
@@ -117,118 +102,11 @@ __device__ void layer_norm(const float* x, const float* wb, int D, float* out, b
   __syncthreads();
 }
 
-// R output channels over all warps of the grid: epi(o, row(o) . a), where
-// row(o) points at a weight row of I elements and `a` is in shared memory.
-template <typename W, typename Row, typename Epi>
-__device__ void gemv(int R, int I, const float* a, Row row, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int nv = I / per_vec<W>();
-  for (int o = blockIdx.x * kWarps + (threadIdx.x >> 5); o < R; o += gridDim.x * kWarps) {
-    const int4* wr = reinterpret_cast<const int4*>(row(o));
-    float acc = 0.f;
-#pragma unroll 4
-    for (int v = lane; v < nv; v += 32) acc += dot_vec<W>(__ldcs(wr + v), a + v * per_vec<W>());
-    acc = tpa::warp_sum(acc);
-    if (lane == 0) epi(o, acc);
-  }
-}
-
-// Pass 1 of one block's share of one head's attention: the scores of keys
-// [t0, t1) of the rows kb (row stride D, this head's 64 channels) against
-// q (shared) go to `scores` (shared, kept for pass 2), and part[0], part[1]
-// get their max and sum of exp (-inf and 0 for an empty range).
-template <typename T>
-__device__ void attn_scores(const T* kb, int D, int t0, int t1, const float* q, float* scores,
-                            float* part, float* scratch) {
-  constexpr int per = per_vec<T>();
-  constexpr int lanes = HD / per;          // lanes per 64-element row
-  constexpr int rows = kThreads / lanes;   // rows per pass
-  const int tid = threadIdx.x, pi = tid % lanes, r = tid / lanes;
-  float qreg[per];
-#pragma unroll
-  for (int j = 0; j < per; ++j) qreg[j] = q[pi * per + j];
-
-  float mloc = -INFINITY;
-  for (int base = t0; base < t1; base += rows) {  // same trip count for every lane
-    const int t = base + r;
-    int4 raw = make_int4(0, 0, 0, 0);
-    if (t < t1) raw = __ldg(reinterpret_cast<const int4*>(kb + static_cast<long>(t) * D) + pi);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < per; ++j) s = fmaf(qreg[j], tpa::to_float(e[j]), s);
-#pragma unroll
-    for (int off = lanes / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (t < t1) {
-      if (pi == 0) scores[t - t0] = s;
-      mloc = fmaxf(mloc, s);
-    }
-  }
-  const float m = tpa::block_max<kWarps>(mloc, scratch);  // syncs: scores visible
-  float lsum = 0.f;
-  for (int t = tid; t < t1 - t0; t += kThreads) lsum += expf(scores[t] - m);
-  const float l = tpa::block_sum<kWarps>(lsum, scratch);
-  if (tid == 0) {
-    part[0] = m;
-    part[1] = l;
-  }
-}
-
-// A head's softmax max and sum over its `split` chunk partials and, for
-// self-attention, the fresh score sf of the current token (-inf if none).
-// Called by a whole warp; every lane gets the result.
-__device__ float2 head_stats(const float* part, int split, float sf) {
-  const int lane = threadIdx.x & 31;
-  const float* pc = part + lane * kPart;
-  const bool live = lane < split && __ldcg(pc + 1) > 0.f;
-  const float mc = live ? __ldcg(pc) : -INFINITY;
-  const float m = fmaxf(tpa::warp_max(mc), sf);
-  const float l = tpa::warp_sum(live ? __ldcg(pc + 1) * expf(mc - m) : 0.f) +
-                  (sf > -INFINITY ? expf(sf - m) : 0.f);
-  return make_float2(m, l);
-}
-
 // The fresh score q.k of head h, by a whole warp.
 __device__ float fresh_score(const float* q, const float* k, int h) {
   const int lane = threadIdx.x & 31;
   return tpa::warp_sum(__ldcg(q + h * HD + lane) * __ldcg(k + h * HD + lane) +
                        __ldcg(q + h * HD + lane + 32) * __ldcg(k + h * HD + lane + 32));
-}
-
-// Pass 2: p = exp(s - m) / l over the scores of pass 1, rounded to bf16
-// when `rb` (the reference rounds the probabilities to its compute dtype
-// before the value product), and part[2..] = sum of p * v over the rows vb.
-template <typename T>
-__device__ void attn_values(const T* vb, int D, int t0, int t1, float2 ml, bool rb,
-                            float* scores, float* red, float* part) {
-  constexpr int per = per_vec<T>();
-  constexpr int lanes = HD / per;
-  constexpr int rows = kThreads / lanes;
-  const int tid = threadIdx.x, pi = tid % lanes, r = tid / lanes;
-  for (int t = tid; t < t1 - t0; t += kThreads) {
-    const float pr = expf(scores[t] - ml.x) / ml.y;
-    scores[t] = rb ? round_bf16(pr) : pr;
-  }
-  __syncthreads();
-  float acc[per];
-#pragma unroll
-  for (int j = 0; j < per; ++j) acc[j] = 0.f;
-  for (int t = t0 + r; t < t1; t += rows) {
-    const int4 raw = __ldg(reinterpret_cast<const int4*>(vb + static_cast<long>(t) * D) + pi);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    const float pr = scores[t - t0];
-#pragma unroll
-    for (int j = 0; j < per; ++j) acc[j] = fmaf(pr, tpa::to_float(e[j]), acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < per; ++j) red[r * HD + pi * per + j] = acc[j];
-  __syncthreads();
-  if (tid < HD) {
-    float s = 0.f;
-    for (int g = 0; g < rows; ++g) s += red[g * HD + tid];
-    part[2 + tid] = s;
-  }
-  __syncthreads();
 }
 
 // The attention output of every head into out (shared, D): the sum of its
@@ -240,7 +118,7 @@ __device__ void merge(const float* part, int H, int split, const float* q, const
   for (int h = threadIdx.x >> 5; h < H; h += kWarps) {
     if (q == nullptr) break;
     const float sf = fresh_score(q, k, h);
-    const float2 ml = head_stats(part + h * split * kPart, split, sf);
+    const float2 ml = head_stats(part + h * split * kPart, split, kPart, sf);
     if ((threadIdx.x & 31) == 0) fresh[h] = expf(sf - ml.x) / ml.y;
   }
   __syncthreads();
@@ -321,17 +199,17 @@ __global__ void __launch_bounds__(kThreads) fused_whisper_step_kernel(Params p) 
     if (attn_block) {
       if (threadIdx.x < HD) qh[threadIdx.x] = __ldcg(qg + head * HD + threadIdx.x);
       __syncthreads();
-      attn_scores<C>(kc + sbase, D, s0, s1, qh, scores, my_part, scratch);
+      attn_scores<C, HD>(kc + sbase, D, s0, s1, qh, scores, my_part, scratch);
     }
     grid.sync();
     if (attn_block) {
       if (threadIdx.x < 32) {
-        const float2 ml = head_stats(part + head * split * kPart, split,
+        const float2 ml = head_stats(part + head * split * kPart, split, kPart,
                                      fresh_score(qg, kg, head));
         if (threadIdx.x == 0) stats[0] = ml;
       }
       __syncthreads();
-      attn_values<C>(vc + sbase, D, s0, s1, stats[0], rb, scores, red, my_part);
+      attn_values<C, HD>(vc + sbase, D, s0, s1, stats[0], rb, scores, red, my_part);
     }
     grid.sync();
     // P3: merge with the fresh term -> o-projection + residual
@@ -353,16 +231,16 @@ __global__ void __launch_bounds__(kThreads) fused_whisper_step_kernel(Params p) 
     if (attn_block) {
       if (threadIdx.x < HD) qh[threadIdx.x] = __ldcg(qsg + head * HD + threadIdx.x);
       __syncthreads();
-      attn_scores<int8_t>(p.k8 + cbase, D, c0, c1, qh, scores, my_part, scratch);
+      attn_scores<int8_t, HD>(p.k8 + cbase, D, c0, c1, qh, scores, my_part, scratch);
     }
     grid.sync();
     if (attn_block) {
       if (threadIdx.x < 32) {
-        const float2 ml = head_stats(part + head * split * kPart, split, -INFINITY);
+        const float2 ml = head_stats(part + head * split * kPart, split, kPart, -INFINITY);
         if (threadIdx.x == 0) stats[0] = ml;
       }
       __syncthreads();
-      attn_values<int8_t>(p.v8 + cbase, D, c0, c1, stats[0], rb, scores, red, my_part);
+      attn_values<int8_t, HD>(p.v8 + cbase, D, c0, c1, stats[0], rb, scores, red, my_part);
     }
     grid.sync();
     // P6: merge, V scale -> cross-o + residual

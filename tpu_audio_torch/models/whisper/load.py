@@ -23,11 +23,11 @@ def serve_tree_int8(tree: dict, decoder: bool = True,
     the W8A8 encoder-block kernels (`ops/kernels/fused_encoder_int8.py`)."""
     out = {**tree}
     if encoder:
-        enc = quant.requantize_tree_int8(tree["encoder"])
+        enc = quant.requantize_tree_int8(tree["encoder"], fuse=False)
         out["encoder"] = quant.quantize_tree_int8(
             enc, predicate=lambda k, v: "blocks" in k)
     if decoder:
-        dec = quant.requantize_tree_int8(tree["decoder"])
+        dec = quant.requantize_tree_int8(tree["decoder"], fuse=False)
         out["decoder"] = quant.quantize_tree_int8(
             dec, predicate=lambda k, v: "blocks" in k
             or k == "token_embedding.weight")

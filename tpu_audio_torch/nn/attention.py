@@ -1,5 +1,5 @@
-"""Multi-head attention (port of tpu_audio/nn/attention.py: attend,
-decode_mask).
+"""Multi-head attention (port of tpu_audio/nn/attention.py: attend with
+GQA, causal_mask, decode_mask, padding_mask).
 
 Layout is (B, T, H, D). Scores and softmax are f32; masks are additive
 f32 biases. `attend` is always the plain computation: the JAX `attend`
@@ -15,18 +15,41 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows finit
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor | None = None) -> torch.Tensor:
-    """q: (B, Tq, H, D), k/v: (B, Tk, H, D) → (B, Tq, H, D) in v's dtype.
+           mask: torch.Tensor | None = None, scale: float = 1.0) -> torch.Tensor:
+    """q: (B, Tq, H, D), k/v: (B, Tk, Hkv, D) with H % Hkv == 0 (GQA; query
+    head j uses key head j // (H/Hkv)) → (B, Tq, H, D) in v's dtype.
 
-    The caller has folded the softmax scale into q and k (Whisper applies
-    (d/h)^-0.25 to both; the JAX `attend` with q_scaled=True).
-    mask: broadcastable to (B, H, Tq, Tk), additive f32.
+    `scale` multiplies q in q's dtype before the f32 product, as the JAX
+    `attend` does; the default 1.0 is for callers that folded it into q and
+    k themselves (Whisper applies (d/h)^-0.25 to both, the JAX
+    q_scaled=True). mask: broadcastable to (B, H or Hkv, Tq, Tk), additive f32.
     """
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
+    if scale != 1.0:
+        q = q * torch.tensor(scale, dtype=q.dtype)
+    if hkv != h:
+        qg = q.reshape(b, tq, hkv, h // hkv, d)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+        if mask is not None:
+            scores = scores + mask[:, :, None]
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+        return out.reshape(b, tq, h, d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if mask is not None:
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def causal_mask(tq: int, tk: int, offset: int = 0,
+                device: torch.device | str = "cuda") -> torch.Tensor:
+    """Additive causal mask (1, 1, tq, tk) f32; query i attends keys <= i+offset."""
+    qi = torch.arange(tq, device=device)[:, None] + offset
+    ki = torch.arange(tk, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ki <= qi, zero, NEG_INF)[None, None]
 
 
 def decode_mask(tk_max: int, pos: torch.Tensor, tq: int = 1) -> torch.Tensor:
@@ -37,3 +60,10 @@ def decode_mask(tk_max: int, pos: torch.Tensor, tq: int = 1) -> torch.Tensor:
     ki = torch.arange(tk_max, device=pos.device)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=pos.device)
     return torch.where(ki <= qi, zero, NEG_INF)[None, None]
+
+
+def padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) valid lengths → additive key-padding mask (B, 1, 1, max_len) f32."""
+    ki = torch.arange(max_len, device=lengths.device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=lengths.device)
+    return torch.where(ki < lengths[:, None], zero, NEG_INF)[:, None, None, :]

@@ -1,6 +1,6 @@
 """Functional layers over param dicts (port of tpu_audio/nn/layers.py:
-linear, layer_norm, gelu, conv1d, embedding, embedding_as_linear,
-sinusoidal_positions).
+linear, layer_norm, rms_norm, gelu, silu, conv1d, embedding,
+embedding_as_linear, sinusoidal_positions).
 
 Conventions kept from the JAX module:
   - linear weights are (out_features, in_features);
@@ -49,18 +49,34 @@ def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
                         eps).to(x.dtype)
 
 
-def conv1d(p, x: torch.Tensor, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
-    """1-D convolution over (B, T, C_in) → (B, T', C_out); weight (O, I, K)."""
+def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis, computed in f32, returned in x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * p["weight"].float()).to(x.dtype)
+
+
+def conv1d(p, x: torch.Tensor, stride: int = 1, padding: int | tuple = 0,
+           groups: int = 1) -> torch.Tensor:
+    """1-D convolution over (B, T, C_in) → (B, T', C_out); weight
+    (O, I/groups, K). `padding` is one int or a (left, right) pair; a
+    depthwise conv (FunASR's FSMN memory) has groups = C and weight (C, 1, K)."""
     bias = p["bias"].to(x.dtype) if "bias" in p else None
-    y = F.conv1d(x.transpose(1, 2), p["weight"].to(x.dtype), bias,
-                 stride=stride, padding=padding)
+    xt = x.transpose(1, 2)
+    if not isinstance(padding, int):
+        xt, padding = F.pad(xt, tuple(padding)), 0
+    y = F.conv1d(xt, p["weight"].to(x.dtype), bias, stride=stride,
+                 padding=padding, groups=groups)
     return y.transpose(1, 2).contiguous()
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
 
 
 def sinusoidal_positions(length: int, dim: int,

@@ -1,18 +1,25 @@
-"""The per-channel int8 (W8A8) serving format (port of
-tpu_audio/ops/quant.py: quantize_array_int8, quantize_tree_int8,
-requantize_tree_int8, dequantize_int8, dequantize_rows, quantized_linear,
-int8_linear).
+"""Quantised weight formats (port of tpu_audio/ops/quant.py: the MLX
+group-affine q4/q8 format, the per-channel int8 (W8A8) serving format and
+the conversion between them).
 
-A quantised linear is a dict {"weight_i8" (…, O, I) int8, "scale_i8"
-(…, O, 1) f32, optional "bias"}: w ≈ weight_i8 · scale_i8. A layer of a
-stacked (L, O, I) leaf, as `ParamTree.layer` hands it out, is
-{"weight_i8_stacked": the whole (L, O, I) tensor, "layer_idx": i, and this
-layer's "scale_i8" and "bias"}: the stacked kernel reads the layer in
-place, as the JAX package's scalar-prefetch kernel does.
+Group-affine (the mlx-community checkpoints): {"weight_q4" | "weight_q8"
+(…, O, I·bits/32) packed words, "scales" (…, O, I/G), "biases" (…, O, I/G)
+f32, optional "bias"}: w = scale · q + bias per group of G = 64 columns, q
+unpacked from each 32-bit word low bits first. torch has few operations on
+uint32, so the words are carried as int32 with the same bits; unpacking
+masks the sign extension off. Up to 32 rows go to the fused
+dequant-matmul kernel (`kernels/quant_matmul.py`); more rows take the
+product with the dequantised weight, as the JAX module does.
 
-Only the int8 part of the JAX module is ported. The MLX group-affine q4/q8
-checkpoint formats and their W4A8 repacks are not (ROADMAP A4, kernels B6
-and B7): a tree holding them raises.
+Per-channel int8: {"weight_i8" (…, O, I) int8, "scale_i8" (…, O, 1) f32,
+optional "bias"}: w ≈ weight_i8 · scale_i8. A layer of a stacked (L, O, I)
+leaf, as `ParamTree.layer` hands it out, is {"weight_i8_stacked": the whole
+(L, O, I) tensor, "layer_idx": i, and this layer's "scale_i8" and "bias"}:
+the stacked kernel reads the layer in place, as the JAX package's
+scalar-prefetch kernel does.
+
+The W4A8 repacks ("weight_q4p", "weight_q4s") are not ported yet (ROADMAP
+B6) and raise.
 """
 
 from __future__ import annotations
@@ -23,9 +30,94 @@ import re
 import torch
 
 from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+from tpu_audio_torch.ops.kernels import quant_matmul as qmm
 
 _I8_SKIP = re.compile(r"(ln\w*|norm|conv\w*|pos_embed)\.weight$")
+_UNPORTED = ("weight_q4p", "weight_q4s", "weight_q4p_stacked", "weight_q4s_stacked")
 
+
+def _refuse_unported(p: dict) -> None:
+    if any(k in p for k in _UNPORTED):
+        raise NotImplementedError(
+            "the W4A8 serving formats are not ported yet (ROADMAP B6)")
+
+
+# ------------------------------------------------------- group-affine q4/q8
+
+def _bits(p: dict) -> int:
+    return 4 if "weight_q4" in p else 8
+
+
+def unpack_uint32(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(…, W) packed words (int32 or int64 holding the uint32 bits) →
+    (…, W·32/bits) int32 values in [0, 2^bits)."""
+    return qmm.unpack_words(packed, bits)
+
+
+def pack_uint32(vals: torch.Tensor, bits: int) -> torch.Tensor:
+    """(…, I) values in [0, 2^bits) → (…, I·bits/32) words, as int32 with
+    the uint32 bits."""
+    per = 32 // bits
+    v = vals.to(torch.int64).reshape(*vals.shape[:-1], -1, per)
+    shifts = torch.arange(per, device=vals.device, dtype=torch.int64) * bits
+    words = (v << shifts).sum(dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def quantize_array(w: torch.Tensor, bits: int = 4, group: int = 64) -> dict:
+    """fp weight (…, O, I) → group-affine dict on w's device; lead dims
+    (the stacked layer axis) pass through. The JAX function's arithmetic
+    in f32, so codes, scales and biases come out equal."""
+    *lead, o, i = w.shape
+    if i % group:
+        raise ValueError(f"in_features {i} not divisible by group {group}")
+    wg = w.float().reshape(*lead, o, i // group, group)
+    wmax, wmin = wg.amax(dim=-1), wg.amin(dim=-1)
+    levels = (1 << bits) - 1
+    scales = torch.clamp((wmax - wmin) / levels, min=1e-8)
+    q = torch.clamp(torch.round((wg - wmin[..., None]) / scales[..., None]), 0, levels)
+    return {f"weight_q{bits}": pack_uint32(q.reshape(*lead, o, i), bits),
+            "scales": scales, "biases": wmin}
+
+
+def dequantize(p: dict) -> torch.Tensor:
+    """A quantised dict → (…, O, I) f32 weight."""
+    _refuse_unported(p)
+    if "weight_i8" in p:
+        return dequantize_int8(p)
+    bits = _bits(p)
+    return qmm.dequantize_words(p[f"weight_q{bits}"], p["scales"], p["biases"], bits)
+
+
+def dequantize_rows(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    """Gather-then-dequantise for a quantised embedding table: (…, I) f32,
+    unpacking only the gathered rows."""
+    _refuse_unported(p)
+    if "weight_i8" in p:
+        return p["weight_i8"][ids].float() * p["scale_i8"][ids]
+    bits = _bits(p)
+    return qmm.dequantize_words(p[f"weight_q{bits}"][ids], p["scales"][ids],
+                                p["biases"][ids], bits)
+
+
+def quantize_tree(tree: dict, bits: int = 4, group: int = 64, predicate=None) -> dict:
+    """Quantise every eligible 2-D or stacked 3-D "weight" leaf of a param
+    tree to the group-affine format (norms, convs and positional tables
+    stay fp); predicate(path, tensor) can veto a leaf."""
+    out = {}
+    for k, v in _flatten(tree).items():
+        if (k.endswith(".weight") and v.dim() in (2, 3) and v.shape[-1] % group == 0
+                and not _I8_SKIP.search(k)
+                and (predicate is None or predicate(k, v))):
+            prefix = k[: -len(".weight")]
+            for qk, qv in quantize_array(v, bits, group).items():
+                out[f"{prefix}.{qk}"] = qv
+        else:
+            out[k] = v
+    return _unflatten(out)
+
+
+# ------------------------------------------------------------ int8 (W8A8)
 
 def quantize_array_int8(w: torch.Tensor) -> dict:
     """fp weight (…, O, I) → {"weight_i8" (…, O, I) int8, "scale_i8"
@@ -76,30 +168,98 @@ def quantize_tree_int8(tree: dict, predicate=None) -> dict:
     return _unflatten(out)
 
 
-def requantize_tree_int8(tree: dict) -> dict:
-    """Pass fp and int8 leaves through. The JAX function also converts
-    group-affine q4/q8 checkpoint leaves; those are not ported and raise."""
+def requantize_int8(p: dict) -> dict:
+    """Group-affine q4/q8 dict → per-channel int8 dict, on its device."""
+    out = quantize_array_int8(dequantize(p))
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def requantize_tree_int8(tree: dict, fuse: bool = True) -> dict:
+    """Convert every group-affine q4/q8 leaf dict of a param tree (stacked
+    (L, O, I) leaves included) to per-channel int8; fp and int8 leaves pass
+    through. With `fuse`, q/k/v and gate/up int8 leaves are then fused
+    (`fuse_int8_tree`), the JAX package's serving recipe."""
+    _refuse_unported(tree)
     if "weight_q4" in tree or "weight_q8" in tree:
-        raise NotImplementedError(
-            "group-affine q4/q8 weights are not ported yet (ROADMAP A4)")
-    return {k: requantize_tree_int8(v) if isinstance(v, dict) else v
-            for k, v in tree.items()}
+        return requantize_int8(tree)
+    out = {k: requantize_tree_int8(v, fuse=False) if isinstance(v, dict) else v
+           for k, v in tree.items()}
+    return fuse_int8_tree(out) if fuse else out
+
+
+def fuse_leaves(tree: dict, has, cat) -> dict:
+    """Replace attn q/k/v by "qkv" and mlp gate/up by "gateup" where
+    has(leaf) holds for each, concatenating them with cat(leaves)."""
+    if not isinstance(tree, dict):
+        return tree
+
+    def all_have(names, d):
+        return all(n in d and isinstance(d[n], dict) and has(d[n]) for n in names)
+
+    out = {}
+    for k, v in tree.items():
+        if k == "attn" and all_have("qkv", v):
+            out[k] = {kk: vv for kk, vv in v.items() if kk not in ("q", "k", "v")}
+            out[k]["qkv"] = cat([v["q"], v["k"], v["v"]])
+        elif k == "mlp" and all_have(("gate", "up"), v):
+            out[k] = {kk: vv for kk, vv in v.items() if kk not in ("gate", "up")}
+            out[k]["gateup"] = cat([v["gate"], v["up"]])
+        elif isinstance(v, dict):
+            out[k] = fuse_leaves(v, has, cat)
+        else:
+            out[k] = v
+    return out
+
+
+def _cat_leaves(keys):
+    def cat(ds):
+        out = {k: torch.cat([d[k] for d in ds], dim=-2) for k in keys}
+        if all("bias" in d for d in ds):
+            out["bias"] = torch.cat([d["bias"] for d in ds], dim=-1)
+        return out
+    return cat
+
+
+def fuse_int8_tree(tree: dict) -> dict:
+    """Fuse q/k/v → qkv and gate/up → gateup int8 leaves along the output
+    channels; per-channel scales concatenate exactly, so the fused product
+    equals the separate ones."""
+    return fuse_leaves(tree, lambda d: "weight_i8" in d, _cat_leaves(("weight_i8", "scale_i8")))
 
 
 def dequantize_int8(p: dict) -> torch.Tensor:
     return p["weight_i8"].float() * p["scale_i8"]
 
 
-def dequantize_rows(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    """Gather-then-dequantise for an int8 embedding table: (…, I) f32."""
-    return p["weight_i8"][ids].float() * p["scale_i8"][ids]
-
+# ------------------------------------------------------------- dispatch
 
 def quantized_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    _refuse_unported(p)
     if "weight_i8" in p or "weight_i8_stacked" in p:
         return int8_linear(p, x)
-    raise NotImplementedError(
-        f"quantized weights {sorted(p)} are not ported yet (ROADMAP A4)")
+    return group_affine_linear(p, x)
+
+
+def group_affine_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (…, I) → (…, O) in x's dtype, by the JAX rule: up to 32 rows go to
+    the fused dequant-matmul kernel (group 64); more rows take the product
+    with the weight dequantised to x's dtype."""
+    bits = _bits(p)
+    packed = p[f"weight_q{bits}"]
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    x2 = x.reshape(rows, x.shape[-1])
+    group = x.shape[-1] // p["scales"].shape[-1]
+    if rows <= qmm.MAX_ROWS and group == qmm.GROUP:
+        y = qmm.quant_matmul(x2, packed, p["scales"], p["biases"], bits=bits)
+    else:
+        y = x2 @ dequantize(p).to(x.dtype).T
+    y = y.to(x.dtype).reshape(*lead, -1)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
 
 
 def int8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -129,3 +289,4 @@ def int8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
+

@@ -1,0 +1,132 @@
+"""Token sampling on the device (port of tpu_audio/ops/sampling.py:
+SamplerConfig, sample, warp_logits, apply_top_k, apply_top_p, apply_min_p,
+apply_repetition_penalty, update_recent).
+
+Every operation stays on the logits' device, so a decode loop never reads
+them back. Top-k and top-p are exact (a sort or `torch.topk`); the JAX
+module's approximate top-k and its top-p head over large vocabularies are
+TPU devices. A categorical draw is the Gumbel argmax: argmax(logits + g)
+with g = -log(-log(u)), u uniform in (0, 1), drawn from the caller's
+`torch.Generator`, or g handed in as `noise`, so that a test can feed the
+JAX package's own draws (`jax.random.gumbel` of the same key).
+
+Not ported yet: repetition-aware sampling (RAS) and `warped_probs`, which
+come with CosyVoice2 (ROADMAP A11); a config asking for RAS raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class SamplerConfig:
+    temperature: float = 1.0
+    top_k: int = 0  # 0 = off
+    top_p: float = 1.0
+    min_p: float = 0.0
+    repetition_penalty: float = 1.0
+    repetition_window: int = 64
+    ras: bool = False
+    ras_window: int = 10
+    ras_max_repeats: int = 2
+
+
+def _cutoff(logits: torch.Tensor, kth: torch.Tensor) -> torch.Tensor:
+    return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    return _cutoff(logits, torch.topk(logits, k, dim=-1).values[..., -1:])
+
+
+def _top_p_kth(sorted_desc: torch.Tensor, p: float) -> torch.Tensor:
+    """The smallest kept value of descending logits: tokens whose
+    cumulative probability before them is < p (always at least one)."""
+    probs = torch.softmax(sorted_desc, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < p
+    inf = torch.full_like(sorted_desc, float("inf"))
+    return torch.where(keep, sorted_desc, inf).amin(dim=-1, keepdim=True)
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    if p >= 1.0:
+        return logits
+    return _cutoff(logits, _top_p_kth(torch.sort(logits, dim=-1, descending=True).values, p))
+
+
+def apply_min_p(logits: torch.Tensor, min_p: float) -> torch.Tensor:
+    if min_p <= 0.0:
+        return logits
+    probs = torch.softmax(logits, dim=-1)
+    cutoff = min_p * probs.amax(dim=-1, keepdim=True)
+    return torch.where(probs < cutoff, torch.full_like(logits, NEG_INF), logits)
+
+
+def apply_repetition_penalty(logits: torch.Tensor, recent: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """recent: (B, W) token ids with -1 padding. Divides positive and
+    multiplies negative logits of recently seen tokens by `penalty`."""
+    if penalty == 1.0:
+        return logits
+    b, v = logits.shape
+    seen = torch.zeros((b, v + 1), dtype=torch.bool, device=logits.device)
+    seen.scatter_(1, recent.long() + 1, True)  # column 0 takes the -1 pads
+    seen = seen[:, 1:]
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def warp_logits(logits: torch.Tensor, cfg: SamplerConfig,
+                recent: torch.Tensor | None = None) -> torch.Tensor:
+    """Repetition penalty → temperature → top-k/top-p → min-p; the
+    distribution `sample` draws from. Not for temperature 0."""
+    if cfg.repetition_penalty != 1.0 and recent is not None:
+        logits = apply_repetition_penalty(logits, recent, cfg.repetition_penalty)
+    logits = logits / cfg.temperature
+    v = logits.shape[-1]
+    if 0 < cfg.top_k < v and cfg.top_p < 1.0:
+        # top-k then top-p: the nucleus is found within the top-k values
+        vals = torch.topk(logits, cfg.top_k, dim=-1).values
+        logits = _cutoff(logits, _top_p_kth(vals, cfg.top_p))
+    else:
+        logits = apply_top_p(apply_top_k(logits, cfg.top_k), cfg.top_p)
+    return apply_min_p(logits, cfg.min_p)
+
+
+def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny, max=1.0 - 2 ** -24)
+    return -torch.log(-torch.log(u))
+
+
+def sample(logits: torch.Tensor, cfg: SamplerConfig, recent: torch.Tensor | None = None,
+           generator: torch.Generator | None = None,
+           noise: torch.Tensor | None = None) -> torch.Tensor:
+    """logits (B, V) → token ids (B,) int64. Greedy when temperature == 0;
+    otherwise argmax of the warped logits plus Gumbel noise (`noise`, or
+    drawn from `generator`)."""
+    if cfg.ras:
+        raise NotImplementedError("repetition-aware sampling is not ported yet (ROADMAP A11)")
+    if cfg.temperature == 0.0:
+        if cfg.repetition_penalty != 1.0 and recent is not None:
+            logits = apply_repetition_penalty(logits, recent, cfg.repetition_penalty)
+        return logits.argmax(dim=-1)
+    logits = warp_logits(logits, cfg, recent)
+    if noise is None:
+        if generator is None:
+            raise ValueError("sampling at temperature > 0 needs a generator or noise")
+        noise = gumbel(logits.shape, generator, logits.device)
+    return (logits + noise).argmax(dim=-1)
+
+
+def update_recent(recent: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """Shift the (B, W) recent-token ring left and append token (B,)."""
+    return torch.cat([recent[:, 1:], token[:, None].to(recent.dtype)], dim=1)
