@@ -45,9 +45,18 @@ Phases (any failure raises and the script exits non-zero):
      the split of a transcribe (encode, prefill, ms per decode step), and
      the kernel path against the f32 plain path on the prefill logits and
      three teacher-forced steps, with faults planted in the whole-stack step.
+  9. (run after 7, before 8) Whisper on the mlx group-affine q4 and q8
+     trees, which take the per-op encoder around `encoder_attention` and
+     `quant_matmul` for every decoder linear: the STT engine at B=1 on q4
+     (detect_language, transcribe with word timestamps, a timed 30 s
+     window, the f32 comparison with planted faults), `transcribe_batch` of
+     phase 4's clips at batch 16, a q8 transcribe; then the bf16 per-op
+     encoder (pair-packed and head-major attention) against the fused one
+     at batch 16: times by CUDA events, launches, features' cosine.
 
-Phase 3 also holds the four W8A8 encoder-block kernels against their plain
-versions on block 0 of the w8a8 tree at batch 16, and the q4/q8
+Phase 3 also holds the encoder-attention kernel (both entries, all three
+layouts) at batch 16 and B=1, the four W8A8 encoder-block kernels against
+their plain versions on block 0 of the w8a8 tree at batch 16, and the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
 with planted faults on inputs where every term matters. Each kernel is
 timed beside its bound (the larger of its operations over the H100's dense
@@ -56,6 +65,9 @@ call computes the same function or its product, that call's time.
 
 `python3 chip_smoke.py --funasr-only` runs phases 1, 2, Fun-ASR's part of
 phase 3, and phase 8: a short check of the Fun-ASR kernels.
+`python3 chip_smoke.py --q4-only` runs phases 1, 2, encoder attention's
+part of phase 3, and phase 9: a short check of the per-op encoder and the
+q4/q8 trees.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -64,6 +76,7 @@ last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import subprocess
@@ -172,6 +185,50 @@ def planted_faults(name: str, outputs, faults, rel: float) -> None:
         if all(e <= rel and c > 0.999 for e, c in readings):
             raise AssertionError(f"{name}: the check cannot see {label} ({text})")
         log(f"control {name}, {label}: {text}: outside the limit")
+
+
+def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: bool) -> None:
+    """End to end: each of `out` at most SLICE_RATIO times as far from the
+    f32 plain path's `exact` (max|Δ|/max|ref|) as the plain bf16 path is
+    (`p_err`), with cosine > 0.999. A control (`out` from a planted fault)
+    must land outside on at least one output."""
+    readings = [(measure(k, r)[1] / pe, measure(k, r)[2]) for k, r, pe in zip(out, exact, p_err)]
+    text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
+                     for name, (q, c) in zip(outputs, readings))
+    inside = all(q <= SLICE_RATIO and c > 0.999 for q, c in readings)
+    if inside == control:
+        raise AssertionError(f"{tag} {label}: {text}: "
+                             + ("the check cannot see it" if control else
+                                f"outside ratio {SLICE_RATIO} / cosine 0.999"))
+    log(f"{'control ' if control else ''}{tag} {label} against f32: {text}"
+        + (": outside the limit" if control else f" (plain bf16 rel {p_err})"))
+
+
+def events_ms(fn, iters: int = 2) -> float:
+    """Mean device time of fn() over `iters` calls by CUDA events, for work
+    long enough (a whole encoder) that the host's issue does not count."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def batch_mels(clips, n_mels: int, dev) -> torch.Tensor:
+    """The first BATCH 30 s windows of the clips, as `transcribe_windows`
+    cuts them: (BATCH, 3000, n_mels) bf16."""
+    from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, MelExtractor, _pad_frames
+
+    extractor = MelExtractor(n_mels, dev)
+    windows = []
+    for clip in clips:
+        mel = extractor(clip)
+        windows += [_pad_frames(mel[s:s + N_FRAMES], N_FRAMES)
+                    for s in range(0, mel.shape[0] - N_FRAMES, N_FRAMES)]
+    return torch.stack(windows[:BATCH]).to(torch.bfloat16)
 
 
 def nbytes(*tensors) -> int:
@@ -478,6 +535,91 @@ def check_int8_encoder(model, randn, rows: list) -> None:
                            int_mm_ms(ff, d, w2)))
 
 
+def check_encoder_attention(cfg, randn, rows: list) -> None:
+    """Phase 3, bidirectional encoder attention: `encoder_attention` in its
+    (B, T, H, D) and head-major layouts and `encoder_attention_packed` at
+    large-v3-turbo's shapes (20 heads of 64, T 1500, bf16), each against its
+    plain version (rel 2e-2, cosine 0.999) at batch 16 on inputs where every
+    term matters: q and k of std 0.6 under a scale of 0.7 (scores of std ~2),
+    unit values, keys from t_valid = 1000 on holding large values. Four
+    planted faults per entry must land outside the limit. Timed at the main
+    path's arguments (t_valid = T, scale 1: Whisper folds hd^-0.25 into q and
+    k) at batch 16 and at B=1, beside the bound and
+    F.scaled_dot_product_attention on the same (B, H, T, hd) tensors."""
+    import torch.nn.functional as F
+
+    from tpu_audio_torch.ops.kernels import encoder_attention as ea
+
+    t, h = cfg.n_audio_ctx, cfg.n_audio_head
+    hd = cfg.n_audio_state // h
+    t_mask, scale = 1000, 0.7
+    bf16 = torch.bfloat16
+    qh, kh = (randn(BATCH, h, t, hd, dtype=bf16, scale=0.6) for _ in range(2))
+    vh = randn(BATCH, h, t, hd, dtype=bf16)
+    kh[:, :, t_mask:] = 3.0
+    vh[:, :, t_mask:] = randn(BATCH, h, t - t_mask, hd, dtype=bf16, scale=5.0)
+    swap = torch.arange(h, device=qh.device).view(-1, 2).flip(1).reshape(-1)
+
+    def layout(x, kind):  # from head-major (B, H, T, hd)
+        b = x.shape[0]
+        if kind == "bthd":
+            return x.transpose(1, 2).contiguous()
+        if kind == "pre_bh":
+            return x.reshape(b * h, t, hd)
+        return x.reshape(b, h // 2, 2, t, hd).permute(0, 1, 3, 2, 4).reshape(b * h // 2, t, 2 * hd)
+
+    entries = {
+        "bthd": (lambda *a, **k: ea.encoder_attention(*a, **k), ea.encoder_attention_plain),
+        "pre_bh": (lambda *a, **k: ea.encoder_attention(*a, pre_bh=True, **k),
+                   lambda *a, **k: ea.encoder_attention_plain(*a, pre_bh=True, **k)),
+        "packed": (lambda *a, **k: ea.encoder_attention_packed(*a, **k),
+                   ea.encoder_attention_packed_plain)}
+    times, errs = {}, {}
+    for kind, (kernel, plain_fn) in entries.items():
+        q, k, v = (layout(x, kind) for x in (qh, kh, vh))
+        name = f"encoder_attention {kind} {tuple(q.shape)} bf16"
+
+        def plain(q=q, k=k, v=v, t_valid=t_mask, sc=scale, kind=kind, plain_fn=plain_fn):
+            return (plain_fn(q, k, v, t_valid=t_valid, scale=sc),)
+
+        def heads(fn):  # the plain version on head-major inputs changed by fn
+            return lambda: plain(*(layout(fn(x), kind) for x in (qh, kh, vh)))
+
+        got = kernel(q, k, v, t_valid=t_mask, scale=scale)
+        errs[kind] = compare(f"{name}, t_valid {t_mask}, scale {scale}", got, plain()[0],
+                             rel=2e-2)
+        planted_faults(name, (got,), [
+            ("keys at or beyond t_valid left unmasked", lambda: plain(t_valid=t)),
+            ("the scale ignored", lambda: plain(sc=1.0)),
+            ("the two heads of each pair swapped", heads(lambda x: x[:, swap])),
+            ("each head given the next head's values", lambda: plain(
+                v=layout(vh.roll(1, dims=1), kind))),
+        ], rel=2e-2)
+        del got
+        times[kind, BATCH] = timed_pair(lambda: kernel(q, k, v, scale=1.0),
+                                        lambda: plain_fn(q, k, v, scale=1.0), 5)
+        q1, k1, v1 = (layout(x[:1].contiguous(), kind) for x in (qh, kh, vh))
+        times[kind, 1] = timed_pair(lambda: kernel(q1, k1, v1, scale=1.0),
+                                    lambda: plain_fn(q1, k1, v1, scale=1.0), 20)
+    sdpa = {b: time_ms(lambda: F.scaled_dot_product_attention(qh[:b], kh[:b], vh[:b],
+                                                                scale=1.0), 10 if b > 1 else 20)
+            for b in (BATCH, 1)}
+    roofs = {b: bound({"bf16": 4 * b * h * t * t * hd}, 4 * nbytes(qh[:b])) for b in (BATCH, 1)}
+    for (kind, b), (ms, pms) in times.items():
+        log(f"time encoder_attention {kind}, batch {b} (T {t}, {h} heads of {hd}, scale 1): "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {roofs[b][0]:.4f} ms "
+            f"({roofs[b][1]}), F.scaled_dot_product_attention {sdpa[b]:.4f} ms")
+    log(f"library encoder_attention: F.scaled_dot_product_attention on the same (B, {h}, {t}, "
+        f"{hd}) bf16 tensors with scale 1, called nowhere in the port")
+    for name, kind, err in (("encoder_attention", "bthd", max(errs["bthd"], errs["pre_bh"])),
+                            ("encoder_attention_packed", "packed", errs["packed"])):
+        ms, pms = times[kind, BATCH]
+        rows.append(kernel_row(name, "tpu_audio_torch/csrc/encoder_attention.cu",
+                               "tpu_audio/ops/pallas/encoder_attention.py:"
+                               + ("57" if kind == "bthd" else "157"),
+                               err, ms, pms, roofs[BATCH], sdpa[BATCH]))
+
+
 def history_only(q, k, v, k_hist, v_hist, rnd):
     """Self-attention of the decoder step with the current token's own
     term dropped (a planted fault)."""
@@ -768,8 +910,7 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
     counts of the batch-16 run."""
     from tpu_audio_torch.api.stt import WhisperEngine
     from tpu_audio_torch.models.whisper import batch as wbatch
-    from tpu_audio_torch.models.whisper.pipeline import (N_FRAMES, MelExtractor,
-                                                         WhisperPipeline, _pad_frames)
+    from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, WhisperPipeline, _pad_frames
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
     from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
@@ -781,32 +922,16 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
     mods = (fused_mel, fe, fe8, ckv, i8mm, fws)
 
     # 1. the encoders alone on phase 4's 16 windows, by CUDA events
-    extractor = MelExtractor(cfg.n_mels, dev)
-    windows = []
-    for clip in clips:
-        mel = extractor(clip)
-        windows += [_pad_frames(mel[s:s + N_FRAMES], N_FRAMES)
-                    for s in range(0, mel.shape[0] - N_FRAMES, N_FRAMES)]
-    mel16 = torch.stack(windows[:BATCH]).to(torch.bfloat16)
+    mel16 = batch_mels(clips, cfg.n_mels, dev)
 
     def encode(m):
         with torch.inference_mode():
             return m.encode(mel16)
 
-    def encode_ms(m, iters=2):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            encode(m)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     feats_i8, feats_bf16 = encode(model), encode(model_bf16)  # warm-up, and the features
     times = {"int8": [], "bf16": []}
     for label in ("int8", "bf16", "bf16", "int8"):
-        times[label].append(encode_ms(model if label == "int8" else model_bf16))
+        times[label].append(events_ms(lambda: encode(model if label == "int8" else model_bf16)))
     d, t, lyr, ff = cfg.n_audio_state, cfg.n_audio_ctx, cfg.n_audio_layer, 4 * cfg.n_audio_state
     # bench.py's count: the q, k, v, o projections, q k^T and attention . v,
     # fc1 and fc2, and the two convolutions
@@ -912,18 +1037,7 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
     outputs = ("encoder features (2, 1500, 1280)", "decode-step logits (2, 1, 51866)")
     p_err = [measure(p, r)[1] for p, r in zip(plain_out, exact)]
 
-    def held(label, out, control):
-        readings = [(measure(k, r)[1] / pe, measure(k, r)[2])
-                    for k, r, pe in zip(out, exact, p_err)]
-        text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
-                         for name, (q, c) in zip(outputs, readings))
-        inside = all(q <= SLICE_RATIO and c > 0.999 for q, c in readings)
-        if inside == control:
-            raise AssertionError(f"full w8a8 {label}: {text}: "
-                                 + ("the check cannot see it" if control else
-                                    f"outside ratio {SLICE_RATIO} / cosine 0.999"))
-        log(f"{'control ' if control else ''}full w8a8 {label} against f32: {text}"
-            + (": outside the limit" if control else f" (plain bf16 rel {p_err})"))
+    held = functools.partial(held_against_f32, "full w8a8", outputs, exact, p_err)
 
     held("kernel path", run_path(model, torch.bfloat16), control=False)
     attn, fc2 = fe8.attn_oproj_ln_int8, fe8.fc2_residual_int8
@@ -939,6 +1053,249 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
         with patched(fe8, name, fault):
             held(label, run_path(model, torch.bfloat16), control=True)
     return launches
+
+
+def whisper_q4(model_q4, model_q8, model, tok, clips, dev, card) -> dict:
+    """Phase 9: Whisper on the mlx group-affine trees (`quantize_tree` of the
+    bf16 weights: every block linear and the tied embedding; convs, norms
+    and positions stay bf16), which take the per-op encoder (cuBLAS
+    products around `encoder_attention`), `quant_matmul` for every decoder
+    linear and the head, and bf16 cross-K/V. The STT engine at B=1 on q4
+    (detect_language, transcribe with word timestamps, a timed 30 s window,
+    the kernel path against the f32 plain path with planted faults),
+    `transcribe_batch` of phase 4's clips at batch 16, one transcribe on q8;
+    then the bf16 per-op encoder (packed and head-major attention) against
+    the fused one at batch 16. Returns the launch counts of the q4 engine's
+    run and of the per-op bf16 encoder's."""
+    from tpu_audio_torch.api.results import TranscriptionSegment
+    from tpu_audio_torch.api.stt import WhisperEngine
+    from tpu_audio_torch.models.whisper import model as wmodel
+    from tpu_audio_torch.models.whisper import timing
+    from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, WhisperPipeline, _pad_frames
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import encoder_attention as ea
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+    from tpu_audio_torch.ops.kernels import fused_mel
+    from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+
+    cfg = model_q4.cfg
+    lyr = cfg.n_audio_layer
+    per_step = 8 * cfg.n_text_layer + 1  # the decoder's linears and the tied head
+    mods = (fused_mel, fe, fe8, ea, qmm, ckv, fws, i8mm)
+    off = ("ln_qkv", "attn_oproj_ln", *fe8.LAUNCHES, "encoder_attention_packed",
+           "fused_whisper_decode_step", "cross_attention_decode", "int8_matmul",
+           "int8_matmul_stacked")
+    clip = clips[0][:SINGLE_CLIP_SECONDS * 16000]
+
+    def counted_steps(m, stats):
+        """Count m's encodes and steps, and the quant_matmul launches of each
+        single-token step."""
+        encode, step = m.encode, m.decode_step
+
+        def enc(*a, **k):
+            stats["encodes"] += 1
+            return encode(*a, **k)
+
+        def dec(tokens, state):
+            before = qmm.LAUNCHES["quant_matmul"]
+            out = step(tokens, state)
+            if tokens.shape[1] == 1:
+                stats["per_step"].append(qmm.LAUNCHES["quant_matmul"] - before)
+            return out
+        return enc, dec
+
+    # 1. the STT engine at B=1 on q4: detect_language, transcribe with words
+    pipe = WhisperPipeline(model_q4, tok, compute_dtype=torch.bfloat16)
+    engine = WhisperEngine.from_pipeline(pipe)
+    stats = {"encodes": 0, "per_step": []}
+    enc, dec = counted_steps(model_q4, stats)
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(model_q4, "encode", enc), patched(model_q4, "decode_step", dec):
+        language, probs = engine.detect_language(clip)
+        result = engine.transcribe(clip, word_timestamps=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main = launch_counts(*mods)
+    log(f"whisper q4 launches: {main}")
+    n_steps = len(stats["per_step"])
+    if (main["encoder_attention"] != lyr * stats["encodes"] or any(main[n] for n in off)
+            or n_steps == 0 or set(stats["per_step"]) != {per_step}):
+        raise AssertionError(f"whisper q4: expected {lyr} encoder_attention launches per encode "
+                             f"({stats['encodes']} encodes), {per_step} quant_matmul launches "
+                             f"per step (got {sorted(set(stats['per_step']))}) and no other "
+                             f"encoder or decoder-step kernel: {main}")
+    words = result.words
+    if not (result.language == language and math.isclose(sum(probs.values()), 1.0,
+                                                          rel_tol=1e-3)
+            and words and all(0 <= w.start <= w.end and 0 <= w.probability <= 1
+                              for w in words)):
+        raise AssertionError(f"whisper q4: wrong result or no words: {result!r}")
+    log(f"whisper q4: STT engine detect_language + transcribe(word_timestamps=True) of "
+        f"{SINGLE_CLIP_SECONDS} s: language {language}, {stats['encodes']} encodes, "
+        f"{n_steps} decoder steps, {len(result.segments)} segments, {len(words)} words "
+        f"(first {words[0].word!r} {words[0].start:.2f}-{words[0].end:.2f} s), "
+        f"{wall:.3f} s wall ({card})")
+
+    # 2. one timed 30 s window, greedy, with its encode
+    window = _pad_frames(pipe.mel_extractor(clips[1][:30 * 16000])[:N_FRAMES], N_FRAMES)
+
+    # the word timestamps of real byte-level text on that window (random
+    # weights emit ids the byte tokenizer decodes to nothing, so the
+    # transcript's words above are empty): one encode, the cross-QK pass and
+    # the host DTW, timed
+    ts = tok.timestamp_begin
+    text = tok.encode(" Hello, world! This is a test of the word timings.")
+    segs = [TranscriptionSegment(id=0, seek=0, start=0.0, end=30.0, text="",
+                                 tokens=[ts, *text, ts + 1500])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.add_word_timestamps(segs, model=model_q4, tokenizer=tok, mel=window, language="en",
+                               time_offset=0.0, dtype=torch.bfloat16)
+    wall = time.perf_counter() - t0
+    aligned = segs[0].words
+    if not (len(aligned) == 10 and all(w.word for w in aligned)
+            and all(a.start <= b.start and a.start <= a.end for a, b in zip(aligned, aligned[1:]))):
+        raise AssertionError(f"whisper q4 word timestamps of given text: {aligned!r}")
+    log(f"whisper q4 word timestamps of {len(text)} given tokens on one window: "
+        + ", ".join(f"{w.word!r} {w.start:.2f}-{w.end:.2f}" for w in aligned)
+        + f"; {1e3 * wall:.1f} ms ({card})")
+
+    def timed():
+        stats.update(encodes=0, per_step=[])
+        reset(*mods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(model_q4, "encode", enc), patched(model_q4, "decode_step", dec):
+            r = pipe.decoder.decode(window, language="en", temperature=0.0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, len(stats["per_step"]), r, launch_counts(ea, qmm)
+
+    timed()  # warm-up
+    for w, n, r, counts in (timed(), timed()):
+        log(f"whisper q4 single-stream decode: 1 window with its encode, {n} decoder steps "
+            f"({len(r.tokens)} tokens), {w:.4f} s, {1e3 * w / n:.4f} ms per step, "
+            f"{30.0 / w:.2f}x real time; launches per call: {counts} ({card})")
+
+    # 3. the kernel path against the f32 plain path: encoder features, the
+    # prefill logits and three teacher-forced steps of one window
+    mel1 = window[None].to(torch.bfloat16)
+    init = torch.tensor([tok.sot_sequence()], device=dev)
+    forced = [tok.timestamp_begin, 400, 1200]
+
+    def run_path(m, dtype):
+        with torch.inference_mode():
+            feats = m.encode(mel1.to(dtype))
+            state = m.init_state(feats, batch=1, dtype=dtype)
+            out = [m.decode_step(init, state)[0][:, -1]]
+            for t in forced:
+                out.append(m.decode_step(torch.tensor([[t]], device=dev), state)[0][:, -1])
+        return feats, torch.cat(out).float()
+
+    ref_model = copy.deepcopy(model_q4).float()
+    with plain_kernels(ea, qmm):
+        exact = run_path(ref_model, torch.float32)
+        plain_out = run_path(model_q4, torch.bfloat16)
+    del ref_model
+    outputs = ("encoder features (1, 1500, 1280)", "prefill + step logits (4, 51866)")
+    p_err = [measure(p, r)[1] for p, r in zip(plain_out, exact)]
+
+    held = functools.partial(held_against_f32, "whisper q4", outputs, exact, p_err)
+
+    held("kernel path", run_path(model_q4, torch.bfloat16), control=False)
+    attn, qmat = ea.encoder_attention, qmm.quant_matmul
+    swap = torch.arange(cfg.n_audio_head, device=dev).view(-1, 2).flip(1).reshape(-1)
+    for label, mod, name, fault in [
+            ("each head given the next head's values", ea, "encoder_attention",
+             lambda q, k, v, **kw: attn(q, k, v.roll(1, dims=2), **kw)),
+            ("the two heads of each pair swapped", ea, "encoder_attention",
+             lambda q, k, v, **kw: attn(q[:, :, swap], k[:, :, swap], v[:, :, swap], **kw)),
+            ("quant_matmul's group biases dropped", qmm, "quant_matmul",
+             lambda x, w, sc, bi, **kw: qmat(x, w, sc, torch.zeros_like(bi), **kw))]:
+        with patched(mod, name, fault):
+            held(label, run_path(model_q4, torch.bfloat16), control=True)
+
+    # 4. transcribe_batch of phase 4's clips at batch 16 on q4
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = engine.transcribe_batch(clips, batch_size=BATCH, language="en")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batch = launch_counts(*mods)
+    log(f"whisper q4 batch launches: {batch}")
+    if (len(texts) != N_CLIPS or batch["encoder_attention"] != lyr
+            or batch["quant_matmul"] == 0 or any(batch[n] for n in off)):
+        raise AssertionError(f"whisper q4 batch: {len(texts)} texts, launches {batch}")
+    audio_s = N_CLIPS * CLIP_SECONDS
+    log(f"whisper q4 batch: STT transcribe_batch, {N_CLIPS} clips x {CLIP_SECONDS} s = {BATCH} "
+        f"windows, batch {BATCH}, bf16 cross-KV: {wall:.3f} s wall, {audio_s / wall:.1f}x "
+        f"real time ({card})")
+
+    # 5. one transcribe of the 4 s clip on q8
+    engine8 = WhisperEngine.from_pipeline(WhisperPipeline(model_q8, tok,
+                                                          compute_dtype=torch.bfloat16))
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res8 = engine8.transcribe(clip, language="en", temperature=(0.0,))
+    torch.cuda.synchronize()
+    q8 = launch_counts(*mods)
+    if not (res8.segments and q8["encoder_attention"] and q8["quant_matmul"]
+            and not any(q8[n] for n in off)):
+        raise AssertionError(f"whisper q8: {res8!r}, launches {q8}")
+    log(f"whisper q8: STT engine transcribe of {SINGLE_CLIP_SECONDS} s (greedy): "
+        f"{len(res8.segments)} segments, {time.perf_counter() - t0:.3f} s wall; launches "
+        f"{q8} ({card})")
+
+    # 6. the bf16 per-op encoder against the fused one, batch 16, phase 4's windows
+    mel16 = batch_mels(clips, cfg.n_mels, dev)
+    variants = {"fused": (True, True), "per-op packed": (False, True),
+                "per-op head-major": (False, False)}
+
+    def encode(label):
+        fused, packed = variants[label]
+        with patched(wmodel, "FUSED_ENC", fused), patched(wmodel, "PACKED_ATTN", packed), \
+                torch.inference_mode():
+            return model.encode(mel16)
+
+    feats, counts = {}, {}
+    for label in variants:
+        reset(*mods)
+        feats[label] = encode(label)
+        torch.cuda.synchronize()
+        counts[label] = launch_counts(fe, ea)
+    log(f"bf16 encoder launches per call: {counts}")
+    want = {"fused": {"ln_qkv": lyr, "attn_oproj_ln": lyr},
+            "per-op packed": {"encoder_attention_packed": lyr},
+            "per-op head-major": {"encoder_attention": lyr}}
+    for label, c in counts.items():
+        if c != {n: want[label].get(n, 0) for n in c}:
+            raise AssertionError(f"bf16 encoder {label}: launches {c}, expected {want[label]}")
+    per_op = dict(counts["per-op packed"])
+
+    times = {label: [] for label in variants}
+    for label in (*variants, *reversed(variants)):
+        times[label].append(events_ms(lambda: encode(label)))
+    d, t, ff = cfg.n_audio_state, cfg.n_audio_ctx, 4 * cfg.n_audio_state
+    ops = BATCH * (lyr * (2 * t * d * d * 4 + 2 * 2 * t * d * ff + 2 * 2 * t * t * d)
+                   + 2 * (3000 * 3 * cfg.n_mels * d + 1500 * 3 * d * d))
+    roof, _ = bound({"bf16": ops}, 0)
+    for label, ms in times.items():
+        mean = sum(ms) / len(ms)
+        _, e, cos = measure(feats[label], feats["fused"])
+        log(f"bf16 encoder, batch 16, {label}: {mean:.3f} ms (runs {ms}), "
+            f"{ops / mean / 1e9:.1f} TFLOP/s = {ops / mean / 1e9 / (PEAK['bf16'] / 1e12):.4f} "
+            f"of 989; bound {roof:.3f} ms; features against fused: cosine {cos:.6f}, rel "
+            f"{e:.3e} ({card})")
+        if not cos > 0.999:
+            raise AssertionError(f"bf16 encoder {label}: features not within cosine 0.999 "
+                                 "of the fused encoder's")
+    return {**main, "encoder_attention_packed": per_op["encoder_attention_packed"]}
 
 
 def funasr_trees(dev) -> dict:
@@ -1340,6 +1697,7 @@ def main() -> None:
     from tpu_audio_torch.models.whisper import model as wmodel
     from tpu_audio_torch.models.whisper.config import PRESETS
     from tpu_audio_torch.models.whisper.tokenizer import BPE, WhisperTokenizer
+    from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import _build
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
@@ -1373,14 +1731,27 @@ def main() -> None:
     t0 = time.perf_counter()
     params = wmodel.init_params(SEED, cfg, torch.bfloat16, dev)
     model = wmodel.Whisper(cfg, params)
+    # the mlx group-affine trees of the published quantised checkpoints
+    model_q4 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=4))
+    model_q8 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=8))
+    tok = WhisperTokenizer(BPE({bytes([i]): i for i in range(256)}), True, cfg.num_languages)
+    rng = np.random.default_rng(SEED)
+    clips = [(rng.standard_normal(CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
+             for _ in range(N_CLIPS)]
+    if "--q4-only" in sys.argv[1:]:  # phases 1, 2, encoder attention's part of 3, and 9
+        del params
+        rows = []
+        check_encoder_attention(cfg, randn_on(dev), rows)
+        print_result(rows, whisper_q4(model_q4, model_q8, model, tok, clips, dev, card))
+        return
     # the int8 decoder tree: bf16 encoder (shared), int8 decoder and lm head
     model_i8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params, encoder=False))
     # the full w8a8 tree: int8 encoder, decoder and lm head
     model_w8a8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params))
     del params
     torch.cuda.synchronize()
-    log(f"models: large-v3-turbo random bf16 weights (seed {SEED}), their int8 decoder "
-        f"tree and their full w8a8 tree in {time.perf_counter() - t0:.1f} s")
+    log(f"models: large-v3-turbo random bf16 weights (seed {SEED}), their q4 and q8 trees, "
+        f"their int8 decoder tree and their full w8a8 tree in {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------- 3. kernels against plain
     t_phase = time.perf_counter()
@@ -1470,6 +1841,7 @@ def main() -> None:
                            None, "no one PyTorch call computes attention, o-projection and "
                            "LayerNorm; scaled_dot_product_attention is the attention alone"))
     del got, qa, ka, va, xa
+    check_encoder_attention(cfg, randn, rows)
 
     # cross-attention decode over int8 K/V of 4 layers at batch 16
     h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
@@ -1510,11 +1882,6 @@ def main() -> None:
 
     # ------------------------------------------------------- 4. the slice
     t_phase = time.perf_counter()
-    tok = WhisperTokenizer(BPE({bytes([i]): i for i in range(256)}), True,
-                           cfg.num_languages)
-    rng = np.random.default_rng(SEED)
-    clips = [(rng.standard_normal(CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
-             for _ in range(N_CLIPS)]
     kernel_mods = (fused_mel, fe, ckv)
     reset(*kernel_mods)
     torch.cuda.synchronize()
@@ -1619,7 +1986,14 @@ def main() -> None:
     launches.update({name: w8a8[name] for name in
                      ("ln_qkv_int8", "attn_oproj_ln_int8", "fc1_gelu_int8", "fc2_residual_int8")})
     log(f"phase 7 wall: {time.perf_counter() - t_phase:.1f} s")
-    del model, model_w8a8
+    del model_w8a8
+
+    # ----------------------------------------------- 9. Whisper q4/q8, per-op
+    t_phase = time.perf_counter()
+    q4 = whisper_q4(model_q4, model_q8, model, tok, clips, dev, card)
+    launches.update({name: q4[name] for name in ("encoder_attention", "encoder_attention_packed")})
+    log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
+    del model, model_q4, model_q8
 
     # ------------------------------------------------------- 8. Fun-ASR
     t_phase = time.perf_counter()

@@ -181,6 +181,18 @@ def test_engine_text_matches(jparams, jax_fused, jax_kernels):
     assert tstt.clean_output("<|im_start|>hi<|im_end|> ") == "hi"
 
 
+def test_engine_defaults_fit_the_default_request(jparams):
+    """ROADMAP C1: `from_params` with every default serves the default
+    request, a byte-level prompt of ~260 slots plus max_new_tokens 256:
+    transcribe, translate and warmup run, the cache sized per request."""
+    eng = tstt.FunASREngine.from_params(to_torch(jparams), TCFG)
+    assert eng.generator.max_cache is None
+    audio = (0.1 * np.sin(np.linspace(0, 400 * np.pi, 16000))).astype(np.float32)
+    assert isinstance(eng.transcribe(audio).text, str)
+    assert isinstance(eng.translate(audio).text, str)
+    assert set(eng.warmup()) == {"short"}
+
+
 def test_checkpoints_and_tokenizer_files_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         STT.funasr().load()

@@ -46,7 +46,6 @@ from tpu_audio.ops.pallas import fused_encoder as jfe
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.whisper import batch as tbatch
 from tpu_audio_torch.models.whisper import decoding as tdecoding
-from tpu_audio_torch.models.whisper import load as tload
 from tpu_audio_torch.models.whisper import model as tmodel
 from tpu_audio_torch.models.whisper import pipeline as tpipeline
 from tpu_audio_torch.models.whisper.config import WhisperConfig
@@ -278,9 +277,11 @@ def test_int8_encode_matches_the_jax_kernels(encoder_trees, jax_encoder_kernels,
 def test_w8a8_tree_runs_the_four_int8_kernels_per_block(encoder_trees, monkeypatch):
     """Whisper builds on the full w8a8 tree; one `encode` calls each int8
     wrapper once per block and no bf16 encoder wrapper, and on CPU tensors
-    nothing launches."""
+    nothing launches. A tree whose block linears are part int8, part fp
+    (fc2) takes neither fused encoder: it runs the per-op blocks, as the
+    JAX `encode` does, and matches it (f32, 1e-5 of max|ref|)."""
     _, _, model = encoder_trees
-    assert model.int8_encoder and model.qkv_weight.dtype == torch.int8
+    assert model.encoder_kind == "int8" and model.qkv_weight.dtype == torch.int8
     calls = {name: 0 for name in (*fe8.LAUNCHES, *fe.LAUNCHES)}
     for mod in (fe8, fe):
         for name in mod.LAUNCHES:
@@ -293,11 +294,18 @@ def test_w8a8_tree_runs_the_four_int8_kernels_per_block(encoder_trees, monkeypat
     assert calls == {**{n: DIMS["n_audio_layer"] for n in fe8.LAUNCHES},
                      **{n: 0 for n in fe.LAUNCHES}}
     assert fe8.LAUNCHES == launches
-    mixed = tload.serve_tree_int8(tmodel.init_params(0, WhisperConfig(**DIMS), device="cpu"))
-    mixed["encoder"]["blocks"]["mlp"]["fc2"] = {"weight": torch.zeros(2, 256, 1024),
-                                                "bias": torch.zeros(2, 256)}
-    with pytest.raises(ValueError, match="all int8 or all fp"):
-        tmodel.Whisper(WhisperConfig(**DIMS), mixed)
+    jcfg = JWhisperConfig(**DIMS)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    mixed = jload.serve_tree_int8(jp)
+    mixed["encoder"]["blocks"]["mlp"]["fc2"] = jp["encoder"]["blocks"]["mlp"]["fc2"]
+    mixed_model = tmodel.Whisper(WhisperConfig(**DIMS), params_from_numpy(
+        jax.tree.map(np.asarray, mixed), device="cpu"))
+    assert mixed_model.encoder_kind is None and not hasattr(mixed_model, "qkv_weight")
+    mel = (np.random.default_rng(1).standard_normal((1, 600, 80)) * 0.5).astype(np.float32)
+    calls.update({name: 0 for name in calls})
+    got = mixed_model.encode(torch.from_numpy(mel)).numpy()
+    assert calls == {name: 0 for name in calls}
+    assert rel(got, jmodel.encode(mixed, jcfg, jnp.asarray(mel))).max() <= 1e-5
 
 
 # ------------------------------------------------- decoding, the full tree

@@ -189,10 +189,13 @@ def test_stt_engine_routes_to_the_pipeline(window_trees):
     assert engine.detect_language(audio) == pipe.detect_language(audio)
     texts = engine.transcribe_batch([audio, audio], batch_size=2, kv_int8=True)
     assert len(texts) == 2 and texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        engine.transcribe(audio, word_timestamps=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        engine.transcribe(audio, hallucination_silence_threshold=2.0)
+    # word timestamps reach the pipeline: the same segments, now with words
+    timed = engine.transcribe(audio, word_timestamps=True, **kw)
+    assert [s.tokens for s in timed.segments] == [s.tokens for s in got.segments]
+    assert all(s.words is not None for s in timed.segments)
+    kept = engine.transcribe(audio, word_timestamps=True, hallucination_silence_threshold=2.0,
+                             **kw)
+    assert {s.id for s in kept.segments} <= {s.id for s in timed.segments}
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         engine.transcribe("clip.wav")
 

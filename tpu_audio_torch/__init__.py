@@ -12,9 +12,11 @@ kernel: the kernels compile on the first launch on a CUDA tensor.
 Ported so far: Whisper batch transcription (`models/whisper/batch.py`,
 `transcribe_windows`) and single-stream transcription through the public
 API (`api/stt.py` → `models/whisper/pipeline.WhisperPipeline` →
-`decoding.SegmentDecoder`), with the log-mel front-end, the fused bf16
-encoder blocks, the int8 cross-K/V decode step, the int8 (W8A8) decoder
-serving tree and the whole B=1 decoder step; and Fun-ASR-Nano through
+`decoding.SegmentDecoder`, word timestamps in `timing.py`), with the
+log-mel front-end, the fused bf16 and W8A8 encoder blocks, the per-op
+encoder around the encoder-attention kernel (the mlx group-affine q4/q8
+trees), the int8 cross-K/V decode step, the int8 (W8A8) decoder serving
+tree and the whole B=1 decoder step; and Fun-ASR-Nano through
 `api/stt_funasr.py` on the shared decoder stack (`nn/transformer.py`),
 with bf16, group-affine q4 and int8 LLM weights.
 """

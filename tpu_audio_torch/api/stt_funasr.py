@@ -93,9 +93,12 @@ class FunASREngine(STTEngineBase):
             "FunASREngine.from_params")
 
     @classmethod
-    def from_params(cls, params, cfg, tokenizer=None, max_cache: int = 512) -> "FunASREngine":
+    def from_params(cls, params, cfg, tokenizer=None,
+                    max_cache: int | None = None) -> "FunASREngine":
         """An engine on a parameter tree (random weights, tests); the
-        tokenizer defaults to the byte-level stand-in."""
+        tokenizer defaults to the byte-level stand-in. `max_cache` fixes the
+        decoder cache's slots; None sizes it for each request, to the prompt
+        plus `max_new_tokens`."""
         eng = cls()
         eng.cfg = cfg
         eng.generator = fmodel.FunASRGenerator(params, cfg, max_cache=max_cache)

@@ -1,14 +1,17 @@
 // One head's encoder self-attention for a block of 16 query rows, shared by
 // the bf16 and the int8 attention + o-projection kernels
-// (fused_encoder.cu, fused_encoder_int8.cu).
+// (fused_encoder.cu, fused_encoder_int8.cu) and the bare attention kernel
+// (encoder_attention.cu).
 //
 // `head` runs online-softmax attention over 64-key tiles with WMMA
-// 16x16x16 bf16 fragments and f32 accumulators: S = Q K^T (the scale is
-// folded into q and k upstream), keys >= t_valid masked with -1e30, f32
-// softmax statistics, the probabilities rounded to bf16 before P V, and
-// the division by the softmax sum left to the caller (after P V, as the
-// TPU kernels do). It leaves the unnormalised P V sum in `o` and the sums
-// in `l`, with the block synchronised.
+// 16x16x16 bf16 fragments and f32 accumulators: S = Q K^T times `scale` in
+// f32 (1 where the scale is folded into q and k upstream), keys >= t_valid
+// masked with -1e30, f32 softmax statistics, the probabilities rounded to
+// bf16 before P V, and the division by the softmax sum left to the caller
+// (after P V, as the TPU kernels do). It leaves the unnormalised P V sum in
+// `o` and the sums in `l`, with the block synchronised. A head's rows lie
+// `ld` elements apart (HD for a head-major tensor, H * HD for (B, T, H, HD),
+// 128 for two heads packed per row).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,27 +66,28 @@ __device__ __forceinline__ Tile carve(unsigned char* base) {
   return t;
 }
 
-// rows x HD bf16 from src (row stride HD) into dst (row stride LDH); rows
-// past n_rows are zero.
+// rows x HD bf16 from src (row stride ld, a multiple of 8) into dst (row
+// stride LDH); rows past n_rows are zero.
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int rows,
-                                          int n_rows) {
+                                          int n_rows, int ld = HD) {
   for (int i = threadIdx.x; i < rows * HD / 8; i += kThreads) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<long>(row0 + r) * HD + c);
+      val = *reinterpret_cast<const uint4*>(src + static_cast<long>(row0 + r) * ld + c);
     *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
   }
 }
 
-// q, k, v point at one head's (T, HD) rows; the block's query rows are
-// [q0, q0 + BQ).
+// q, k, v point at one head's first row of T, rows `ld` apart; the block's
+// query rows are [q0, q0 + BQ).
 __device__ __forceinline__ void head(const Tile& t, const bf16* __restrict__ q,
                                      const bf16* __restrict__ k, const bf16* __restrict__ v,
-                                     int q0, int T, int t_valid) {
+                                     int q0, int T, int t_valid, int ld = HD,
+                                     float scale = 1.f) {
   using namespace nvcuda;
   const int tid = threadIdx.x, warp = tid >> 5;
-  load_rows(t.q, q, q0, BQ, T);
+  load_rows(t.q, q, q0, BQ, T, ld);
   for (int i = tid; i < BQ * HD; i += kThreads) t.o[(i / HD) * LDO + i % HD] = 0.f;
   if (tid < BQ) {
     t.m[tid] = kMasked;
@@ -92,8 +96,8 @@ __device__ __forceinline__ void head(const Tile& t, const bf16* __restrict__ q,
   __syncthreads();
 
   for (int kv0 = 0; kv0 < t_valid; kv0 += BKV) {
-    load_rows(t.k, k, kv0, BKV, T);
-    load_rows(t.v, v, kv0, BKV, T);
+    load_rows(t.k, k, kv0, BKV, T, ld);
+    load_rows(t.v, v, kv0, BKV, T, ld);
     __syncthreads();
 
     {  // S = Q K^T; warp w owns key columns [16w, 16w + 16)
@@ -118,7 +122,7 @@ __device__ __forceinline__ void head(const Tile& t, const bf16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = sub * 8 + j;
-        sv[j] = kv0 + c < t_valid ? t.s[r * LDS + c] : kMasked;
+        sv[j] = kv0 + c < t_valid ? t.s[r * LDS + c] * scale : kMasked;
         mx = fmaxf(mx, sv[j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));

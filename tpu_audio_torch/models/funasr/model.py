@@ -206,9 +206,11 @@ class FunASRGenerator:
     are padded to a multiple of 32 frames; [pre | audio | post] is placed
     and rolled right by the padding, so the real tokens end at the last
     slot, RoPE positions are the absolute cache slots and the slots before
-    `start` = the shift are masked, as the JAX generator does."""
+    `start` = the shift are masked, as the JAX generator does. The cache
+    holds `max_cache` slots, or with None as many as each request needs
+    (the prompt plus `max_new`)."""
 
-    def __init__(self, params, cfg: FunASRConfig, max_cache: int = 4096):
+    def __init__(self, params, cfg: FunASRConfig, max_cache: int | None = 4096):
         # fuse the fp q/k/v and gate/up leaves of the Qwen3 stack (int8
         # trees arrive fused; q4 leaves stay as they are)
         self.params = dict(params, llm=transformer.fuse_fp_tree(params["llm"]))
@@ -252,11 +254,12 @@ class FunASRGenerator:
         EOS ids removed."""
         lcfg, llm, dev = self.cfg.llm, self.params["llm"], self.device
         x, shift = self.prefill_inputs(pre_ids, post_ids, feats)
-        if x.shape[1] + max_new > self.max_cache:
+        slots = x.shape[1] + max_new if self.max_cache is None else self.max_cache
+        if x.shape[1] + max_new > slots:
             raise ValueError(f"prompt of {x.shape[1]} slots + {max_new} new tokens exceeds "
                              f"max_cache {self.max_cache}")
-        cache, extra = transformer.decode_cache_and_mask(lcfg, self.max_cache, shift,
-                                                         self.fused, device=dev)
+        cache, extra = transformer.decode_cache_and_mask(lcfg, slots, shift, self.fused,
+                                                         device=dev)
         hidden, cache = transformer.forward_hidden(llm, lcfg, x, cache, extra)
         first_logits = transformer.logits(llm, lcfg, hidden[:, -1:])[:, 0].float()
 

@@ -10,26 +10,35 @@ TextDecoder.swift:17-97, MultiHeadAttention.swift:85-135):
   attention scale (d/h)^-0.25 applied to BOTH q and k before the product.
 
 `Whisper` holds the JAX tree's parameters with the same keys and the
-stacked (L, …) block layout. An fp encoder block runs through the two
-bf16 fused-encoder kernels (`ops/kernels/fused_encoder.py`) and torch's
-GELU MLP; an int8 one (`load.serve_tree_int8`, the w8a8 serving tree)
-through the four W8A8 kernels (`ops/kernels/fused_encoder_int8.py`:
-LN + QKV, attention + o-projection + LN2, fc1 + GELU, fc2 + residual), as
-the JAX package's `_encode_blocks_fused_int8`. Over an int8 cross-K/V
-state, a single-token step at B=1 runs the whole decoder in one launch
-(`ops/kernels/fused_whisper_step.py`), for fp and int8 decoder weights
-alike; at B ≥ 2 it runs the cross-attention kernel
-(`ops/kernels/cross_kv_attention.py`) per layer; prefill dequantises per
-layer.
+stacked (L, …) block layout. The encoder takes one of three paths, as the
+JAX `encode` does:
+  - fp attention weights: the two bf16 fused-encoder kernels
+    (`ops/kernels/fused_encoder.py`) and torch's GELU MLP;
+  - all six block linears int8 (`load.serve_tree_int8`, the w8a8 serving
+    tree): the four W8A8 kernels (`ops/kernels/fused_encoder_int8.py`:
+    LN + QKV, attention + o-projection + LN2, fc1 + GELU, fc2 + residual);
+  - any other tree (the mlx group-affine q4/q8 trees, mixed int8/fp trees),
+    or any tree with `FUSED_ENC` off: the per-op blocks, whose projections
+    and MLP are plain large products (cuBLAS, as the JAX package leaves them
+    to XLA) around the `encoder_attention` kernel
+    (`ops/kernels/encoder_attention.py`, `_self_attention`).
+Over an int8 cross-K/V state, a single-token step at B=1 runs the whole
+decoder in one launch (`ops/kernels/fused_whisper_step.py`) for fp and
+int8 decoder weights; any other decoder (q4/q8) and B ≥ 2 run the
+cross-attention kernel (`ops/kernels/cross_kv_attention.py`) per layer;
+prefill dequantises per layer.
 
-An int8 decoder's linears and the tied lm head run the int8 matmul
-kernels (`ops/kernels/int8_matmul.py`) through `nn.layers`.
-`forward_cross_qk` (word timestamps) is not ported yet.
+Quantised decoder linears and the tied lm head go through `nn.layers`: int8
+to the int8 matmul kernels (`ops/kernels/int8_matmul.py`), q4/q8 to the
+dequant-matmul kernel (`ops/kernels/quant_matmul.py`) up to 32 rows.
+`forward_cross_qk` is the full-sequence decoder pass of word timestamps
+(`timing.py`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,24 +47,35 @@ from torch import nn
 
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.whisper.config import WhisperConfig
-from tpu_audio_torch.nn.attention import attend, decode_mask
+from tpu_audio_torch.nn.attention import attend, causal_mask, decode_mask
 from tpu_audio_torch.nn.layers import (conv1d, embedding, embedding_as_linear,
                                        gelu, layer_norm, linear,
                                        sinusoidal_positions)
 from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+from tpu_audio_torch.ops.kernels import encoder_attention as ea
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
 from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
 from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
 from tpu_audio_torch.ops.kvcache import KVCache
 
 
-def _int8_blocks(blocks: dict) -> bool:
-    """Whether the encoder's block linears are int8 (all of them) or fp."""
-    linears = [blocks["attn"][n] for n in "qkvo"] + [blocks["mlp"][n] for n in ("fc1", "fc2")]
-    n_int8 = sum("weight_i8" in p for p in linears)
-    if n_int8 not in (0, len(linears)):
-        raise ValueError("the encoder's block linears must be all int8 or all fp")
-    return n_int8 > 0
+# The fused encoder blocks, or the per-op path for every tree (the JAX
+# package's TPU_AUDIO_FUSED_ENC=0 A/B switch); on the per-op path, head
+# pairs packed per row for the attention kernel, or head-major
+# (TPU_AUDIO_PACKED_ATTN=0). The same names and meaning as the JAX module's.
+FUSED_ENC = os.environ.get("TPU_AUDIO_FUSED_ENC", "1") != "0"
+PACKED_ATTN = os.environ.get("TPU_AUDIO_PACKED_ATTN", "1") != "0"
+
+
+def _encoder_kind(blocks: dict) -> str | None:
+    """Which fused encoder the blocks can take: "int8" when all six block
+    linears are int8, "fp" when the attention's four are fp (the bf16
+    kernels read the packed q/k/v and o weights; the MLP goes through
+    `linear`), else None: the per-op path."""
+    attn = [blocks["attn"][n] for n in "qkvo"]
+    if all("weight_i8" in p for p in attn + [blocks["mlp"][n] for n in ("fc1", "fc2")]):
+        return "int8"
+    return "fp" if all("weight" in p for p in attn) else None
 
 
 # ------------------------------------------------------------------ params
@@ -175,16 +195,52 @@ def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, t, n_heads, d // n_heads)
 
 
+def _self_attention(p, x: torch.Tensor, n_heads: int, mask=None) -> torch.Tensor:
+    """The per-op encoder's (and `forward_cross_qk`'s) self-attention, with
+    the JAX function's three branches: fp weights and a long unmasked
+    sequence (`ea.supported`) go to `encoder_attention_packed` when
+    PACKED_ATTN is on, the head count is even and 2·hd = 128, else to the
+    head-major `encoder_attention(pre_bh=True)`; quantised weights or a mask
+    take `attend`, which routes long unmasked attention to the same kernel.
+    hd^-0.25 scales q and k before the product, so the kernels' scale is 1."""
+    b, t, d = x.shape
+    hd = d // n_heads
+    scale = hd ** -0.25
+    q = _heads(linear(p["q"], x), n_heads) * scale
+    k = _heads(linear(p["k"], x), n_heads) * scale
+    v = _heads(linear(p["v"], x), n_heads)
+    if mask is None and "weight" in p["q"] and ea.supported(q, k, mask):
+        if PACKED_ATTN and n_heads % 2 == 0 and 2 * hd == 128:
+            g = n_heads // 2
+
+            def pairs(a):  # (B, T, H, hd) → (B·H/2, T, 2·hd)
+                return a.reshape(b, t, g, 2 * hd).transpose(1, 2).reshape(b * g, t, 2 * hd)
+
+            o = ea.encoder_attention_packed(pairs(q), pairs(k), pairs(v), scale=1.0)
+            o = o.reshape(b, g, t, 2 * hd).transpose(1, 2)
+        else:
+            def bh(a):  # (B, T, H, hd) → (B·H, T, hd)
+                return a.transpose(1, 2).reshape(b * n_heads, t, hd)
+
+            o = ea.encoder_attention(bh(q), bh(k), bh(v), pre_bh=True, scale=1.0)
+            o = o.reshape(b, n_heads, t, hd).transpose(1, 2)
+    else:
+        o = attend(q, k, v, mask)
+    return linear(p["o"], o.reshape(b, t, d))
+
+
 # ------------------------------------------------------------------ model
 
 class Whisper(nn.Module):
     """Whisper over a parameter tree from `init_params` or
     `convert.params_from_numpy`.
 
-    The packed QKV weight of every encoder block, attention scale folded
-    in, is computed once here: for fp blocks in f32 and stored in the
-    parameters' dtype (`fe.pack_qkv_weights`); for int8 blocks as int8 codes
-    with f32 column scales (`fe8.pack_qkv_weights_int8`)."""
+    A tree that a fused encoder can take (`encoder_kind` "fp" or "int8")
+    has the packed QKV weight of every block, attention scale folded in,
+    computed once here: for fp blocks in f32 and stored in the parameters'
+    dtype (`fe.pack_qkv_weights`); for int8 blocks as int8 codes with f32
+    column scales (`fe8.pack_qkv_weights_int8`). The per-op path reads the
+    tree's own leaves."""
 
     def __init__(self, cfg: WhisperConfig, params: dict):
         super().__init__()
@@ -196,22 +252,24 @@ class Whisper(nn.Module):
         for name, t in fws.step_vectors(self.decoder).items():
             self.register_buffer(f"step_{name}", t, persistent=False)
             self._step_keys.append(name)
+        self.fused_step = fws.decoder_supported(params["decoder"]["blocks"])
         attn = params["encoder"]["blocks"]["attn"]
-        self.int8_encoder = _int8_blocks(params["encoder"]["blocks"])
-        if self.int8_encoder:
+        self.encoder_kind = _encoder_kind(params["encoder"]["blocks"])
+        if self.encoder_kind == "int8":
             w, cs, b = fe8.pack_qkv_weights_int8(attn, cfg.n_audio_head)
             self.register_buffer("qkv_scale", cs, persistent=False)  # (L, 3D) f32
-        else:
+        elif self.encoder_kind == "fp":
             w, b = fe.pack_qkv_weights(attn, cfg.n_audio_head, attn["q"]["weight"].dtype)
-        self.register_buffer("qkv_weight", w, persistent=False)  # (L, 3D, D)
-        self.register_buffer("qkv_bias", b, persistent=False)    # (L, 3D) f32
+        if self.encoder_kind is not None:
+            self.register_buffer("qkv_weight", w, persistent=False)  # (L, 3D, D)
+            self.register_buffer("qkv_bias", b, persistent=False)    # (L, 3D) f32
         pos = sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
-        self.register_buffer("audio_positions", torch.from_numpy(pos).to(w.device),
-                             persistent=False)
+        self.register_buffer("audio_positions", torch.from_numpy(pos).to(
+            params["encoder"]["conv1"]["weight"].device), persistent=False)
 
     @property
     def device(self) -> torch.device:
-        return self.qkv_weight.device
+        return self.audio_positions.device
 
     def step_weights(self) -> fws.StepWeights:
         """What `fused_whisper_decode_step` reads: views of the decoder's
@@ -228,7 +286,9 @@ class Whisper(nn.Module):
         x = gelu(conv1d(p["conv1"], mel, stride=1, padding=1))
         x = gelu(conv1d(p["conv2"], x, stride=2, padding=1))
         x = x + self.audio_positions.to(x.dtype)
-        if self.int8_encoder:
+        if not FUSED_ENC or self.encoder_kind is None:
+            return layer_norm(p["ln_post"], self._encode_blocks_per_op(x))
+        if self.encoder_kind == "int8":
             return layer_norm(p["ln_post"], self._encode_blocks_int8(x))
         blocks = p["blocks"]
         w_qkv = self.qkv_weight.to(x.dtype)
@@ -242,6 +302,17 @@ class Whisper(nn.Module):
             mlp = blocks["mlp"].layer(i)
             x = y + linear(mlp["fc2"], gelu(linear(mlp["fc1"], hn)))
         return layer_norm(p["ln_post"], x)
+
+    def _encode_blocks_per_op(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX per-op block body: self-attention (`_self_attention`),
+        then the GELU MLP, each pre-norm with a residual."""
+        cfg, blocks = self.cfg, self.encoder["blocks"]
+        for i in range(cfg.n_audio_layer):
+            bp = blocks.layer(i)
+            x = x + _self_attention(bp["attn"], layer_norm(bp["ln1"], x), cfg.n_audio_head)
+            hn = layer_norm(bp["ln2"], x)
+            x = x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
+        return x
 
     def _encode_blocks_int8(self, x: torch.Tensor) -> torch.Tensor:
         """The w8a8 blocks: four kernels per block on layer i's views of the
@@ -310,9 +381,10 @@ class Whisper(nn.Module):
         idx = cache.pos + torch.arange(t, device=tokens.device)
         x = x + p["positional_embedding"].index_select(0, idx)[None].to(x.dtype)
 
-        if q8 and b == 1 and t == 1:
-            # single-stream serving: the whole decoder step in one launch,
-            # which writes this token's K/V slot into the cache
+        if q8 and b == 1 and t == 1 and self.fused_step:
+            # single-stream serving on an fp or int8 decoder: the whole
+            # decoder step in one launch, which writes this token's K/V slot
+            # into the cache
             lyr = cfg.n_text_layer
             hfin = fws.fused_whisper_decode_step(
                 self.step_weights(), x[:, 0], cache.pos,
@@ -360,3 +432,34 @@ class Whisper(nn.Module):
         cache.advance(t)
         x = layer_norm(p["ln"], x)
         return embedding_as_linear(p["token_embedding"], x), state
+
+    def forward_cross_qk(self, tokens: torch.Tensor, audio_features: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The full-sequence decoder pass of word timestamps: tokens (B, T)
+        at positions 0.. over the audio features → (logits (B, T, V), the raw
+        f32 cross-attention scores (L, B, H, T, T_audio)), which
+        `timing.find_alignment` soft-maxes after choosing its heads. Kept off
+        the decode path, as in the JAX package."""
+        cfg, p = self.cfg, self.decoder
+        b, t = tokens.shape
+        h, d = cfg.n_text_head, cfg.n_text_state
+        scale = (d // h) ** -0.25
+        ck, cv = self.precompute_cross_kv(audio_features)
+        x = embedding(p["token_embedding"], tokens)
+        x = x + p["positional_embedding"][:t][None].to(x.dtype)
+        mask = causal_mask(t, t, device=tokens.device)
+        qks = []
+        for i in range(cfg.n_text_layer):
+            bp = p["blocks"].layer(i)
+            x = x + _self_attention(bp["attn"], layer_norm(bp["ln1"], x), h, mask)
+            hn = layer_norm(bp["ln_cross"], x)
+            qc = _heads(linear(bp["cross_attn"]["q"], hn), h) * scale
+            scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ck[i].to(qc.dtype).float())
+            w = torch.softmax(scores, dim=-1)
+            oc = torch.einsum("bhqk,bkhd->bqhd", w.to(cv.dtype), cv[i])
+            x = x + linear(bp["cross_attn"]["o"], oc.reshape(b, t, d))
+            hn = layer_norm(bp["ln2"], x)
+            x = x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
+            qks.append(scores)
+        x = layer_norm(p["ln"], x)
+        return embedding_as_linear(p["token_embedding"], x), torch.stack(qks)

@@ -5,9 +5,10 @@ _pad_frames, _make_segment).
 `WhisperPipeline` is the host seek loop over 30 s windows: content-aware
 seek advance, temperature fallback on compression ratio / mean log-prob,
 no-speech skipping, timestamp-pair segmentation and prompt conditioning on
-the previous text, each window decoded by `decoding.SegmentDecoder`. Word
-timestamps (`timing.py`) are not ported yet (ROADMAP A7). Batch
-transcription of fixed windows is in `batch.py`.
+the previous text, each window decoded by `decoding.SegmentDecoder`; with
+`word_timestamps`, each window's segments get their words (`timing.py`),
+and `hallucination_silence_threshold` drops anomalous segments between
+silences. Batch transcription of fixed windows is in `batch.py`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from tpu_audio_torch.api.results import TranscriptionResult, TranscriptionSegment
+from tpu_audio_torch.models.whisper import timing
 from tpu_audio_torch.models.whisper.decoding import DecodingResult, SegmentDecoder
 from tpu_audio_torch.models.whisper.model import Whisper
 from tpu_audio_torch.models.whisper.tokenizer import WhisperTokenizer
@@ -112,10 +114,6 @@ class WhisperPipeline:
         verbose: bool = False,
     ) -> TranscriptionResult:
         """audio: float32 mono at 16 kHz."""
-        if word_timestamps or hallucination_silence_threshold is not None:
-            raise NotImplementedError(
-                "word timestamps (timing.py, forward_cross_qk) are not ported "
-                "yet (ROADMAP A7)")
         t_start = time.perf_counter()
         audio = np.asarray(audio, np.float32)
         duration = len(audio) / SAMPLE_RATE
@@ -207,6 +205,11 @@ class WhisperPipeline:
                     time_offset + dur, tokens, result))
                 seek += segment_size
 
+            if word_timestamps and segments_here:
+                timing.add_word_timestamps(
+                    segments_here, model=self.model, tokenizer=tok, mel=mel_segment,
+                    language=language, time_offset=time_offset, dtype=self.decoder.dtype)
+
             for seg in segments_here:
                 all_tokens.extend(seg.tokens)
                 all_segments.append(seg)
@@ -217,6 +220,10 @@ class WhisperPipeline:
                 prompt_reset_since = len(all_tokens)
             if seek <= previous_seek:  # safety: always make progress
                 seek = previous_seek + segment_size
+
+        if word_timestamps and hallucination_silence_threshold:
+            all_segments = timing.filter_hallucinated_segments(
+                all_segments, hallucination_silence_threshold, duration)
 
         text = "".join(s.text for s in all_segments).strip()
         processing = time.perf_counter() - t_start

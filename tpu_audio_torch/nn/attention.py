@@ -2,14 +2,17 @@
 GQA, causal_mask, decode_mask, padding_mask).
 
 Layout is (B, T, H, D). Scores and softmax are f32; masks are additive
-f32 biases. `attend` is always the plain computation: the JAX `attend`
-sends long unmasked self-attention to a Pallas kernel, which the port's
-Whisper encoder replaces with the fused-encoder kernels instead.
+f32 biases. As in the JAX `attend`, long unmasked self-attention (no mask,
+equal head counts, q and k of one shape, `encoder_attention.supported`)
+goes to the `encoder_attention` kernel: the Whisper encoder's per-op path
+on quantised trees. Every other call is the plain computation.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpu_audio_torch.ops.kernels import encoder_attention as ea
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows finite
 
@@ -23,9 +26,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `attend` does; the default 1.0 is for callers that folded it into q and
     k themselves (Whisper applies (d/h)^-0.25 to both, the JAX
     q_scaled=True). mask: broadcastable to (B, H or Hkv, Tq, Tk), additive f32.
+    On the kernel's route the scale multiplies the f32 scores instead.
     """
     b, tq, h, d = q.shape
     hkv = k.shape[2]
+    if ea.supported(q, k, mask):  # unmasked, q and k of one shape, T ≥ 512
+        return ea.encoder_attention(q, k, v, scale=scale)
     if scale != 1.0:
         q = q * torch.tensor(scale, dtype=q.dtype)
     if hkv != h:

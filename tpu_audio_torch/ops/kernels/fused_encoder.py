@@ -106,16 +106,17 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 # --------------------------------------------------------- attn_oproj_ln
 
-def attention_plain(q, k, v, t_valid: int) -> torch.Tensor:
-    """Head-major q, k, v (B, H, T, hd) (scale folded in) → the attention
-    output (B, H, T, hd) in f32, as the kernels compute it: keys ≥ t_valid
+def attention_plain(q, k, v, t_valid: int, scale: float = 1.0) -> torch.Tensor:
+    """Head-major q, k, v (…, T, hd) → the attention output (…, T, hd) in
+    f32, as the kernels compute it (`csrc/attention_tile.cuh`): f32 scores
+    times `scale` (1 where it is folded into q and k), keys ≥ t_valid
     masked, f32 softmax, the exponentials rounded to v's dtype before the
-    value product, the division after it."""
-    scores = q.float() @ k.float().transpose(-1, -2)       # (B, H, T, T)
-    keys = torch.arange(q.shape[2], device=q.device)
+    value product, which sums in f32, and the division after it."""
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale   # (…, T, T)
+    keys = torch.arange(q.shape[-2], device=q.device)
     scores = scores.masked_fill(keys >= t_valid, MASKED)
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    return (e.to(v.dtype) @ v).float() / e.sum(-1, keepdim=True)
+    return (e.to(v.dtype).float() @ v.float()) / e.sum(-1, keepdim=True)
 
 
 def attn_oproj_ln_plain(q, k, v, x, wo, bo, ln2_w, ln2_b, t_valid: int,

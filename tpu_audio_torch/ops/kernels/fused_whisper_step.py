@@ -72,6 +72,14 @@ def step_vectors(dec) -> dict:
     return out
 
 
+def decoder_supported(blocks) -> bool:
+    """Whether the step reads this decoder's weights: every linear it reads
+    fp, or every one int8 (group-affine q4/q8 and mixed decoders take the
+    per-layer path)."""
+    leaves = [blocks[a][b] for a, b in _LEAVES.values()]
+    return any(all(key in p for p in leaves) for key in ("weight", "weight_i8"))
+
+
 @dataclass
 class StepWeights:
     """What the step reads, by `NAMES`: stacked (L, O, I) weights, int8 or
