@@ -54,10 +54,23 @@ Phases (any failure raises and the script exits non-zero):
      encoder (pair-packed and head-major attention) against the fused one
      at batch 16: times by CUDA events, launches, features' cosine.
 
+ 10. (run last) Orpheus at Llama-3.2-3B width through `TTS.orpheus()` →
+     `OrpheusEngine.from_params` with the full-size SNAC: on the W4A8 tree
+     (the q4 tree, tied embedding included, repacked) `generate_streaming`
+     at TOKEN granularity, `generate` and `generate_batch` of 8 texts, ms
+     per step at B=1 and tokens/s at B=8 of the LM alone, device kernels
+     per step, SNAC ms per window, the streamed SNAC windows against the
+     one-shot decode of given frames; one `generate` on the engine's
+     default w8a8 tree (the whole-stack step at 3B); the super-group tree
+     of `benchmarks/llm_decode.py --w4a8sg` greedy at B=1 and B=8; the W4A8
+     kernel path against the f32 plain path on teacher-forced logits, with
+     faults planted in the W4A8 kernels.
+
 Phase 3 also holds the encoder-attention kernel (both entries, all three
 layouts) at batch 16 and B=1, the four W8A8 encoder-block kernels against
-their plain versions on block 0 of the w8a8 tree at batch 16, and the q4/q8
+their plain versions on block 0 of the w8a8 tree at batch 16, the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
+and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down),
 with planted faults on inputs where every term matters. Each kernel is
 timed beside its bound (the larger of its operations over the H100's dense
 peak for their type and its bytes over 3.35 TB/s) and, where one PyTorch
@@ -67,7 +80,8 @@ call computes the same function or its product, that call's time.
 phase 3, and phase 8: a short check of the Fun-ASR kernels.
 `python3 chip_smoke.py --q4-only` runs phases 1, 2, encoder attention's
 part of phase 3, and phase 9: a short check of the per-op encoder and the
-q4/q8 trees.
+q4/q8 trees. `python3 chip_smoke.py --orpheus-only` runs phases 1, 2, the
+W4A8 kernels' part of phase 3, and phase 10.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -102,6 +116,15 @@ STEP_POS, STEP_START = 300, 40  # the Qwen3 step's position and first valid slot
 FUNASR_CLIP_SECONDS = 10     # phase 8's clip
 FUNASR_MAX_NEW = 48          # tokens per transcribe (random weights rarely stop early)
 FUNASR_CACHE = 1024          # prompt (~370 slots for 10 s) + new tokens
+ORPHEUS_MAX_NEW = 196       # phase 10's tokens per generate (28 frames)
+ORPHEUS_BATCH = 8            # phase 10's generate_batch rows
+# the 3b model of benchmarks/llm_decode.py (its --w4a8sg tree): Llama-3.2-3B
+# layers, vocab 128266, an untied head, RoPE theta 10000 unscaled
+SG_3B = dict(dim=3072, n_layers=28, n_heads=24, n_kv_heads=8, hidden_dim=8192,
+             vocab_size=128266)
+ORPHEUS_TEXTS = ["Hello from the card!", "A sentence to say.", "Twenty tokens a second?",
+                 "Let us hear the voice.", "One, two, three.", "The weights are random.",
+                 "Speak softly now.", "Last one of eight."]
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # H100 SXM dense peaks (NVIDIA's data sheet, no sparsity) and memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -187,19 +210,25 @@ def planted_faults(name: str, outputs, faults, rel: float) -> None:
         log(f"control {name}, {label}: {text}: outside the limit")
 
 
-def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: bool) -> None:
+def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: bool,
+                     p_cos=None) -> None:
     """End to end: each of `out` at most SLICE_RATIO times as far from the
     f32 plain path's `exact` (max|Δ|/max|ref|) as the plain bf16 path is
-    (`p_err`), with cosine > 0.999. A control (`out` from a planted fault)
-    must land outside on at least one output."""
+    (`p_err`), with cosine > 0.999, or, given the plain bf16 path's cosines
+    `p_cos` (a stack whose plain path itself is under 0.999), with 1 −
+    cosine at most SLICE_RATIO times the plain path's. A control (`out`
+    from a planted fault) must land outside on at least one output."""
     readings = [(measure(k, r)[1] / pe, measure(k, r)[2]) for k, r, pe in zip(out, exact, p_err)]
     text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
                      for name, (q, c) in zip(outputs, readings))
-    inside = all(q <= SLICE_RATIO and c > 0.999 for q, c in readings)
+    floors = [0.999] * len(readings) if p_cos is None else [1 - SLICE_RATIO * (1 - c)
+                                                            for c in p_cos]
+    inside = all(q <= SLICE_RATIO and c > f for (q, c), f in zip(readings, floors))
     if inside == control:
         raise AssertionError(f"{tag} {label}: {text}: "
                              + ("the check cannot see it" if control else
-                                f"outside ratio {SLICE_RATIO} / cosine 0.999"))
+                                f"outside ratio {SLICE_RATIO} / cosine "
+                                + ", ".join(f"{f:.6f}" for f in floors)))
     log(f"{'control ' if control else ''}{tag} {label} against f32: {text}"
         + (": outside the limit" if control else f" (plain bf16 rel {p_err})"))
 
@@ -1500,6 +1529,209 @@ def check_fused_step(trees: dict, dev, randn, rows: list) -> None:
                            "no one PyTorch call runs a decoder-stack step"))
 
 
+def llama_params(cfg, dev, seed: int) -> dict:
+    """A Llama tree of `transformer.numpy_params`'s keys, shapes and ranges
+    (linears uniform ±1/√fan_in, norms 1, the embedding N(0, 0.02²)), drawn
+    on the card from a generator seeded with `seed` (a 3B tree from numpy
+    would take the host ~20 s), in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lyr, d, hd = cfg.n_layers, cfg.dim, cfg.hd
+
+    def lin(fan_in, fan_out, layers=(lyr,)):
+        w = torch.rand((*layers, fan_out, fan_in), generator=gen, device=dev) * 2 - 1
+        return {"weight": (w / math.sqrt(fan_in)).to(torch.bfloat16)}
+
+    def ones(*shape):
+        return {"weight": torch.ones(shape, dtype=torch.bfloat16, device=dev)}
+
+    params = {"layers": {"attn": {"q": lin(d, cfg.n_heads * hd), "k": lin(d, cfg.kv_heads * hd),
+                                  "v": lin(d, cfg.kv_heads * hd), "o": lin(cfg.n_heads * hd, d)},
+                         "mlp": {"gate": lin(d, cfg.hidden_dim), "up": lin(d, cfg.hidden_dim),
+                                 "down": lin(cfg.hidden_dim, d)},
+                         "ln1": ones(lyr, d), "ln2": ones(lyr, d)},
+              "norm": ones(d),
+              "embed": {"weight": (torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
+                                   * 0.02).to(torch.bfloat16)}}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = lin(d, cfg.vocab_size, ())
+    return params
+
+
+def orpheus_trees(dev) -> dict:
+    """Orpheus's LM at Llama-3.2-3B width on random weights, as its engine
+    serves it: "w4a8", the q4 tree (`quantize_tree`, the mlx checkpoint's
+    format, tied embedding included) repacked to the pair-packed W4A8
+    layout; "w8a8", the same q4 tree requantised to fused per-channel int8
+    (the engine's default); and "sg", the super-group tree of
+    `benchmarks/llm_decode.py --w4a8sg` at its 3b shape (vocab 128266, an
+    untied head; layers and head requantised, the embedding bf16)."""
+    from tpu_audio_torch.models.orpheus.model import LLAMA_3B
+    from tpu_audio_torch.nn.transformer import TransformerConfig
+    from tpu_audio_torch.ops import quant
+
+    params = llama_params(LLAMA_3B, dev, SEED)
+    q4 = quant.quantize_tree(params, bits=4)
+    del params
+    trees = {"w4a8": quant.repack_tree_w4a8(q4), "w8a8": quant.requantize_tree_int8(q4)}
+    del q4
+    params = llama_params(TransformerConfig(**SG_3B), dev, SEED + 1)
+    q4 = quant.quantize_tree(params, bits=4, predicate=lambda k, v: not k.startswith("embed"))
+    del params
+    trees["sg"] = quant.requantize_tree_w4a8_sg(q4)
+    return trees
+
+
+def w4a8_terms(x, wp, scales, biases):
+    """The pieces of the plain pair-layout product, to plant faults in:
+    (per-pair plane dots dlo, dhi (B, P, O), even and odd scales (P, O),
+    sx, the affine term, the odd groups' −8 correction)."""
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+
+    b, i = x.shape
+    xq, sx = w4mm.quantize_rows(x)
+    x_lo, x_hi = w4mm.split_activations(xq)
+    affine = x.float().reshape(b, -1, w4mm.GROUP).sum(-1) @ biases.float().T
+    s_odd = scales.float()[:, 1::2]
+    hi_fix = 8.0 * sx * (x_hi.float().reshape(b, -1, w4mm.GROUP).sum(-1) @ s_odd.T)
+    dlo = w4mm._plane_dots(x_lo, wp & 15, w4mm.GROUP)
+    dhi = w4mm._plane_dots(x_hi, wp & -16, w4mm.GROUP) / 16.0
+    return dlo, dhi, scales.float()[:, 0::2].T, s_odd.T, sx, affine, hi_fix
+
+
+def sg_terms(x, wp, scales_sg):
+    """The pieces of the plain super-group product: (dlo, dhi (B, NS, O),
+    scales (NS, O), sx, the low plane's −8 correction)."""
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+
+    b, i = x.shape
+    xq, sx = w4mm.quantize_rows(x)
+    x_lo, x_hi = w4mm.split_activations(xq)
+    lo_fix = -8.0 * sx * (x_lo.float().reshape(b, -1, w4mm.PAIR).sum(-1) @ scales_sg.float().T)
+    dlo = w4mm._plane_dots(x_lo, wp & 15, w4mm.PAIR)
+    dhi = w4mm._plane_dots(x_hi, wp & -16, w4mm.PAIR) / 16.0
+    return dlo, dhi, scales_sg.float().T, sx, lo_fix
+
+
+def check_w4a8(trees: dict, randn, rows: list) -> None:
+    """Phase 3, the four W4A8 kernels at Llama-3.2-3B's shapes, on the trees'
+    own leaves: the pair layout's tied head (156940, 3072) and the
+    super-group's untied head (128266, 3072) unstacked, each tree's gateup
+    (16384, 3072) and down (3072, 8192) stacked on the last layer, at 1, 8
+    and 32 rows (the heads at 1 and 8), against the plain versions at rel
+    1e-5 (the integer dots are exact on both sides; only the f32 epilogue
+    rounds in another order). Planted faults, applied to the plain pieces,
+    must land outside: the high nibble's −8 bias uncorrected, the even and
+    odd group scales swapped, the group biases dropped, the row scale
+    ignored, the wrong layer, the super-group low plane's −8 dropped."""
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+
+    pair, sg = trees["w4a8"], trees["sg"]
+    last = pair["layers"]["mlp"]["down"]["weight_q4p"].shape[0] - 1
+    head_p, head_s = pair["embed"], sg["lm_head"]
+    errs = {n: 0.0 for n in w4mm.LAUNCHES}
+    dim = 2 * head_p["weight_q4p"].shape[1]
+    for n in (1, 8):
+        x = randn(n, dim)
+        got = w4mm.w4a8_matmul(x, head_p["weight_q4p"], head_p["scales"], head_p["biases"])
+        ref = w4mm.w4a8_matmul_plain(x, head_p["weight_q4p"], head_p["scales"], head_p["biases"])
+        errs["w4a8_matmul"] = max(errs["w4a8_matmul"], compare(
+            f"w4a8_matmul tied head ({n}, {dim}) x {tuple(head_p['weight_q4p'].shape)}", got, ref,
+            rel=1e-5))
+        if n == 1:
+            dlo, dhi, se, so, sx, affine, hi_fix = w4a8_terms(
+                x, head_p["weight_q4p"], head_p["scales"], head_p["biases"])
+            planted_faults("w4a8_matmul tied head", (got,), [
+                ("the high nibble's -8 bias uncorrected",
+                 lambda: (((dlo * se + dhi * so).sum(1)) * sx + affine,)),
+                ("even and odd group scales swapped", lambda: (w4mm.w4a8_matmul_plain(
+                    x, head_p["weight_q4p"], head_p["scales"].reshape(-1, 2).flip(-1).reshape(
+                        head_p["scales"].shape), head_p["biases"]),)),
+                ("the group biases dropped", lambda: (((dlo * se + dhi * so).sum(1)) * sx
+                                                      + hi_fix,)),
+                ("the row scale ignored", lambda: ((dlo * se + dhi * so).sum(1) + affine
+                                                   + hi_fix / sx,)),
+            ], rel=1e-5)
+        got = w4mm.w4a8_sg_matmul(x, head_s["weight_q4s"], head_s["scales_sg"])
+        ref = w4mm.w4a8_sg_matmul_plain(x, head_s["weight_q4s"], head_s["scales_sg"])
+        errs["w4a8_sg_matmul"] = max(errs["w4a8_sg_matmul"], compare(
+            f"w4a8_sg_matmul untied head ({n}, {dim}) x {tuple(head_s['weight_q4s'].shape)}", got,
+            ref, rel=1e-5))
+        if n == 1:
+            dlo, dhi, s, sx, lo_fix = sg_terms(x, head_s["weight_q4s"], head_s["scales_sg"])
+            planted_faults("w4a8_sg_matmul untied head", (got,), [
+                ("the low plane's -8 dropped", lambda: (((dlo + dhi) * s).sum(1) * sx,)),
+                ("the row scale ignored", lambda: (((dlo + dhi) * s).sum(1) + lo_fix / sx,)),
+            ], rel=1e-5)
+    for n in (1, 8, 32):
+        for label in ("gateup", "down"):
+            leaf = pair["layers"]["mlp"][label]
+            w_st, sc, bi = leaf["weight_q4p"], leaf["scales"][last], leaf["biases"][last]
+            x = randn(n, w_st.shape[2] * 2)
+            got = w4mm.w4a8_matmul_stacked(x, w_st, sc, bi, last)
+            errs["w4a8_matmul_stacked"] = max(errs["w4a8_matmul_stacked"], compare(
+                f"w4a8_matmul_stacked {label} layer {last} ({n}, {x.shape[1]}) x "
+                f"{tuple(w_st.shape)}", got, w4mm.w4a8_matmul_stacked_plain(x, w_st, sc, bi, last),
+                rel=1e-5))
+            if n == 8:
+                planted_faults(f"w4a8_matmul_stacked {label}", (got,), [
+                    (f"layer 0 read instead of layer {last}",
+                     lambda: (w4mm.w4a8_matmul_stacked_plain(x, w_st, sc, bi, 0),))], rel=1e-5)
+            leaf = sg["layers"]["mlp"][label]
+            w_st, sc = leaf["weight_q4s"], leaf["scales_sg"][last]
+            got = w4mm.w4a8_sg_matmul_stacked(x, w_st, sc, last)
+            errs["w4a8_sg_matmul_stacked"] = max(errs["w4a8_sg_matmul_stacked"], compare(
+                f"w4a8_sg_matmul_stacked {label} layer {last} ({n}, {x.shape[1]}) x "
+                f"{tuple(w_st.shape)}", got, w4mm.w4a8_sg_matmul_stacked_plain(x, w_st, sc, last),
+                rel=1e-5))
+            if n == 8:
+                dlo, dhi, s, sx, lo_fix = sg_terms(x, w_st[last], sc)
+                planted_faults(f"w4a8_sg_matmul_stacked {label}", (got,), [
+                    (f"layer 0 read instead of layer {last}",
+                     lambda: (w4mm.w4a8_sg_matmul_stacked_plain(x, w_st, sc, 0),)),
+                    ("the low plane's -8 dropped", lambda: (((dlo + dhi) * s).sum(1) * sx,))],
+                    rel=1e-5)
+
+    # timed at the main path's shapes: the heads and gateup at 1 row
+    gp, gs = pair["layers"]["mlp"]["gateup"], sg["layers"]["mlp"]["gateup"]
+    x = randn(1, dim)
+    cases = {
+        "w4a8_matmul": ("tpu_audio/ops/pallas/w4a8_matmul.py:121", "tied head",
+                        (head_p["weight_q4p"], head_p["scales"], head_p["biases"]),
+                        lambda w, s, b: w4mm.w4a8_matmul(x, w, s, b),
+                        lambda w, s, b: w4mm.w4a8_matmul_plain(x, w, s, b),
+                        lambda: quant.dequantize(head_p)),
+        "w4a8_matmul_stacked": ("tpu_audio/ops/pallas/w4a8_matmul.py:256",
+                                f"gateup layer {last}",
+                                (gp["weight_q4p"], gp["scales"][last], gp["biases"][last]),
+                                lambda w, s, b: w4mm.w4a8_matmul_stacked(x, w, s, b, last),
+                                lambda w, s, b: w4mm.w4a8_matmul_stacked_plain(x, w, s, b, last),
+                                lambda: quant.dequantize({k: v[last] for k, v in gp.items()})),
+        "w4a8_sg_matmul": ("tpu_audio/ops/pallas/w4a8_matmul.py:422", "untied head",
+                           (head_s["weight_q4s"], head_s["scales_sg"]),
+                           lambda w, s: w4mm.w4a8_sg_matmul(x, w, s),
+                           lambda w, s: w4mm.w4a8_sg_matmul_plain(x, w, s),
+                           lambda: quant.dequantize(head_s)),
+        "w4a8_sg_matmul_stacked": ("tpu_audio/ops/pallas/w4a8_matmul.py:513",
+                                   f"gateup layer {last}", (gs["weight_q4s"], gs["scales_sg"][last]),
+                                   lambda w, s: w4mm.w4a8_sg_matmul_stacked(x, w, s, last),
+                                   lambda w, s: w4mm.w4a8_sg_matmul_stacked_plain(x, w, s, last),
+                                   lambda: quant.dequantize({k: v[last] for k, v in gs.items()})),
+    }
+    for name, (replaces, label, args, kernel, plain, dense) in cases.items():
+        ms, pms = timed_pair(lambda: kernel(*args), lambda: plain(*args), 10)
+        w_bf16, xb = dense().to(torch.bfloat16), x.to(torch.bfloat16)
+        lib_ms = time_ms(lambda: torch.nn.functional.linear(xb, w_bf16), 20)
+        del w_bf16
+        w = args[0][last] if name.endswith("stacked") else args[0]
+        o, i = w.shape[0], 2 * w.shape[1]
+        log(f"time {name} {label} (1, {i}) x ({o}, {i}): kernel {ms:.4f} ms, plain {pms:.4f} ms; "
+            f"library: F.linear of the bf16 dequantised weight at 1 row {lib_ms:.4f} ms")
+        rows.append(kernel_row(name, "tpu_audio_torch/csrc/w4a8_matmul.cu", replaces, errs[name],
+                               ms, pms, bound({"int8": 2 * i * o}, nbytes(x, w, *args[1:]) + 4 * o),
+                               lib_ms))
+
+
 def funasr_slice(trees: dict, dev, card: str) -> dict:
     """Phase 8: Fun-ASR-Nano through the public entry point on the bf16, q4
     and int8 trees: `STT.funasr()` → `FunASREngine.from_params` →
@@ -1665,6 +1897,254 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
     return total
 
 
+def frame_tokens(rng, frames: int) -> list[int]:
+    """Valid 7-token SNAC frames: slot k of a frame in codebook page k."""
+    from tpu_audio_torch.models.orpheus import model as om
+
+    return [om.CODE_OFFSET + page * om.CODEBOOK_SIZE + int(v)
+            for _ in range(frames) for page, v in enumerate(rng.integers(0, om.CODEBOOK_SIZE, 7))]
+
+
+def timed(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def kernels_per_step(fn, steps: int) -> str:
+    """Device kernels per forward pass (`steps` of them in fn) and the busy
+    share of fn's traced run (torch.profiler), as text for the log."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, w = timed(fn)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return "the profiler saw no device kernels; not measured"
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return (f"{len(kernels) / steps:.1f} device kernels per forward pass over {steps}, device busy "
+            f"{busy:.1f} ms = {busy / (1e3 * w):.3f} of the {w:.3f} s traced wall")
+
+
+def orpheus_slice(trees: dict, dev, card: str) -> dict:
+    """Phase 10: Orpheus at Llama-3.2-3B width on random weights through
+    `TTS.orpheus()` → `OrpheusEngine.from_params` with the full-size SNAC:
+    on the W4A8 tree, `generate_streaming` at TOKEN granularity, `generate`
+    and `generate_batch` of 8 texts (ms per token at B=1 and tokens/s at
+    B=8 of the LM alone, device kernels per step, SNAC ms per window, the
+    streamed SNAC windows against the one-shot decode of given frames); on
+    the default w8a8 tree one `generate`; the super-group tree's generator,
+    greedy at B=1 and B=8; then the W4A8 kernel path against the f32 plain
+    path on teacher-forced logits (prefill 32 + 8 steps), with faults
+    planted in the W4A8 kernels. Returns the launch counts of the runs."""
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.snac import model as snac
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    mods = (w4mm, fs, i8mm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    cfg = om.LLAMA_3B
+    text = ORPHEUS_TEXTS[0]
+    snac_cfg = snac.SNACConfig()
+    snac_params = snac.init_params(SEED, snac_cfg, torch.float32, dev)
+
+    def run(label, need, fn, absent=()):
+        reset(*mods)
+        out, wall = timed(fn)
+        launches = launch_counts(*mods)
+        log(f"orpheus {label}: {wall:.3f} s wall, launches {launches}")
+        if not all(launches[n] for n in need) or any(launches[n] for n in absent):
+            raise AssertionError(f"orpheus {label}: a kernel of the path never launched, or "
+                                 f"one of {absent} did: {launches}")
+        for n in total:
+            total[n] += launches[n]
+        return out, wall
+
+    def lm_ms(gen, prompts, sampler, label):
+        """Log the LM alone: prefill + first token, then ms per decode step
+        (two runs) and tokens per second over all rows."""
+        kw = dict(sampler=sampler, eos_ids=(om.END_TOKEN,), seed=0)
+        call = ((lambda n: gen.generate(prompts[0], max_new=n, **kw)) if len(prompts) == 1
+                else (lambda n: gen.generate_batch(prompts, max_new=n, **kw)))
+        call(2)  # warm-up
+        _, t_first = timed(lambda: call(1))
+        runs = []
+        for _ in range(2):
+            out, w = timed(lambda: call(ORPHEUS_MAX_NEW))
+            rows = [out] if len(prompts) == 1 else out
+            n = sum(len(r) for r in rows)
+            runs.append(f"{1e3 * (w - t_first) / (ORPHEUS_MAX_NEW - 1):.2f} ms per step, "
+                        f"{n / w:.1f} tokens/s")
+        log(f"orpheus {label} LM alone, B={len(prompts)}: prefill + first token "
+            f"{1e3 * t_first:.1f} ms; {ORPHEUS_MAX_NEW - 1} steps, two runs: {'; '.join(runs)} "
+            f"({card})")
+
+    # ------------------------------------------------ the W4A8 tree
+    w4 = ("w4a8_matmul", "w4a8_matmul_stacked")
+    eng = TTS.orpheus().from_params(trees["w4a8"], cfg, snac_params)
+    first_chunk = {}
+
+    def stream():
+        t0, chunks = time.perf_counter(), []
+        for c in eng.generate_streaming(text, granularity=StreamingGranularity.TOKEN,
+                                        max_new_tokens=ORPHEUS_MAX_NEW):
+            first_chunk.setdefault("s", time.perf_counter() - t0)
+            chunks.append(c)
+        return chunks
+
+    chunks, wall = run("w4a8 generate_streaming (TOKEN)", w4, stream,
+                       absent=("fused_decode_step",))
+    audio = np.concatenate([c.samples for c in chunks])
+    if (sum(c.is_final for c in chunks) != 1 or not chunks[-1].is_final
+            or not np.isfinite(audio).all() or len(audio) % (4 * snac_cfg.hop)):
+        raise AssertionError(f"orpheus w4a8 stream: {len(chunks)} chunks, {len(audio)} samples")
+    log(f"orpheus w4a8 stream: {len(chunks)} chunks, {len(audio)} samples "
+        f"({len(audio) / 24000:.3f} s of audio), first chunk after {first_chunk['s']:.3f} s")
+    res, wall = run("w4a8 generate", w4, lambda: eng.generate(text, max_new_tokens=ORPHEUS_MAX_NEW),
+                    absent=("fused_decode_step",))
+    if res.sample_rate != 24000 or not np.isfinite(res.samples).all():
+        raise AssertionError(f"orpheus w4a8 generate: {res!r}")
+    sampler = eng._sampler()
+    prompts = [eng._prompt(t) for t in ORPHEUS_TEXTS]
+    lm_ms(eng.lm, prompts[:1], sampler, "w4a8")
+    log("orpheus w4a8 LM, prefill + 32 steps profiled: " + kernels_per_step(
+        lambda: eng.lm.generate(prompts[0], sampler=sampler, eos_ids=(om.END_TOKEN,),
+                                max_new=33), 33))
+    results, wall = run(f"w4a8 generate_batch x{ORPHEUS_BATCH}", w4,
+                        lambda: eng.generate_batch(ORPHEUS_TEXTS, max_new_tokens=ORPHEUS_MAX_NEW))
+    if len(results) != ORPHEUS_BATCH or not all(np.isfinite(r.samples).all() for r in results):
+        raise AssertionError("orpheus w4a8 generate_batch: non-finite or missing audio")
+    lm_ms(eng.lm, prompts, sampler, "w4a8")
+
+    # SNAC: ms per window, and the streamed windows against the one-shot
+    # decode of given frames
+    toks = frame_tokens(np.random.default_rng(SEED + 10), 23)
+    layers = om.parse_frames(toks)
+    eng._snac_window(layers, 0, 12, 0)
+    per = [timed(lambda: eng._snac_window(layers, 4, 12, 0))[1] for _ in range(3)]
+    log(f"orpheus SNAC window of 12 frames ({48 * snac_cfg.hop} samples): "
+        f"{', '.join(f'{1e3 * t:.2f}' for t in per)} ms ({card})")
+    eng.lm.stream_spans = lambda *a, **k: (toks[i:i + eng.STREAM_SPAN]
+                                           for i in range(0, len(toks), eng.STREAM_SPAN))
+    got = np.concatenate([c.samples for c in eng.generate_streaming(text)])
+    del eng.lm.stream_spans
+    ref = eng._decode_snac(layers, seed=0)
+    diff = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+    if not diff <= 1e-4:
+        raise AssertionError(f"orpheus: streamed SNAC {got.shape} against one-shot {ref.shape}: "
+                             f"max diff {diff}")
+    log(f"orpheus streamed SNAC (23 frames in spans of {eng.STREAM_SPAN}) against the one-shot "
+        f"decode: {got.shape[0]} samples, max abs diff {diff:.3e}")
+
+    # ------------------------------------------------ the default w8a8 tree
+    # its prefill runs the int8 matmul at 32 rows of the 8192-wide down
+    # projection: 256 KB of codes, which used to overflow a block's shared
+    # memory (ROADMAP C6); the rows now run in passes
+    down = trees["w8a8"]["layers"]["mlp"]["down"]
+    last = down["weight_i8"].shape[0] - 1
+    x = randn_on(dev)(32, down["weight_i8"].shape[2])
+    compare(f"int8_matmul_stacked down layer {last} (32, {x.shape[1]}) x "
+            f"{tuple(down['weight_i8'].shape)} s8, in passes of 16 rows",
+            i8mm.int8_matmul_stacked(x, down["weight_i8"], down["scale_i8"][last], last),
+            i8mm.int8_matmul_stacked_plain(x, down["weight_i8"], down["scale_i8"][last], last),
+            rel=1e-5)
+    eng8 = TTS.orpheus().from_params(trees["w8a8"], cfg, snac_params)
+    res, wall = run("w8a8 generate", ("fused_decode_step", "int8_matmul"),
+                    lambda: eng8.generate(text, max_new_tokens=ORPHEUS_MAX_NEW), absent=w4)
+    if not np.isfinite(res.samples).all():
+        raise AssertionError("orpheus w8a8 generate: non-finite audio")
+    lm_ms(eng8.lm, prompts[:1], sampler, "w8a8")
+    del eng8
+
+    # ------------------------------------------------ the super-group tree
+    from tpu_audio_torch.nn.transformer import TransformerConfig
+
+    sg_cfg = TransformerConfig(**SG_3B)
+    gen = om.CausalLMGenerator(trees["sg"], sg_cfg, max_cache=None, pad_id=om.PAD_TOKEN)
+    greedy = SamplerConfig(temperature=0.0)
+    sg = ("w4a8_sg_matmul", "w4a8_sg_matmul_stacked")
+    kw = dict(sampler=greedy, eos_ids=(om.END_TOKEN,), max_new=ORPHEUS_MAX_NEW)
+    out, _ = run("sg generate B=1", sg, lambda: [gen.generate(prompts[0], **kw)], absent=w4)
+    out2, _ = run(f"sg generate_batch x{ORPHEUS_BATCH}", sg,
+                  lambda: gen.generate_batch(prompts, **kw), absent=w4)
+    if not all(0 <= t < sg_cfg.vocab_size for row in out + out2 for t in row):
+        raise AssertionError("orpheus sg: a token outside the vocabulary")
+    lm_ms(gen, prompts[:1], greedy, "sg")
+    lm_ms(gen, prompts, greedy, "sg")
+    del gen
+
+    # ------------------------------------------------ against f32
+    # The W4A8 tree's kernel path (bf16 cache) against the plain path in f32
+    # (the same codes and scales, f32 norms and cache), and the plain path
+    # with the bf16 cache as the scale; prefill of 32 slots and 8
+    # teacher-forced steps; faults planted in the W4A8 kernels must land
+    # outside.
+    tree = trees["w4a8"]
+    prompt, start = eng.lm._prompt(eng._prompt(ORPHEUS_TEXTS[1]), 32)
+    forced = [om.CODE_OFFSET + k * om.CODEBOOK_SIZE + 37 * k for k in range(7)] + [om.END_TOKEN]
+    off = torch.tensor([start], device=dev)
+
+    def run_path(params, cache_dtype):
+        with torch.inference_mode():
+            cache, extra = transformer.decode_cache_and_mask(cfg, 64, start, False,
+                                                             dtype=cache_dtype, device=dev)
+            lg, cache = transformer.forward(params, cfg, prompt[None], cache, extra,
+                                            pos_offset=off)
+            out = [lg[:, -1]]
+            for t in forced:
+                lg, cache = transformer.forward(params, cfg, torch.tensor([[t]], device=dev),
+                                                cache, extra, pos_offset=off)
+                out.append(lg[:, -1])
+        return torch.cat(out).float()
+
+    tree32 = quant._unflatten({k: v.float() if v.is_floating_point() else v
+                               for k, v in quant._flatten(tree).items()})
+    with plain_kernels(w4mm):
+        exact = run_path(tree32, torch.float32)
+        plain_out = run_path(tree, torch.bfloat16)
+    del tree32
+    outputs = (f"prefill logits (1, {cfg.vocab_size})", f"step logits (8, {cfg.vocab_size})")
+    parts = (slice(0, 1), slice(1, 9))
+    # the plain path's own cosine to f32 is ~0.998 here (the bf16 cache
+    # through 28 random-weight layers, int8 activations): the cosine is held
+    # relative to it
+    p_err, p_cos = zip(*[measure(plain_out[sl], exact[sl])[1:] for sl in parts])
+    log("orpheus w4a8 plain bf16 path against f32: " + ", ".join(
+        f"{name.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+        for name, e, c in zip(outputs, p_err, p_cos)))
+    kernel_out = run_path(tree, torch.bfloat16)
+    held_against_f32("orpheus w4a8", outputs, [exact[sl] for sl in parts], p_err, "kernels",
+                     [kernel_out[sl] for sl in parts], control=False, p_cos=p_cos)
+    stacked, head = w4mm.w4a8_matmul_stacked, w4mm.w4a8_matmul
+    faults = {
+        "layer 0 read in every layer": ("w4a8_matmul_stacked",
+                                        lambda x, w, s, b, li: stacked(x, w, s, b, 0)),
+        "group biases dropped in the layers": (
+            "w4a8_matmul_stacked", lambda x, w, s, b, li: stacked(x, w, s, torch.zeros_like(b),
+                                                                  li)),
+        "even and odd group scales swapped in the layers": (
+            "w4a8_matmul_stacked", lambda x, w, s, b, li: stacked(
+                x, w, s.reshape(-1, 2).flip(-1).reshape(s.shape).contiguous(), b, li)),
+        "the head's group biases dropped": (
+            "w4a8_matmul", lambda x, w, s, b: head(x, w, s, torch.zeros_like(b))),
+    }
+    for label, (name, fault) in faults.items():
+        with patched(w4mm, name, fault):
+            out = run_path(tree, torch.bfloat16)
+        held_against_f32("orpheus w4a8", outputs, [exact[sl] for sl in parts], p_err, label,
+                         [out[sl] for sl in parts], control=True, p_cos=p_cos)
+    return total
+
+
 def randn_on(dev):
     """randn(*shape, dtype, scale) on `dev` from a generator seeded with SEED."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1718,6 +2198,12 @@ def main() -> None:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "error")):
             log(f"  ptxas: {line.strip()}")
+    if "--orpheus-only" in sys.argv[1:]:  # phases 1, 2, B6's part of 3, and 10
+        rows = []
+        o_trees = orpheus_trees(dev)
+        check_w4a8(o_trees, randn_on(dev), rows)
+        print_result(rows, orpheus_slice(o_trees, dev, card))
+        return
     if "--funasr-only" in sys.argv[1:]:  # phases 1, 2, Fun-ASR's part of 3, and 8
         rows, randn = [], randn_on(dev)
         trees = funasr_trees(dev)
@@ -1874,6 +2360,12 @@ def main() -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     check_quant_matmul(trees, randn, rows)
     check_fused_step(trees, dev, randn, rows)
+    t0 = time.perf_counter()
+    o_trees = orpheus_trees(dev)
+    torch.cuda.synchronize()
+    log(f"models: Orpheus's Llama-3.2-3B random weights (seed {SEED}), its W4A8 and w8a8 trees "
+        f"and the super-group 3b tree in {time.perf_counter() - t0:.1f} s")
+    check_w4a8(o_trees, randn, rows)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -2000,6 +2492,14 @@ def main() -> None:
     fun = funasr_slice(trees, dev, card)
     launches.update({name: fun[name] for name in ("fused_decode_step", "quant_matmul")})
     log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f} s")
+    del trees
+
+    # ------------------------------------------------------- 10. Orpheus
+    t_phase = time.perf_counter()
+    orph = orpheus_slice(o_trees, dev, card)
+    launches.update({name: orph[name] for name in ("w4a8_matmul", "w4a8_matmul_stacked",
+                                                   "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")})
+    log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f} s")
     print_result(rows, launches)
 
 

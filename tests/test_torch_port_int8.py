@@ -226,14 +226,18 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices(rng):
 
 
 def test_unported_formats_raise():
-    """The W4A8 serving layouts (ROADMAP B6) raise; the group-affine q4/q8
-    format is ported (tests/test_torch_port_quant_q4.py)."""
-    q4p = {"weight_q4p": np.zeros((4, 32), np.int8), "scales": np.ones((4, 1)),
-           "biases": np.zeros((4, 1))}
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        tquant.requantize_tree_int8({"blocks": {"q": q4p}})
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        tquant.quantized_linear(q4p, torch.zeros(2, 64))
+    """The group-affine q4/q8 and the W4A8 layouts are ported
+    (tests/test_torch_port_quant_q4.py, test_torch_port_w4a8.py); what the
+    port still refuses: a super-group embedding lookup, which the JAX
+    package lacks too (ROADMAP C5), and the int8 KV cache (ROADMAP A9)."""
+    from tpu_audio_torch.nn import transformer as tt
+
+    q4s = {"weight_q4s": torch.zeros((4, 128), dtype=torch.int8), "scales_sg": torch.ones((4, 1))}
+    with pytest.raises(ValueError, match="ROADMAP C5"):
+        tquant.dequantize_rows(q4s, torch.tensor([0, 2]))
+    cfg = tt.TransformerConfig(dim=64, n_layers=1, n_heads=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tt.make_cache(cfg, 1, 8, quantized=True, device="cpu")
 
 
 def test_new_modules_import_without_jax_nvcc_or_cuda():

@@ -16,7 +16,10 @@ API (`api/stt.py` → `models/whisper/pipeline.WhisperPipeline` →
 log-mel front-end, the fused bf16 and W8A8 encoder blocks, the per-op
 encoder around the encoder-attention kernel (the mlx group-affine q4/q8
 trees), the int8 cross-K/V decode step, the int8 (W8A8) decoder serving
-tree and the whole B=1 decoder step; and Fun-ASR-Nano through
+tree and the whole B=1 decoder step; Fun-ASR-Nano through
 `api/stt_funasr.py` on the shared decoder stack (`nn/transformer.py`),
-with bf16, group-affine q4 and int8 LLM weights.
+with bf16, group-affine q4 and int8 LLM weights; and Orpheus TTS through
+`api/tts.py` (`models/orpheus/`: `CausalLMGenerator` on a Llama-3.2-3B
+stack, the SNAC codec in `codecs/snac/`) on the bf16, int8 and W4A8
+(pair-packed and super-group int4) trees.
 """

@@ -1,1 +1,1 @@
-"""The public API (port of tpu_audio/api/): results and the STT factory."""
+"""The public API (port of tpu_audio/api/): results, the STT and TTS factories."""

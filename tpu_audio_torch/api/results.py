@@ -1,15 +1,17 @@
-"""Typed results of the STT API (port of tpu_audio/api/results.py:
+"""Typed results of the STT and TTS APIs (port of tpu_audio/api/results.py:
 TranscriptionTask, TimestampGranularity, Word, TranscriptionSegment,
-TranscriptionResult).
+TranscriptionResult, AudioResult).
 
 RTF is processing_time / audio duration (< 1 means faster than real
-time). The TTS `AudioResult` comes with the TTS engines.
+time).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import Enum
+
+import numpy as np
 
 
 class TranscriptionTask(str, Enum):
@@ -65,3 +67,24 @@ class TranscriptionResult:
             if seg.words:
                 out.extend(seg.words)
         return out
+
+
+@dataclass
+class AudioResult:
+    """TTS output: samples (float32, in [-1, 1]) at a sample rate."""
+
+    samples: np.ndarray
+    sample_rate: int
+    processing_time: float = 0.0
+
+    @property
+    def duration(self) -> float:
+        return len(self.samples) / self.sample_rate
+
+    @property
+    def rtf(self) -> float:
+        return self.processing_time / self.duration if self.duration > 0 else float("inf")
+
+    def save(self, path: str, dtype: str = "int16") -> str:
+        raise NotImplementedError("writing audio files (utils/audio_io) is not ported yet "
+                                  "(ROADMAP A7)")

@@ -1,0 +1,202 @@
+"""Public TTS API (port of tpu_audio/api/tts.py: StreamingGranularity,
+AudioChunk, TTSGenerationResult, TTSEngineBase, GenerationStopped, TTS).
+
+Engines expose load / generate / generate_streaming / stop / unload /
+cleanup with is_loaded / is_generating / generation_time state.
+generate, generate_streaming and warmup are serialised per engine by a
+lock (held for the whole life of a stream); stop() is lock-free and
+cancels the generation in flight, and a new stream starts afresh.
+
+Ported engines: Orpheus. The other factories raise naming their ROADMAP
+items; playback (`say`) is A18.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import threading
+import time
+from dataclasses import dataclass
+from enum import Enum
+from typing import Iterator
+
+import numpy as np
+
+from tpu_audio_torch.api.results import AudioResult
+
+_log = logging.getLogger("tpu_audio_torch.tts")
+
+
+class StreamingGranularity(str, Enum):
+    """How much audio each streamed chunk covers: a sentence, a codec
+    frame, or an LM token span."""
+
+    SENTENCE = "sentence"
+    FRAME = "frame"
+    TOKEN = "token"
+
+
+@dataclass
+class AudioChunk:
+    samples: np.ndarray
+    sample_rate: int
+    text: str | None = None  # the text this chunk realises
+    is_final: bool = False
+
+    @property
+    def duration(self) -> float:
+        return len(self.samples) / self.sample_rate
+
+
+@dataclass
+class TTSGenerationResult:
+    audio: AudioResult
+    chunks: int = 1
+    generation_time: float = 0.0
+
+    @property
+    def rtf(self) -> float:
+        d = self.audio.duration
+        return self.generation_time / d if d > 0 else float("inf")
+
+
+class GenerationStopped(Exception):
+    pass
+
+
+class TTSEngineBase:
+    """Lifecycle and streaming surface shared by the TTS engines."""
+
+    sample_rate: int = 24000
+    supported_streaming_granularities = (StreamingGranularity.SENTENCE,)
+    default_streaming_granularity = StreamingGranularity.SENTENCE
+    WARMUP_TEXTS = {"short": "Hi."}
+    WARMUP_TEXTS_FULL = {
+        "medium": "This is a medium length warm up sentence for the compiler cache.",
+        "long": "This considerably longer warm up paragraph exists to reach the larger "
+                "prompt-length buckets that production requests will hit, so that the first "
+                "real request of every size finds its kernels built and its caches filled. " * 3,
+    }
+
+    def __init__(self):
+        self.is_loaded = False
+        self.is_generating = False
+        self.is_playing = False
+        self.generation_time = 0.0
+        self._stop_flag = threading.Event()
+        self._gen_lock = threading.Lock()
+
+    def __init_subclass__(cls, **kw):
+        """Hold the engine's lock around each subclass's generate_streaming,
+        from the first next() until the generator closes; a new stream
+        clears a stop() left from the previous one."""
+        super().__init_subclass__(**kw)
+        if "generate_streaming" in cls.__dict__:
+            inner = cls.__dict__["generate_streaming"]
+
+            @functools.wraps(inner)
+            def locked(self, *a, **k):
+                with self._gen_lock:
+                    self._stop_flag.clear()
+                    yield from inner(self, *a, **k)
+
+            cls.generate_streaming = locked
+
+    def load(self, progress_handler=None) -> None:
+        raise NotImplementedError
+
+    def stop(self) -> None:
+        self._stop_flag.set()
+
+    def unload(self) -> None:
+        self.is_loaded = False
+
+    def cleanup(self) -> None:
+        self.unload()
+
+    def warmup(self, full: bool = False) -> dict[str, float]:
+        """Synthesise the warm-up texts once (shortest first), which builds
+        the kernels; returns {variant: seconds}."""
+        texts = dict(self.WARMUP_TEXTS)
+        if full:
+            texts.update(self.WARMUP_TEXTS_FULL)
+        timings = {}
+        for name, text in texts.items():
+            t0 = time.perf_counter()
+            self.generate(text)
+            timings[name] = time.perf_counter() - t0
+        return timings
+
+    def generate_streaming(self, text: str, granularity: StreamingGranularity | None = None,
+                           **kw) -> Iterator[AudioChunk]:
+        raise NotImplementedError
+
+    def generate(self, text: str, **kw) -> AudioResult:
+        """Collect the stream into one AudioResult."""
+        self._stop_flag.clear()
+        self.is_generating = True
+        t0 = time.perf_counter()
+        try:
+            parts = [c.samples for c in self.generate_streaming(text, **kw)]
+        finally:
+            self.is_generating = False
+        self.generation_time = time.perf_counter() - t0
+        samples = np.concatenate(parts) if parts else np.zeros(0, np.float32)
+        result = AudioResult(samples=samples, sample_rate=self.sample_rate,
+                             processing_time=self.generation_time)
+        _log.info("%s.generate: %.3f s for %.3f s of audio", type(self).__name__,
+                  self.generation_time, result.duration)
+        return result
+
+    def say(self, text: str, sink=None, **kw) -> TTSGenerationResult:
+        raise NotImplementedError("playback is not ported yet (ROADMAP A18)")
+
+    def save(self, text: str, path: str, **kw) -> str:
+        return self.generate(text, **kw).save(path)
+
+    def _check_stopped(self):
+        if self._stop_flag.is_set():
+            raise GenerationStopped()
+
+
+def _not_ported(engine: str, item: str):
+    raise NotImplementedError(f"the {engine} engine is not ported yet (ROADMAP {item})")
+
+
+class TTS:
+    """Factory namespace."""
+
+    @staticmethod
+    def orpheus(voice: str = "tara", mesh=None):
+        from tpu_audio_torch.models.orpheus.engine import OrpheusEngine
+
+        return OrpheusEngine(voice=voice, mesh=mesh)
+
+    @staticmethod
+    def kokoro(voice: str = "af_heart"):
+        _not_ported("Kokoro", "A14")
+
+    @staticmethod
+    def marvis(quality: str = "high"):
+        _not_ported("Marvis", "A17")
+
+    @staticmethod
+    def oute():
+        _not_ported("OuteTTS", "A16")
+
+    @staticmethod
+    def chatterbox():
+        _not_ported("Chatterbox", "A13")
+
+    @staticmethod
+    def chatterbox_turbo():
+        _not_ported("Chatterbox Turbo", "A13")
+
+    @staticmethod
+    def cosyvoice2():
+        _not_ported("CosyVoice2", "A11")
+
+    @staticmethod
+    def cosyvoice3():
+        _not_ported("CosyVoice3", "A12")

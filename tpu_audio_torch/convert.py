@@ -12,8 +12,13 @@ Int8 serving trees (`load.serve_tree_int8`) carry across as they are:
 target dtype, as the JAX tree keeps them. Group-affine q4/q8 trees
 (`quant.quantize_tree`) too: their uint32 words become int32 tensors with
 the same bits (torch has few uint32 operations), and their `scales` and
-`biases` stay float32. FunASR's FSMN memory weight (`fsmn_block`, (K, 1, C)
-in the JAX tree) becomes torch's depthwise (C, 1, K).
+`biases` stay float32. W4A8 trees (`quant.repack_tree_w4a8`,
+`requantize_tree_w4a8_sg`) too: `weight_q4p` / `weight_q4s` codes stay int8
+and `scales_sg` float32. FunASR's FSMN memory weight (`fsmn_block`, (K, 1, C)
+in the JAX tree) becomes torch's depthwise (C, 1, K). The weight-normalised
+convolutions of SNAC ("weight_v", "weight_g") go from (K, I, O) to torch's
+(O, I, K), and under "convT", a transposed convolution, to torch's
+(I, O, K).
 """
 
 from __future__ import annotations
@@ -22,22 +27,30 @@ import numpy as np
 import torch
 
 
-KEEP_F32 = ("scale_i8", "scales", "biases")  # float leaves that keep float32 at any dtype
+KEEP_F32 = ("scale_i8", "scales", "biases", "scales_sg")  # f32 at any dtype
 CONV_KEYS = ("fsmn_block",)  # conv kernels under keys that do not start with "conv"
+WN_KEYS = ("weight_v", "weight_g")  # weight-normalised conv kernels, under any key
 
 
-def _leaf(a, conv: bool, device, dtype) -> torch.Tensor:
+def _leaf(a, perm, device, dtype) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:  # packed q4/q8 words: the same bits as int32
         a = np.ascontiguousarray(a).view(np.int32)
     elif a.dtype.kind not in "iub":
         a = a.astype(np.float32)  # also widens bfloat16 leaves, unknown to torch
-    if conv and a.ndim == 3:
-        a = a.transpose(2, 1, 0)
+    if perm is not None and a.ndim == 3:
+        a = a.transpose(*perm)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def tree_device(tree: dict) -> torch.device:
+    """The device of a parameter tree's first leaf."""
+    for v in tree.values():
+        return tree_device(v) if isinstance(v, dict) else v.device
+    raise ValueError("empty parameter tree")
 
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cuda",
@@ -48,13 +61,19 @@ def params_from_numpy(tree: dict, device: torch.device | str = "cuda",
     leaves cast to `dtype` (int8 and group-affine scales stay float32,
     uint32 words become int32). A "weight" leaf under a key starting with
     "conv", or named in CONV_KEYS, is a convolution kernel and is
-    transposed (K, I, O) → (O, I, K)."""
+    transposed (K, I, O) → (O, I, K), as is a 3-D "weight_v" / "weight_g"
+    under any key; a 3-D leaf under "convT" (a transposed convolution)
+    becomes (I, O, K)."""
     out = {}
     for name, value in tree.items():
         if isinstance(value, dict):
             out[name] = params_from_numpy(value, device, dtype,
                                           name.startswith("conv") or name in CONV_KEYS)
+            if name == "convT":
+                out[name] = {k: v.permute(1, 0, 2).contiguous() if v.dim() == 3 else v
+                             for k, v in out[name].items()}
         else:
-            out[name] = _leaf(value, _conv and name == "weight", device,
+            perm = (2, 1, 0) if name in WN_KEYS or (_conv and name == "weight") else None
+            out[name] = _leaf(value, perm, device,
                               torch.float32 if name in KEEP_F32 else dtype)
     return out

@@ -19,7 +19,9 @@
 // loads, the weights are read once), the kOut rows' loads in flight
 // together, and accumulate with __dp4a into int32. The epilogue writes
 // (float(acc) * sx[b]) * s[o], the order of the plain version. Channels
-// past O are never read, so any O works.
+// past O are never read, so any O works. Rows run in passes whose codes fit
+// 160 KB of shared memory (all 32 up to I = 5120; 16 at Llama-3.2-3B's
+// down projection, I = 8192).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -30,6 +32,7 @@
 namespace {
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kMaxSmemBytes = 160 * 1024;  // the staged codes of a pass, at most
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -137,11 +140,19 @@ extern "C" int tpa_int8_matmul(const void* x, int x_bf16, const int8_t* w, const
     quantize_rows_kernel<<<B, kThreads, 0, stream>>>(static_cast<const float*>(x), xq, sx, I);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 1) err = launch_gemv<1, 4>(xq, sx, w, scale, out, B, I, O, stream);
-  else if (B <= 2) err = launch_gemv<2, 4>(xq, sx, w, scale, out, B, I, O, stream);
-  else if (B <= 4) err = launch_gemv<4, 2>(xq, sx, w, scale, out, B, I, O, stream);
-  else if (B <= 8) err = launch_gemv<8, 2>(xq, sx, w, scale, out, B, I, O, stream);
-  else if (B <= 16) err = launch_gemv<16, 1>(xq, sx, w, scale, out, B, I, O, stream);
-  else err = launch_gemv<32, 1>(xq, sx, w, scale, out, B, I, O, stream);
+  // rows in passes whose codes fit the shared memory a block may use
+  int per_pass = 32;
+  while (per_pass > 1 && per_pass * I > kMaxSmemBytes) per_pass /= 2;
+  for (int b0 = 0; b0 < B && err == cudaSuccess; b0 += per_pass) {
+    const int rows = B - b0 < per_pass ? B - b0 : per_pass;
+    const int8_t* xb = xq + static_cast<long>(b0) * I;
+    float* ob = out + static_cast<long>(b0) * O;
+    if (rows <= 1) err = launch_gemv<1, 4>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+    else if (rows <= 2) err = launch_gemv<2, 4>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+    else if (rows <= 4) err = launch_gemv<4, 2>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+    else if (rows <= 8) err = launch_gemv<8, 2>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+    else if (rows <= 16) err = launch_gemv<16, 1>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+    else err = launch_gemv<32, 1>(xb, sx + b0, w, scale, ob, rows, I, O, stream);
+  }
   return static_cast<int>(err);
 }

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_audio_torch.convert import params_from_numpy
+from tpu_audio_torch.convert import params_from_numpy, tree_device
 from tpu_audio_torch.nn import attention, layers, transformer
 from tpu_audio_torch.ops import sampling
 from tpu_audio_torch.ops.decoding import decode_loop
@@ -195,12 +195,6 @@ def adapt(params, cfg: AdaptorConfig, x: torch.Tensor, lengths: torch.Tensor):
 
 # ------------------------------------------------------------------ generation
 
-def _device(tree) -> torch.device:
-    for v in tree.values():
-        return _device(v) if isinstance(v, dict) else v.device
-    raise ValueError("empty parameter tree")
-
-
 class FunASRGenerator:
     """Prompt + audio merge, prefill and decode of one clip. The features
     are padded to a multiple of 32 frames; [pre | audio | post] is placed
@@ -216,7 +210,7 @@ class FunASRGenerator:
         self.params = dict(params, llm=transformer.fuse_fp_tree(params["llm"]))
         self.cfg = cfg
         self.max_cache = max_cache
-        self.device = _device(params["llm"])
+        self.device = tree_device(params["llm"])
         self.fused = transformer.fused_decode_supported(cfg.llm, self.params["llm"], max_cache)
 
     @torch.inference_mode()

@@ -1,14 +1,16 @@
 """Functional layers over param dicts (port of tpu_audio/nn/layers.py:
-linear, layer_norm, rms_norm, gelu, silu, conv1d, embedding,
-embedding_as_linear, sinusoidal_positions).
+linear, layer_norm, rms_norm, gelu, silu, conv1d, conv_transpose1d,
+weight_norm_conv1d, embedding, embedding_as_linear, sinusoidal_positions).
 
 Conventions kept from the JAX module:
   - linear weights are (out_features, in_features);
   - sequence tensors are channels-last, (B, T, C);
   - a param dict without "weight" is quantised (`ops/quant.py`).
-Changed for PyTorch: conv1d weights are (out, in, kernel), torch's own
-layout (the JAX tree stores (kernel, in, out); `convert.params_from_numpy`
-transposes).
+Changed for PyTorch: conv1d weights are (out, in/groups, kernel) and
+transposed-conv weights (in, out/groups, kernel), torch's own layouts (the
+JAX tree stores (kernel, in, out); `convert.params_from_numpy` transposes).
+The convolutions are `F.conv1d` / `F.conv_transpose1d`: XLA convolutions
+in the JAX package, not Pallas kernels.
 """
 
 from __future__ import annotations
@@ -28,15 +30,17 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding(p, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the table; an int8 table's rows are dequantised to f32."""
+    """Rows of the table; a quantised table's rows (int8, q4/q8, W4A8
+    pair-packed) are dequantised to f32."""
     if "weight" not in p:
         return quant.dequantize_rows(p, ids)
     return p["weight"][ids]
 
 
 def embedding_as_linear(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding output head: logits = x @ E.T (an int8 table goes
-    through the int8 matmul, never dequantised whole)."""
+    """Tied-embedding output head: logits = x @ E.T (a quantised table goes
+    through `quant.quantized_linear` and its decode kernels, never
+    dequantised whole at ≤ 32 rows)."""
     if "weight" not in p:
         return quant.quantized_linear(p, x)
     return x @ p["weight"].to(x.dtype).T
@@ -57,7 +61,7 @@ def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def conv1d(p, x: torch.Tensor, stride: int = 1, padding: int | tuple = 0,
-           groups: int = 1) -> torch.Tensor:
+           dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """1-D convolution over (B, T, C_in) → (B, T', C_out); weight
     (O, I/groups, K). `padding` is one int or a (left, right) pair; a
     depthwise conv (FunASR's FSMN memory) has groups = C and weight (C, 1, K)."""
@@ -66,8 +70,33 @@ def conv1d(p, x: torch.Tensor, stride: int = 1, padding: int | tuple = 0,
     if not isinstance(padding, int):
         xt, padding = F.pad(xt, tuple(padding)), 0
     y = F.conv1d(xt, p["weight"].to(x.dtype), bias, stride=stride,
-                 padding=padding, groups=groups)
+                 padding=padding, dilation=dilation, groups=groups)
     return y.transpose(1, 2).contiguous()
+
+
+def conv_transpose1d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
+                     groups: int = 1) -> torch.Tensor:
+    """Transposed 1-D convolution over (B, T, C_in) → (B, T', C_out) with
+    T' = (T − 1)·stride − 2·padding + K; weight (I, O/groups, K)."""
+    bias = p["bias"].to(x.dtype) if "bias" in p else None
+    y = F.conv_transpose1d(x.transpose(1, 2), p["weight"].to(x.dtype), bias, stride=stride,
+                           padding=padding, groups=groups)
+    return y.transpose(1, 2).contiguous()
+
+
+def weight_norm(v: torch.Tensor, g: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """g · v / ‖v‖ in f32, the norm over `dims` (+1e-12 under the root)."""
+    vf = v.float()
+    return vf / torch.sqrt((vf * vf).sum(dim=dims, keepdim=True) + 1e-12) * g.float()
+
+
+def weight_norm_conv1d(p, x: torch.Tensor, **kw) -> torch.Tensor:
+    """conv1d with a weight-normalised kernel: weight_v (O, I/g, K), weight_g
+    (O, 1, 1), the norm over (I/g, K) of each output channel."""
+    q = {"weight": weight_norm(p["weight_v"], p["weight_g"], (1, 2)).to(x.dtype)}
+    if "bias" in p:
+        q["bias"] = p["bias"]
+    return conv1d(q, x, **kw)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

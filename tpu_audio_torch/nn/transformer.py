@@ -5,7 +5,11 @@ decode_cache_and_mask, fused_decode_supported, forward_hidden, forward,
 logits, encode).
 
 The parameters keep the JAX tree's stacked (L, …) layer layout; a layer is
-a view of each stacked leaf, so the loop over layers copies no weight. GQA,
+a view of each stacked leaf, so the loop over layers copies no weight. A
+stacked W4A8 leaf ("weight_q4p" / "weight_q4s") reaches its layer whole,
+as "weight_q4p_stacked" beside "layer_idx" and the layer's scales, as the
+JAX `_reinject_stacked` hands it over: the stacked kernel reads the layer
+in place. GQA,
 Llama-3-scaled RoPE, Qwen3 q/k-norm and GPT-2 learned positions as in the
 JAX module. Caches are updated in place (`ops/kvcache.py`).
 
@@ -67,9 +71,21 @@ class TransformerConfig:
         return rope.make_inv_freq(self.hd, self.rope_theta, self.rope_scaling)
 
 
+_STACKED_KEYS = ("weight_q4p", "weight_q4s")  # handed over whole, with the layer index
+
+
 def _layer(tree: dict, i: int) -> dict:
-    """Layer i of a stacked tree: a view of every leaf."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    """Layer i of a stacked tree: a view of every leaf, except a W4A8
+    weight, which stays whole under "<key>_stacked" beside "layer_idx"."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, i)
+        elif k in _STACKED_KEYS:
+            out[k + "_stacked"], out["layer_idx"] = v, i
+        else:
+            out[k] = v[i]
+    return out
 
 
 def _norm(cfg: TransformerConfig, p, x):

@@ -41,10 +41,16 @@ _KERNEL = _build.Kernel("tpa_int8_matmul", _P, _I, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I)
 
 
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b rounded once, on any device: CUDA divides by a Python scalar as
+    a product with its reciprocal, one ulp off for some a."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: (B, I) float → ((B, I) int8, (B, 1) f32)."""
     xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    sx = torch.clamp(true_div(xf.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-10)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 

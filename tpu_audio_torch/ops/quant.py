@@ -18,8 +18,28 @@ leaf, as `ParamTree.layer` hands it out, is {"weight_i8_stacked": the whole
 the stacked kernel reads the layer in place, as the JAX package's
 scalar-prefetch kernel does.
 
-The W4A8 repacks ("weight_q4p", "weight_q4s") are not ported yet (ROADMAP
-B6) and raise.
+W4A8 (`kernels/w4a8_matmul.py` has the byte layouts): the pair-packed
+repack {"weight_q4p" (…, O, I/2) int8, "scales"/"biases" (…, O, I/64) f32}
+of a q4 leaf, lossless, and the super-group requantisation {"weight_q4s"
+(…, O, I/2) int8, "scales_sg" (…, O, I/256) f32}, lossy. Up to 32
+rows go to the W4A8 kernels, gated by the format's own shape rule only (I a
+multiple of 128, or 256 for the super-group; any O); more rows (prefill)
+take the product with the weight dequantised to x's dtype, as the JAX
+module does: there an XLA dot, here `torch.matmul`. A stacked leaf reaches
+a layer as {"weight_q4p_stacked" (or "weight_q4s_stacked"): the whole
+(L, O, I/2) tensor, "layer_idx": i, this layer's scales/biases}, and the
+stacked kernel reads the layer in place. Bound: device-memory bytes, 0.5 B
+a weight plus 8 B of scale and bias per 64 weights (0.5 + 4/256 B for the
+super-group); Llama-3.2-3B's tied head is 302 MB a call, 0.090 ms at
+3.35 TB/s.
+
+One routing difference from the TPU: the JAX super-group gate also needs a
+`block_o` that divides O, so a super-group head at vocabulary 128,266
+takes the dequantised product there; here it takes the kernel, which
+differs from that product only by the int8 rounding of the activations.
+
+A super-group embedding table has no row lookup: the JAX `dequantize_rows`
+has no branch for it either (ROADMAP C5), so `dequantize_rows` raises.
 """
 
 from __future__ import annotations
@@ -31,15 +51,9 @@ import torch
 
 from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
 
 _I8_SKIP = re.compile(r"(ln\w*|norm|conv\w*|pos_embed)\.weight$")
-_UNPORTED = ("weight_q4p", "weight_q4s", "weight_q4p_stacked", "weight_q4s_stacked")
-
-
-def _refuse_unported(p: dict) -> None:
-    if any(k in p for k in _UNPORTED):
-        raise NotImplementedError(
-            "the W4A8 serving formats are not ported yet (ROADMAP B6)")
 
 
 # ------------------------------------------------------- group-affine q4/q8
@@ -74,7 +88,7 @@ def quantize_array(w: torch.Tensor, bits: int = 4, group: int = 64) -> dict:
     wg = w.float().reshape(*lead, o, i // group, group)
     wmax, wmin = wg.amax(dim=-1), wg.amin(dim=-1)
     levels = (1 << bits) - 1
-    scales = torch.clamp((wmax - wmin) / levels, min=1e-8)
+    scales = torch.clamp(i8mm.true_div(wmax - wmin, float(levels)), min=1e-8)
     q = torch.clamp(torch.round((wg - wmin[..., None]) / scales[..., None]), 0, levels)
     return {f"weight_q{bits}": pack_uint32(q.reshape(*lead, o, i), bits),
             "scales": scales, "biases": wmin}
@@ -82,9 +96,12 @@ def quantize_array(w: torch.Tensor, bits: int = 4, group: int = 64) -> dict:
 
 def dequantize(p: dict) -> torch.Tensor:
     """A quantised dict → (…, O, I) f32 weight."""
-    _refuse_unported(p)
     if "weight_i8" in p:
         return dequantize_int8(p)
+    if "weight_q4p" in p:
+        return dequantize_w4a8(p)
+    if "weight_q4s" in p:
+        return dequantize_w4a8_sg(p)
     bits = _bits(p)
     return qmm.dequantize_words(p[f"weight_q{bits}"], p["scales"], p["biases"], bits)
 
@@ -92,9 +109,14 @@ def dequantize(p: dict) -> torch.Tensor:
 def dequantize_rows(p: dict, ids: torch.Tensor) -> torch.Tensor:
     """Gather-then-dequantise for a quantised embedding table: (…, I) f32,
     unpacking only the gathered rows."""
-    _refuse_unported(p)
     if "weight_i8" in p:
         return p["weight_i8"][ids].float() * p["scale_i8"][ids]
+    if "weight_q4p" in p:
+        return w4mm.dequantize_w4a8(p["weight_q4p"][ids], p["scales"][ids], p["biases"][ids])
+    if "weight_q4s" in p:
+        raise ValueError("a super-group (weight_q4s) embedding table has no row lookup: the "
+                         "JAX dequantize_rows has none either (ROADMAP C5); keep the "
+                         "embedding in bf16 and untie the head")
     bits = _bits(p)
     return qmm.dequantize_words(p[f"weight_q{bits}"][ids], p["scales"][ids],
                                 p["biases"][ids], bits)
@@ -123,7 +145,7 @@ def quantize_array_int8(w: torch.Tensor) -> dict:
     """fp weight (…, O, I) → {"weight_i8" (…, O, I) int8, "scale_i8"
     (…, O, 1) f32}, per-output-channel symmetric, on w's device."""
     w = w.float()
-    s = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    s = torch.clamp(i8mm.true_div(w.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-10)
     q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"weight_i8": q, "scale_i8": s}
 
@@ -181,7 +203,6 @@ def requantize_tree_int8(tree: dict, fuse: bool = True) -> dict:
     (L, O, I) leaves included) to per-channel int8; fp and int8 leaves pass
     through. With `fuse`, q/k/v and gate/up int8 leaves are then fused
     (`fuse_int8_tree`), the JAX package's serving recipe."""
-    _refuse_unported(tree)
     if "weight_q4" in tree or "weight_q8" in tree:
         return requantize_int8(tree)
     out = {k: requantize_tree_int8(v, fuse=False) if isinstance(v, dict) else v
@@ -236,9 +257,12 @@ def dequantize_int8(p: dict) -> torch.Tensor:
 # ------------------------------------------------------------- dispatch
 
 def quantized_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    _refuse_unported(p)
     if "weight_i8" in p or "weight_i8_stacked" in p:
         return int8_linear(p, x)
+    if "weight_q4s" in p or "weight_q4s_stacked" in p:
+        return w4a8_sg_linear(p, x)
+    if "weight_q4p" in p or "weight_q4p_stacked" in p:
+        return w4a8_linear(p, x)
     return group_affine_linear(p, x)
 
 
@@ -290,3 +314,113 @@ def int8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
         y = y + p["bias"].to(x.dtype)
     return y
 
+
+# ------------------------------------------------------------------ W4A8
+
+def repack_w4a8(p: dict) -> dict:
+    """Group-affine q4 dict → the pair-packed W4A8 dict on its device
+    (lossless: the codes and group scales are the checkpoint's)."""
+    q = unpack_uint32(p["weight_q4"], 4)
+    out = {"weight_q4p": w4mm.pack_w4a8(q), "scales": p["scales"].float(),
+           "biases": p["biases"].float()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def dequantize_w4a8(p: dict) -> torch.Tensor:
+    return w4mm.dequantize_w4a8(p["weight_q4p"], p["scales"], p["biases"])
+
+
+def requantize_w4a8_sg(p: dict) -> dict:
+    """Group-affine q4 dict → the super-group dict on its device (lossy;
+    stacked leaves one layer at a time)."""
+    q = unpack_uint32(p["weight_q4"], 4)
+    *lead, o, i = q.shape
+    q2 = q.reshape(-1, o, i)
+    sc = p["scales"].reshape(-1, o, i // w4mm.GROUP)
+    bi = p["biases"].reshape(-1, o, i // w4mm.GROUP)
+    packed, ssg = zip(*[w4mm.requantize_w4a8_sg(sc[n], bi[n], q2[n]) for n in range(q2.shape[0])])
+    out = {"weight_q4s": torch.stack(packed).reshape(*lead, o, i // 2),
+           "scales_sg": torch.stack(ssg).reshape(*lead, o, i // w4mm.SUPER)}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def dequantize_w4a8_sg(p: dict) -> torch.Tensor:
+    return w4mm.dequantize_w4a8_sg(p["weight_q4s"], p["scales_sg"])
+
+
+def _w4a8_product(p: dict, x: torch.Tensor, sg: bool) -> torch.Tensor:
+    """The JAX rule for both W4A8 formats: ≤ 32 rows of a supported shape
+    go to the kernel (the stacked one for a stacked leaf); otherwise the
+    product with the weight dequantised to x's dtype."""
+    key = "weight_q4s" if sg else "weight_q4p"
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    x2 = x.reshape(rows, x.shape[-1])
+    if key + "_stacked" in p:
+        w_st, li = p[key + "_stacked"], p["layer_idx"]
+        if rows <= w4mm.MAX_ROWS and w4mm.supported(x2, w_st, sg):
+            y = (w4mm.w4a8_sg_matmul_stacked(x2, w_st, p["scales_sg"], li) if sg else
+                 w4mm.w4a8_matmul_stacked(x2, w_st, p["scales"], p["biases"], li))
+        else:
+            sliced = {k: v for k, v in p.items() if k not in (key + "_stacked", "layer_idx")}
+            return _w4a8_product({**sliced, key: w_st[li]}, x, sg)
+    elif rows <= w4mm.MAX_ROWS and w4mm.supported(x2, p[key], sg):
+        y = (w4mm.w4a8_sg_matmul(x2, p[key], p["scales_sg"]) if sg else
+             w4mm.w4a8_matmul(x2, p[key], p["scales"], p["biases"]))
+    else:
+        y = x2 @ dequantize(p).to(x.dtype).T
+    y = y.to(x.dtype).reshape(*lead, -1)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def w4a8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (…, I) → (…, O) in x's dtype on a pair-packed leaf."""
+    return _w4a8_product(p, x, sg=False)
+
+
+def w4a8_sg_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (…, I) → (…, O) in x's dtype on a super-group leaf."""
+    return _w4a8_product(p, x, sg=True)
+
+
+def repack_tree_w4a8(tree: dict, fuse: bool = True) -> dict:
+    """Repack every group-affine q4 leaf dict whose in_features is a
+    multiple of 128 to the pair-packed W4A8 layout (stacked leaves
+    included; narrower q4, q8 and fp leaves pass through); with `fuse`,
+    q/k/v and gate/up W4A8 leaves are then fused."""
+    if "weight_q4" in tree:
+        return repack_w4a8(tree) if tree["weight_q4"].shape[-1] * 8 % w4mm.PAIR == 0 else tree
+    out = {k: repack_tree_w4a8(v, fuse=False) if isinstance(v, dict) else v
+           for k, v in tree.items()}
+    return fuse_w4a8_tree(out) if fuse else out
+
+
+def fuse_w4a8_tree(tree: dict) -> dict:
+    """Fuse q/k/v → qkv and gate/up → gateup W4A8 leaves along the output
+    channels (packed rows and group scales concatenate exactly)."""
+    return fuse_leaves(tree, lambda d: "weight_q4p" in d,
+                       _cat_leaves(("weight_q4p", "scales", "biases")))
+
+
+def requantize_tree_w4a8_sg(tree: dict, fuse: bool = True) -> dict:
+    """Requantise every group-affine q4 leaf dict whose in_features is a
+    multiple of 256 to the super-group layout (others pass through); with
+    `fuse`, q/k/v and gate/up super-group leaves are then fused."""
+    if "weight_q4" in tree:
+        if tree["weight_q4"].shape[-1] * 8 % w4mm.SUPER == 0:
+            return requantize_w4a8_sg(tree)
+        return tree
+    out = {k: requantize_tree_w4a8_sg(v, fuse=False) if isinstance(v, dict) else v
+           for k, v in tree.items()}
+    return fuse_w4a8_sg_tree(out) if fuse else out
+
+
+def fuse_w4a8_sg_tree(tree: dict) -> dict:
+    """Fuse q/k/v → qkv and gate/up → gateup super-group leaves."""
+    return fuse_leaves(tree, lambda d: "weight_q4s" in d, _cat_leaves(("weight_q4s", "scales_sg")))
