@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from `tpu_audio_torch/csrc/` with nvcc (one
-     process per source, all at once);
+     process per source, all at once); print the build's warnings and the
+     TMA + wgmma kernels' ptxas lines and HGMMA counts, and fail on a spill;
   3. hold each kernel against its plain PyTorch version at the shapes of
      Whisper large-v3-turbo (batch-16 transcription for the mel, encoder
      and cross-attention kernels; the int8 decoder's and lm head's shapes
@@ -66,8 +67,11 @@ Phases (any failure raises and the script exits non-zero):
      kernel path against the f32 plain path on teacher-forced logits, with
      faults planted in the W4A8 kernels.
 
-Phase 3 also holds the encoder-attention kernel (both entries, all three
-layouts) at batch 16 and B=1, the four W8A8 encoder-block kernels against
+Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
+seven planted faults (a partial last row tile among them), the
+encoder-attention kernel (both entries, all three layouts) at batch 16 and
+B=1 and at t_valid 1, 1000 and 1500, with five faults (the last partial key
+tile dropped among them), the four W8A8 encoder-block kernels against
 their plain versions on block 0 of the w8a8 tree at batch 16, the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
 and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down),
@@ -81,7 +85,10 @@ phase 3, and phase 8: a short check of the Fun-ASR kernels.
 `python3 chip_smoke.py --q4-only` runs phases 1, 2, encoder attention's
 part of phase 3, and phase 9: a short check of the per-op encoder and the
 q4/q8 trees. `python3 chip_smoke.py --orpheus-only` runs phases 1, 2, the
-W4A8 kernels' part of phase 3, and phase 10.
+W4A8 kernels' part of phase 3, and phase 10. `python3 chip_smoke.py
+--encoder-only` runs phases 1, 2, the bf16 encoder kernels' part of phase 3
+(`ln_qkv`, `attn_oproj_ln`, encoder attention) and phase 9's fused against
+per-op encoder at batch 16: a short check of the TMA + wgmma kernels.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -93,6 +100,9 @@ import copy
 import functools
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -564,14 +574,151 @@ def check_int8_encoder(model, randn, rows: list) -> None:
                            int_mm_ms(ff, d, w2)))
 
 
+def uncentred(x, ln_w, ln_b, eps: float = 1e-5):
+    """`ln_rows_plain` with a fault: the variance taken about 0, not about
+    the row's mean."""
+    xf = x.float()
+    var0 = xf.square().mean(-1, keepdim=True)
+    return (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(var0 + eps) * ln_w + ln_b
+
+
+def check_ln_qkv(w_qkv, cfg, randn) -> float:
+    """Phase 3, `ln_qkv` on inputs where every term matters: rows whose mean
+    is as large as their spread (x = N(0, 1) + a per-row N(0, 2) offset), a
+    LayerNorm of weight 1 + N(0, 0.1) and bias N(0, 0.5), a packed bias of
+    std 0.3 (block 0's weight, whose product has std ~0.5). Held against the
+    plain version (rel 2e-2, cosine 0.999) at batch 16 (M = 24000 rows, a
+    half tile at the end) and at B=1 (M = 1500, a partial last tile of 92
+    rows); seven planted faults on the plain version must land outside.
+    Returns the largest max abs error."""
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+
+    t, d, h = cfg.n_audio_ctx, cfg.n_audio_state, cfg.n_audio_head
+    hd = d // h
+    ln_w, ln_b = 1 + randn(d, scale=0.1), randn(d, scale=0.5)
+    bias = randn(3 * d, scale=0.3)
+    err = 0.0
+    for b in (BATCH, 1):
+        x = (randn(b, t, d) + randn(b, t, 1, scale=2.0)).to(torch.bfloat16)
+
+        def plain(x=x, g=ln_w, be=ln_b, bb=bias):
+            return fe.ln_qkv_plain(x, g, be, w_qkv, bb, h)
+
+        def unwritten_tail():  # rows from the last full 128-row tile on left zero
+            outs = [a.clone() for a in plain()]
+            m = torch.arange((b * t) // 128 * 128, b * t, device=x.device)
+            for a in outs:
+                a[m // t, :, m % t] = 0
+            return outs
+
+        got = fe.ln_qkv(x, ln_w, ln_b, w_qkv, bias, h)
+        ref = plain()
+        err = max(err, *(compare(f"ln_qkv {n} ({b}, {h}, {t}, {hd}) bf16, offset rows, "
+                                 "LayerNorm and bias drawn", g, r, rel=2e-2)
+                         for n, g, r in zip("qkv", got, ref)))
+        planted_faults(f"ln_qkv batch {b}", got, [
+            ("the LayerNorm bias ignored", lambda: plain(be=torch.zeros_like(ln_b))),
+            ("the mean not subtracted before the variance",
+             faulty(fe, "ln_rows_plain", uncentred, plain)),
+            ("q and k swapped", lambda: (ref[1], ref[0], ref[2])),
+            ("each head written into the next head's slot",
+             lambda: [a.roll(1, dims=1) for a in ref]),
+            ("the bias row shifted by one head", lambda: plain(bb=bias.roll(hd))),
+            ("the packed bias dropped", lambda: plain(bb=torch.zeros_like(bias))),
+            ("rows past the last full 128-row tile left unwritten", unwritten_tail),
+        ], rel=2e-2)
+        del got, ref, x
+    return err
+
+
+def check_encoder_kernels(model, cfg, randn, rows: list) -> None:
+    """Phase 3, the bf16 fused encoder's kernels at block 0 of the
+    large-v3-turbo weights, batch 16: `ln_qkv` (and `check_ln_qkv`) and
+    `attn_oproj_ln`, each against its plain version, timed, with planted
+    faults."""
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+
+    # encoder block 0 at batch 16
+    t_audio, d = cfg.n_audio_ctx, cfg.n_audio_state
+    blocks = model.encoder["blocks"]
+    ln1, ln2, o = blocks["ln1"], blocks["ln2"], blocks["attn"]["o"]
+    x = randn(BATCH, t_audio, d, dtype=torch.bfloat16)
+    qkv_args = (x, ln1["weight"][0].float(), ln1["bias"][0].float(),
+                model.qkv_weight[0], model.qkv_bias[0], cfg.n_audio_head)
+    got = fe.ln_qkv(*qkv_args)
+    ref = fe.ln_qkv_plain(*qkv_args)
+    err = max(compare(f"ln_qkv {n} (16, 20, 1500, 64) bf16", g, r, rel=2e-2)
+              for n, g, r in zip("qkv", got, ref))
+    err = max(err, check_ln_qkv(model.qkv_weight[0], cfg, randn))
+    ms, pms = timed_pair(lambda: fe.ln_qkv(*qkv_args), lambda: fe.ln_qkv_plain(*qkv_args), 10)
+    m_rows = BATCH * t_audio
+    xn, w_qkv = randn(m_rows, d, dtype=torch.bfloat16), model.qkv_weight[0]
+    lib_ms = time_ms(lambda: torch.matmul(xn, w_qkv.T), 10)
+    rows.append(kernel_row("ln_qkv", "tpu_audio_torch/csrc/ln_qkv.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:114", err, ms, pms,
+                           bound({"bf16": 2 * m_rows * d * 3 * d},
+                                 nbytes(*qkv_args[:5], *got)), lib_ms))
+    log(f"library ln_qkv is torch.matmul of the same bf16 product ({m_rows}, {d}) x "
+        f"({d}, {3 * d}) alone, without the LayerNorm and the head-major scatter")
+    del xn
+
+    wo, bo = o["weight"][0], o["bias"][0].float()
+    g2, b2 = ln2["weight"][0].float(), ln2["bias"][0].float()
+    attn_args = (*got, x, wo, bo, g2, b2, t_audio)
+    got = fe.attn_oproj_ln(*attn_args)
+    ref = fe.attn_oproj_ln_plain(*attn_args)
+    err = max(compare(f"attn_oproj_ln {n} (16, 1500, 1280) bf16", g, r, rel=2e-2)
+              for n, g, r in zip(("y", "h"), got, ref))
+    ms, pms = timed_pair(lambda: fe.attn_oproj_ln(*attn_args),
+                         lambda: fe.attn_oproj_ln_plain(*attn_args), 5)
+    hd = d // cfg.n_audio_head
+    attn_roof = bound({"bf16": 4 * BATCH * cfg.n_audio_head * t_audio * t_audio * hd
+                       + 2 * m_rows * d * d}, nbytes(*attn_args[:8], *got))
+    del got, ref, attn_args, qkv_args, x
+
+    # In the block above the attention adds ~1 % to the residual x, so y and
+    # h would read inside the limit with the attention wrong. Here the
+    # attention term is as large as x and the bias: peaked scores (q.k std
+    # ~2), unit-variance values, keys >= 1000 masked, x and bias std 0.1.
+    hshape = (BATCH, cfg.n_audio_head, t_audio, d // cfg.n_audio_head)
+    qa, ka = (randn(*hshape, dtype=torch.bfloat16, scale=0.5) for _ in range(2))
+    va = randn(*hshape, dtype=torch.bfloat16)
+    xa = randn(BATCH, t_audio, d, dtype=torch.bfloat16, scale=0.1)
+    boa = randn(d, scale=0.1)
+    t_mask = 1000
+
+    def plain(q=qa, k=ka, v=va, x=xa, w=wo, b=boa, t_valid=t_mask):
+        return fe.attn_oproj_ln_plain(q, k, v, x, w, b, g2, b2, t_valid)
+
+    got = fe.attn_oproj_ln(qa, ka, va, xa, wo, boa, g2, b2, t_mask)
+    err = max(err, *(compare(f"attn_oproj_ln {n}, attention-sized inputs, t_valid {t_mask}",
+                             g, r, rel=2e-2) for n, g, r in zip(("y", "h"), got, plain())))
+    planted_faults("attn_oproj_ln", got, [
+        ("the attention dropped", lambda: plain(v=torch.zeros_like(va))),
+        ("wo untransposed", lambda: plain(w=wo.T.contiguous())),
+        ("t_valid ignored", lambda: plain(t_valid=t_audio)),
+        ("each head given the next head's values", lambda: plain(v=va.roll(1, dims=1))),
+        ("the bias dropped", lambda: plain(b=torch.zeros_like(boa))),
+        ("the residual dropped", lambda: plain(x=torch.zeros_like(xa))),
+        ("LN2 dropped (h = y)", lambda: (plain()[0],) * 2),
+    ], rel=2e-2)
+    rows.append(kernel_row("attn_oproj_ln", "tpu_audio_torch/csrc/fused_encoder.cu",
+                           "tpu_audio/ops/pallas/fused_encoder.py:207", err, ms, pms, attn_roof,
+                           None, "no one PyTorch call computes attention, o-projection and "
+                           "LayerNorm; scaled_dot_product_attention is the attention alone"))
+    del got, qa, ka, va, xa
+
+
 def check_encoder_attention(cfg, randn, rows: list) -> None:
     """Phase 3, bidirectional encoder attention: `encoder_attention` in its
     (B, T, H, D) and head-major layouts and `encoder_attention_packed` at
     large-v3-turbo's shapes (20 heads of 64, T 1500, bf16), each against its
     plain version (rel 2e-2, cosine 0.999) at batch 16 on inputs where every
     term matters: q and k of std 0.6 under a scale of 0.7 (scores of std ~2),
-    unit values, keys from t_valid = 1000 on holding large values. Four
-    planted faults per entry must land outside the limit. Timed at the main
+    unit values, keys from t_valid = 1000 on holding large values; five
+    planted faults per entry (the last partial key tile dropped among them)
+    must land outside the limit. Held again at t_valid 1 and 1500, and at
+    B=1 at t_valid 1, 1000 and 1500. Timed at the main
     path's arguments (t_valid = T, scale 1: Whisper folds hd^-0.25 into q and
     k) at batch 16 and at B=1, beside the bound and
     F.scaled_dot_product_attention on the same (B, H, T, hd) tensors."""
@@ -623,8 +770,18 @@ def check_encoder_attention(cfg, randn, rows: list) -> None:
             ("the two heads of each pair swapped", heads(lambda x: x[:, swap])),
             ("each head given the next head's values", lambda: plain(
                 v=layout(vh.roll(1, dims=1), kind))),
+            ("the last partial key tile dropped", lambda: plain(t_valid=t_mask // 128 * 128)),
         ], rel=2e-2)
         del got
+        # the key-tile edges: one valid key, a partial last tile, all keys;
+        # and B=1 (12 query tiles of one batch, the last a partial one)
+        for b_, tv in ((BATCH, 1), (BATCH, t), (1, 1), (1, t_mask), (1, t)):
+            qb, kb, vb = (layout(x[:b_].contiguous(), kind) for x in (qh, kh, vh))
+            errs[kind] = max(errs[kind], compare(
+                f"encoder_attention {kind} {tuple(qb.shape)} bf16, t_valid {tv}, scale {scale}",
+                kernel(qb, kb, vb, t_valid=tv, scale=scale),
+                plain_fn(qb, kb, vb, t_valid=tv, scale=scale), rel=2e-2))
+            del qb, kb, vb
         times[kind, BATCH] = timed_pair(lambda: kernel(q, k, v, scale=1.0),
                                         lambda: plain_fn(q, k, v, scale=1.0), 5)
         q1, k1, v1 = (layout(x[:1].contiguous(), kind) for x in (qh, kh, vh))
@@ -1098,7 +1255,6 @@ def whisper_q4(model_q4, model_q8, model, tok, clips, dev, card) -> dict:
     run and of the per-op bf16 encoder's."""
     from tpu_audio_torch.api.results import TranscriptionSegment
     from tpu_audio_torch.api.stt import WhisperEngine
-    from tpu_audio_torch.models.whisper import model as wmodel
     from tpu_audio_torch.models.whisper import timing
     from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, WhisperPipeline, _pad_frames
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
@@ -1282,6 +1438,24 @@ def whisper_q4(model_q4, model_q8, model, tok, clips, dev, card) -> dict:
         f"{q8} ({card})")
 
     # 6. the bf16 per-op encoder against the fused one, batch 16, phase 4's windows
+    per_op = encoder_ab(model, clips, dev, card)["per-op packed"]
+    return {**main, "encoder_attention_packed": per_op["encoder_attention_packed"]}
+
+
+def encoder_ab(model, clips, dev, card: str) -> dict:
+    """The bf16 encoder at batch 16 on phase 4's windows, fused
+    (`ln_qkv` + `attn_oproj_ln`) against per-op with pair-packed and with
+    head-major attention: launches per call, device time by CUDA events in
+    the order fused, packed, head-major and back, and each one's features
+    against the fused one's (cosine > 0.999). Returns the launch counts per
+    variant."""
+    from tpu_audio_torch.models.whisper import model as wmodel
+    from tpu_audio_torch.ops.kernels import encoder_attention as ea
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+
+    cfg = model.cfg
+    lyr = cfg.n_audio_layer
+    mods = (fe, ea)
     mel16 = batch_mels(clips, cfg.n_mels, dev)
     variants = {"fused": (True, True), "per-op packed": (False, True),
                 "per-op head-major": (False, False)}
@@ -1305,8 +1479,6 @@ def whisper_q4(model_q4, model_q8, model, tok, clips, dev, card) -> dict:
     for label, c in counts.items():
         if c != {n: want[label].get(n, 0) for n in c}:
             raise AssertionError(f"bf16 encoder {label}: launches {c}, expected {want[label]}")
-    per_op = dict(counts["per-op packed"])
-
     times = {label: [] for label in variants}
     for label in (*variants, *reversed(variants)):
         times[label].append(events_ms(lambda: encode(label)))
@@ -1324,7 +1496,7 @@ def whisper_q4(model_q4, model_q8, model, tok, clips, dev, card) -> dict:
         if not cos > 0.999:
             raise AssertionError(f"bf16 encoder {label}: features not within cosine 0.999 "
                                  "of the fused encoder's")
-    return {**main, "encoder_attention_packed": per_op["encoder_attention_packed"]}
+    return counts
 
 
 def funasr_trees(dev) -> dict:
@@ -2145,6 +2317,54 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     return total
 
 
+# the TMA + wgmma kernels of csrc/ (hopper.cuh), and whether each issues wgmma
+HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
+                  "encoder_attention_kernel": True}
+
+
+def hopper_report(lib_path: Path) -> None:
+    """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
+    (registers, stack, spills) from the build log and, where cuobjdump is
+    present, its count of HGMMA (wgmma) instructions. Raises on a spill, or on a wgmma kernel that
+    holds no HGMMA."""
+    info, name = {}, None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            log(f"  ptxas: {line.strip()}")
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if found:
+            name = found.group(1)
+            info.setdefault(name, [])
+        elif name and ("registers" in line or "spill" in line):
+            info[name].append(line.split("info    :")[-1].strip())
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    hgmma = None
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                              text=True).stdout
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                fn = found.group(1)
+                hgmma[fn] = 0
+            elif fn and "HGMMA" in line:
+                hgmma[fn] += 1
+    for short, wgmma in HOPPER_KERNELS.items():
+        names = [n for n in info if short in n]
+        if not names:
+            raise AssertionError(f"ptxas reported no kernel {short}")
+        lines = "; ".join(info[names[0]])
+        count = None if hgmma is None else sum(c for n, c in hgmma.items() if short in n)
+        log(f"ptxas {short}: {lines}; HGMMA instructions: "
+            + ("not counted (no cuobjdump)" if count is None else str(count)))
+        if "0 bytes spill stores, 0 bytes spill loads" not in lines:
+            raise AssertionError(f"{short} spills: {lines}")
+        if wgmma and count == 0:
+            raise AssertionError(f"{short} holds no HGMMA instruction")
+
+
 def randn_on(dev):
     """randn(*shape, dtype, scale) on `dev` from a generator seeded with SEED."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2198,6 +2418,7 @@ def main() -> None:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "error")):
             log(f"  ptxas: {line.strip()}")
+    hopper_report(lib_path)
     if "--orpheus-only" in sys.argv[1:]:  # phases 1, 2, B6's part of 3, and 10
         rows = []
         o_trees = orpheus_trees(dev)
@@ -2217,13 +2438,21 @@ def main() -> None:
     t0 = time.perf_counter()
     params = wmodel.init_params(SEED, cfg, torch.bfloat16, dev)
     model = wmodel.Whisper(cfg, params)
-    # the mlx group-affine trees of the published quantised checkpoints
-    model_q4 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=4))
-    model_q8 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=8))
     tok = WhisperTokenizer(BPE({bytes([i]): i for i in range(256)}), True, cfg.num_languages)
     rng = np.random.default_rng(SEED)
     clips = [(rng.standard_normal(CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
              for _ in range(N_CLIPS)]
+    if "--encoder-only" in sys.argv[1:]:  # phases 1, 2, the encoder kernels' part of 3, 9's A/B
+        del params
+        rows, randn = [], randn_on(dev)
+        check_encoder_kernels(model, cfg, randn, rows)
+        check_encoder_attention(cfg, randn, rows)
+        counts = encoder_ab(model, clips, dev, card)
+        print_result(rows, {name: n for c in counts.values() for name, n in c.items() if n})
+        return
+    # the mlx group-affine trees of the published quantised checkpoints
+    model_q4 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=4))
+    model_q8 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=8))
     if "--q4-only" in sys.argv[1:]:  # phases 1, 2, encoder attention's part of 3, and 9
         del params
         rows = []
@@ -2259,77 +2488,11 @@ def main() -> None:
                            "no one PyTorch call computes a log-mel: torch.stft is the "
                            "spectrum alone"))
 
-    # encoder block 0 at batch 16
-    t_audio, d = cfg.n_audio_ctx, cfg.n_audio_state
-    blocks = model.encoder["blocks"]
-    ln1, ln2, o = blocks["ln1"], blocks["ln2"], blocks["attn"]["o"]
-    x = randn(BATCH, t_audio, d, dtype=torch.bfloat16)
-    qkv_args = (x, ln1["weight"][0].float(), ln1["bias"][0].float(),
-                model.qkv_weight[0], model.qkv_bias[0], cfg.n_audio_head)
-    got = fe.ln_qkv(*qkv_args)
-    ref = fe.ln_qkv_plain(*qkv_args)
-    err = max(compare(f"ln_qkv {n} (16, 20, 1500, 64) bf16", g, r, rel=2e-2)
-              for n, g, r in zip("qkv", got, ref))
-    ms, pms = timed_pair(lambda: fe.ln_qkv(*qkv_args), lambda: fe.ln_qkv_plain(*qkv_args), 10)
-    m_rows = BATCH * t_audio
-    xn, w_qkv = randn(m_rows, d, dtype=torch.bfloat16), model.qkv_weight[0]
-    lib_ms = time_ms(lambda: torch.matmul(xn, w_qkv.T), 10)
-    rows.append(kernel_row("ln_qkv", "tpu_audio_torch/csrc/fused_encoder.cu",
-                           "tpu_audio/ops/pallas/fused_encoder.py:114", err, ms, pms,
-                           bound({"bf16": 2 * m_rows * d * 3 * d},
-                                 nbytes(*qkv_args[:5], *got)), lib_ms))
-    log(f"library ln_qkv is torch.matmul of the same bf16 product ({m_rows}, {d}) x "
-        f"({d}, {3 * d}) alone, without the LayerNorm and the head-major scatter")
-    del xn
-
-    wo, bo = o["weight"][0], o["bias"][0].float()
-    g2, b2 = ln2["weight"][0].float(), ln2["bias"][0].float()
-    attn_args = (*got, x, wo, bo, g2, b2, t_audio)
-    got = fe.attn_oproj_ln(*attn_args)
-    ref = fe.attn_oproj_ln_plain(*attn_args)
-    err = max(compare(f"attn_oproj_ln {n} (16, 1500, 1280) bf16", g, r, rel=2e-2)
-              for n, g, r in zip(("y", "h"), got, ref))
-    ms, pms = timed_pair(lambda: fe.attn_oproj_ln(*attn_args),
-                         lambda: fe.attn_oproj_ln_plain(*attn_args), 5)
-    hd = d // cfg.n_audio_head
-    attn_roof = bound({"bf16": 4 * BATCH * cfg.n_audio_head * t_audio * t_audio * hd
-                       + 2 * m_rows * d * d}, nbytes(*attn_args[:8], *got))
-    del got, ref, attn_args, qkv_args, x
-
-    # In the block above the attention adds ~1 % to the residual x, so y and
-    # h would read inside the limit with the attention wrong. Here the
-    # attention term is as large as x and the bias: peaked scores (q.k std
-    # ~2), unit-variance values, keys >= 1000 masked, x and bias std 0.1.
-    hshape = (BATCH, cfg.n_audio_head, t_audio, d // cfg.n_audio_head)
-    qa, ka = (randn(*hshape, dtype=torch.bfloat16, scale=0.5) for _ in range(2))
-    va = randn(*hshape, dtype=torch.bfloat16)
-    xa = randn(BATCH, t_audio, d, dtype=torch.bfloat16, scale=0.1)
-    boa = randn(d, scale=0.1)
-    t_mask = 1000
-
-    def plain(q=qa, k=ka, v=va, x=xa, w=wo, b=boa, t_valid=t_mask):
-        return fe.attn_oproj_ln_plain(q, k, v, x, w, b, g2, b2, t_valid)
-
-    got = fe.attn_oproj_ln(qa, ka, va, xa, wo, boa, g2, b2, t_mask)
-    err = max(err, *(compare(f"attn_oproj_ln {n}, attention-sized inputs, t_valid {t_mask}",
-                             g, r, rel=2e-2) for n, g, r in zip(("y", "h"), got, plain())))
-    planted_faults("attn_oproj_ln", got, [
-        ("the attention dropped", lambda: plain(v=torch.zeros_like(va))),
-        ("wo untransposed", lambda: plain(w=wo.T.contiguous())),
-        ("t_valid ignored", lambda: plain(t_valid=t_audio)),
-        ("each head given the next head's values", lambda: plain(v=va.roll(1, dims=1))),
-        ("the bias dropped", lambda: plain(b=torch.zeros_like(boa))),
-        ("the residual dropped", lambda: plain(x=torch.zeros_like(xa))),
-        ("LN2 dropped (h = y)", lambda: (plain()[0],) * 2),
-    ], rel=2e-2)
-    rows.append(kernel_row("attn_oproj_ln", "tpu_audio_torch/csrc/fused_encoder.cu",
-                           "tpu_audio/ops/pallas/fused_encoder.py:207", err, ms, pms, attn_roof,
-                           None, "no one PyTorch call computes attention, o-projection and "
-                           "LayerNorm; scaled_dot_product_attention is the attention alone"))
-    del got, qa, ka, va, xa
+    check_encoder_kernels(model, cfg, randn, rows)
     check_encoder_attention(cfg, randn, rows)
 
     # cross-attention decode over int8 K/V of 4 layers at batch 16
+    t_audio = cfg.n_audio_ctx
     h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
     shape = (cfg.n_text_layer, BATCH, t_audio, h, hd)
     k8, ks, v8, vs = ckv.quantize_cross_kv(randn(*shape, scale=0.3), randn(*shape, scale=0.5))

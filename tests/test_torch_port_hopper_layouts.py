@@ -1,0 +1,187 @@
+"""PyTorch port, the Python side of the TMA + wgmma kernels of
+`tpu_audio_torch/csrc/` (`ln_qkv.cu`, `encoder_attention.cu`) on the CPU:
+
+- `encoder_attention.tma_view`, the tensor-map description of each
+  attention layout, read the way the TMA unit reads it ((64, 1, 128, 1)
+  boxes of q, (64, 1, 64, 1) of k and v, zeros past each dimension's end):
+  every head's rows and nothing else, at T = 1500 and T = 700 (neither a
+  multiple of 128), and no row of the next batch; the same description
+  through `torch.as_strided`;
+- `ln_rows_plain`, `ln_qkv`'s LayerNorm pass, against the JAX kernel's
+  `_ln_f32` at f32;
+- the wrappers refuse the shapes they refuse without launching anything.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_audio.ops.pallas import fused_encoder as jfe
+from tpu_audio_torch.ops.kernels import _build
+from tpu_audio_torch.ops.kernels import encoder_attention as ea
+from tpu_audio_torch.ops.kernels import fused_encoder as fe
+
+B, H, HD = 2, 4, 64
+
+
+def layout(x: np.ndarray, kind: str) -> np.ndarray:
+    """Head-major (B, H, T, hd) → the layout `kind`, contiguous."""
+    b, h, t, hd = x.shape
+    if kind == "bthd":
+        return np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+    if kind == "pre_bh":
+        return x.reshape(b * h, t, hd)
+    return np.ascontiguousarray(
+        x.reshape(b, h // 2, 2, t, hd).transpose(0, 1, 3, 2, 4).reshape(b * h // 2, t, 2 * hd))
+
+
+def tma_box(flat: np.ndarray, dims, strides, coords, box):
+    """What a TMA tile load of `box` elements at `coords` (innermost first)
+    gives, and the element offsets it reads: elements past a dimension's
+    end read as zero and touch no memory."""
+    idx = np.meshgrid(*[c + np.arange(n) for c, n in zip(coords, box)], indexing="ij")
+    inside = np.ones(idx[0].shape, bool)
+    offset = np.zeros(idx[0].shape, np.int64)
+    for i, d, s in zip(idx, dims, strides):
+        inside &= i < d
+        offset += i * s
+    values = np.where(inside, flat[np.where(inside, offset, 0)], 0)
+    return values, offset[inside]
+
+
+@pytest.mark.parametrize("box_rows", [128, 64])  # the kernel's query and key tiles
+@pytest.mark.parametrize("t", [1500, 700])
+@pytest.mark.parametrize("kind", ["bthd", "pre_bh", "packed"])
+def test_tma_view_reads_each_head_and_nothing_else(kind, t, box_rows):
+    heads = np.arange(B * H * t * HD, dtype=np.float64).reshape(B, H, t, HD) + 1.0
+    x = layout(heads, kind)
+    flat = x.reshape(-1)
+    dims, strides = ea.tma_view(kind, x.shape)
+    _, inner, rows, outer = dims
+    assert dims[0] == HD and rows == t and inner * outer == B * H
+    reads = np.zeros(flat.size, np.int64)
+    for n in range(B * H):
+        hi, ho = n % inner, n // inner
+        block = (ho * strides[3], (ho + 1) * strides[3])  # this batch or pair group
+        b, h = divmod(n, H)
+        for t0 in range(0, t, box_rows):
+            box, offsets = tma_box(flat, dims, strides, (0, hi, t0, ho), (HD, 1, box_rows, 1))
+            rows_in = min(box_rows, t - t0)
+            np.testing.assert_array_equal(box[:, 0, :rows_in, 0].T, heads[b, h, t0:t0 + rows_in])
+            assert not box[:, 0, rows_in:, 0].any()  # past T: zeros
+            assert offsets.min() >= block[0] and offsets.max() < block[1]
+            np.add.at(reads, offsets, 1)
+    assert (reads == 1).all()  # every element read once, by its own head
+
+
+@pytest.mark.parametrize("t", [1500, 700])
+@pytest.mark.parametrize("kind", ["bthd", "pre_bh", "packed"])
+def test_tma_view_as_strided_gathers_the_heads(kind, t):
+    rng = np.random.default_rng(0)
+    heads = torch.from_numpy(rng.standard_normal((B, H, t, HD)).astype(np.float32))
+    x = torch.from_numpy(layout(heads.numpy(), kind))
+    (hd, inner, rows, outer), (one, s_inner, ld, s_outer) = ea.tma_view(kind, x.shape)
+    assert one == 1
+    view = torch.as_strided(x, (outer, rows, inner, hd), (s_outer, ld, s_inner, 1))
+    got = view.permute(0, 2, 1, 3).reshape(B, H, t, HD)
+    torch.testing.assert_close(got, heads, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind,shape", [("bthd", (16, 1500, 20, 64)),
+                                        ("pre_bh", (320, 1500, 64)),
+                                        ("packed", (160, 1500, 128))])
+def test_tma_view_meets_the_tensor_map_rules(kind, shape):
+    """cuTensorMapEncodeTiled takes byte strides that are nonzero multiples
+    of 16 below 2^40, and a box of 128 bytes across at most under the
+    128-byte swizzle; the wrapper's arguments are read from the same view."""
+    dims, strides = ea.tma_view(kind, shape)
+    assert dims[0] * 2 == 128
+    for s in strides[1:]:
+        assert s > 0 and (2 * s) % 16 == 0 and 2 * s < 2 ** 40
+    assert int(np.prod(dims)) == int(np.prod(shape))
+
+
+@pytest.mark.parametrize("d,offset", [(256, 0.0), (1280, 3.0)])
+def test_ln_rows_plain_matches_jax_ln_f32(rng, d, offset):
+    """ln_qkv's LayerNorm pass (its plain half) against the JAX kernel's
+    f32 LayerNorm, rows offset from zero so the centring matters."""
+    x = (rng.standard_normal((2, 37, d)) + offset * rng.standard_normal((2, 37, 1)))
+    x = x.astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.5 * rng.standard_normal(d)).astype(np.float32)
+    ref = jfe._ln_f32(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 1e-5)
+    got = fe.ln_rows_plain(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def ln_qkv_args(d=1280, heads=20, x_shape=None, x_dtype=torch.bfloat16, w_rows=None):
+    x = meta(*(x_shape or (2, 1500, d)), dtype=x_dtype)
+    return (x, meta(d, dtype=torch.float32), meta(d, dtype=torch.float32),
+            meta(w_rows or 3 * d, d), meta(3 * d, dtype=torch.float32), heads)
+
+
+def attn_args(shape, k_shape=None):
+    return meta(*shape), meta(*(k_shape or shape)), meta(*shape)
+
+
+REFUSED = {
+    "ln_qkv D not a multiple of 128": lambda: fe.ln_qkv(*ln_qkv_args(d=192, heads=3)),
+    "ln_qkv D not a multiple of the heads": lambda: fe.ln_qkv(*ln_qkv_args(d=256, heads=3)),
+    "ln_qkv x not (B, T, D)": lambda: fe.ln_qkv(*ln_qkv_args(x_shape=(3000, 1280))),
+    "ln_qkv x not bf16": lambda: fe.ln_qkv(*ln_qkv_args(x_dtype=torch.float32)),
+    "ln_qkv weight not (3D, D)": lambda: fe.ln_qkv(*ln_qkv_args(w_rows=1280)),
+    "encoder_attention hd 32": lambda: ea.encoder_attention(*attn_args((2, 700, 8, 32))),
+    "encoder_attention pre_bh hd 128": lambda: ea.encoder_attention(
+        *attn_args((8, 700, 128)), pre_bh=True),
+    "encoder_attention pre_bh given (B, T, H, D)": lambda: ea.encoder_attention(
+        *attn_args((2, 700, 4, 64)), pre_bh=True),
+    "encoder_attention_packed 2·hd 64": lambda: ea.encoder_attention_packed(
+        *attn_args((4, 700, 64))),
+    "encoder_attention t_valid 0": lambda: ea.encoder_attention(
+        *attn_args((2, 700, 4, 64)), t_valid=0),
+    "encoder_attention t_valid past T": lambda: ea.encoder_attention(
+        *attn_args((2, 700, 4, 64)), t_valid=701),
+    "encoder_attention k of another shape": lambda: ea.encoder_attention(
+        *attn_args((2, 700, 4, 64), k_shape=(2, 600, 4, 64))),
+}
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Meta tensors pass the wrappers' device rule, and every entry point
+    records its call instead of launching."""
+    monkeypatch.setattr(_build, "require_cuda", lambda name, *tensors: tensors[0].device)
+    calls = []
+    monkeypatch.setattr(fe, "_LN_QKV", lambda *a: calls.append("ln_qkv"))
+    monkeypatch.setattr(ea, "_KERNEL", lambda *a: calls.append("encoder_attention"))
+    return calls
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_wrappers_refuse_without_launching(fake_card, case):
+    before = {**fe.LAUNCHES, **ea.LAUNCHES}
+    with pytest.raises(ValueError):
+        REFUSED[case]()
+    assert fake_card == []
+    assert {**fe.LAUNCHES, **ea.LAUNCHES} == before
+
+
+def test_wrappers_launch_what_they_accept(fake_card, monkeypatch):
+    """The control of the refusals above: the same calls at accepted shapes
+    reach the entry points, once each, and count one launch each."""
+    monkeypatch.setattr(fe, "LAUNCHES", dict.fromkeys(fe.LAUNCHES, 0))
+    monkeypatch.setattr(ea, "LAUNCHES", dict.fromkeys(ea.LAUNCHES, 0))
+    q, k, v = fe.ln_qkv(*ln_qkv_args())
+    assert tuple(q.shape) == (2, 20, 1500, 64)
+    ea.encoder_attention(*attn_args((2, 700, 4, 64)), t_valid=700)
+    ea.encoder_attention(*attn_args((8, 700, 64)), pre_bh=True, t_valid=1)
+    ea.encoder_attention_packed(*attn_args((4, 700, 128)))
+    assert fake_card == ["ln_qkv", "encoder_attention", "encoder_attention", "encoder_attention"]
+    assert fe.LAUNCHES["ln_qkv"] == 1
+    assert ea.LAUNCHES == {"encoder_attention": 2, "encoder_attention_packed": 1}

@@ -17,11 +17,13 @@ does (its scores then take no scale); on the Whisper paths the scale is 1.
 Bound on the H100: tensor-core arithmetic, 4·B·H·T²·hd operations (184
 GFLOP a layer at large-v3-turbo batch 16, 0.186 ms at 989 TFLOP/s) against
 246 MB of q, k, v and output (0.073 ms). Design: one kernel reads all three
-layouts in place through a base offset and a row stride (no transpose, no
-padding of T); the TPU's pair packing into 128 lanes and its block-diagonal
-q exist for the MXU, and only the packed entry's layout is kept. The
-attention is the fused encoder's 16-row online-softmax tile
-(`csrc/attention_tile.cuh`), compiled for hd = 64 and bf16.
+layouts in place through one TMA tensor-map recipe (`tma_view`: no
+transpose, no padding of T); the TPU's pair packing into 128 lanes and its
+block-diagonal q exist for the MXU, and only the packed entry's layout is
+kept. A block takes 128 query rows of one head, two blocks an SM: one
+thread streams 64-key K/V tiles through a 4-stage TMA ring, two warpgroups
+compute S = Q·Kᵀ and P·V with wgmma and keep the online softmax in
+registers. Compiled for hd = 64 and bf16.
 """
 
 from __future__ import annotations
@@ -98,8 +100,33 @@ def encoder_attention_packed_plain(q, k, v, t_valid: int | None = None,
 
 # ---------------------------------------------------------------- kernels
 
-def _launch(name: str, device, q, k, v, t_valid: int, n_heads: int, inner: int,
-            stride_outer: int, stride_inner: int, ld: int, scale: float) -> torch.Tensor:
+def tma_view(layout: str, shape) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The kernel's tensor-map description of a layout of this shape:
+    (dims, strides), innermost first, of the 4-D tensor (hd, inner, T,
+    outer) that holds head n = (outer n // inner, inner n % inner) as T rows
+    of hd elements, with element strides (1, stride_inner, ld,
+    stride_outer). `layout` is "bthd" for (B, T, H, hd), "pre_bh" for
+    (B·H, T, hd) and "packed" for (B·H/2, T, 2·hd). A dimension of one
+    element takes the stride hd (the tensor map takes no stride 0). The
+    kernel reads (hd, 1, 128, 1) boxes of q and (hd, 1, 64, 1) boxes of k
+    and v; rows past T read as zeros."""
+    if layout == "bthd":
+        b, t, h, hd = shape
+        inner, outer, ld = h, b, h * hd
+    elif layout == "pre_bh":
+        outer, t, hd = shape
+        inner, ld = 1, hd
+    elif layout == "packed":
+        outer, t, d2 = shape
+        hd = d2 // 2
+        inner, ld = 2, d2
+    else:
+        raise ValueError(f"tma_view: unknown layout {layout!r}")
+    return (hd, inner, t, outer), (1, hd, ld, t * ld)
+
+
+def _launch(name: str, device, layout: str, q, k, v, t_valid: int,
+            scale: float) -> torch.Tensor:
     t = q.shape[1]
     for label, a in (("q", q), ("k", k), ("v", v)):
         _build.check(f"{name} {label}", a, torch.bfloat16, tuple(q.shape))
@@ -107,6 +134,8 @@ def _launch(name: str, device, q, k, v, t_valid: int, n_heads: int, inner: int,
             raise ValueError(f"{name}: {label} must start on a 16-byte boundary")
     if not 1 <= t_valid <= t:
         raise ValueError(f"{name}: t_valid={t_valid} outside [1, {t}]")
+    (_, inner, _, outer), (_, stride_inner, ld, stride_outer) = tma_view(layout, q.shape)
+    n_heads = inner * outer
     if n_heads > MAX_HEADS:
         raise ValueError(f"{name}: {n_heads} heads exceed the grid's {MAX_HEADS}")
     out = torch.empty_like(q)
@@ -130,15 +159,11 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != (3 if pre_bh else 4) or q.shape[-1] != HEAD_DIM:
         want = "(B·H, T, 64)" if pre_bh else "(B, T, H, 64)"
         raise ValueError(f"encoder_attention: expected {want}, got {tuple(q.shape)}")
-    t, d = q.shape[1], HEAD_DIM
-    eff = 1.0 / math.sqrt(d) if scale is None else scale
+    t = q.shape[1]
+    eff = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     t_valid = t if t_valid is None else t_valid
-    if pre_bh:
-        return _launch("encoder_attention", device, q, k, v, t_valid, q.shape[0], 1, t * d, 0,
-                       d, eff)
-    b, _, h, _ = q.shape
-    return _launch("encoder_attention", device, q, k, v, t_valid, b * h, h, t * h * d, d,
-                   h * d, eff)
+    return _launch("encoder_attention", device, "pre_bh" if pre_bh else "bthd", q, k, v,
+                   t_valid, eff)
 
 
 def encoder_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,10 +180,9 @@ def encoder_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 3 or q.shape[-1] != 2 * HEAD_DIM:
         raise ValueError(f"encoder_attention_packed: expected (B·H/2, T, 128), "
                          f"got {tuple(q.shape)}")
-    bg, t, d2 = q.shape
+    t = q.shape[1]
     eff = 1.0 / math.sqrt(HEAD_DIM) if scale is None else scale
     if eff != 1.0:  # q · 1 is q: the Whisper path skips the pass
         q = q * torch.tensor(eff, dtype=q.dtype, device=q.device)
     t_valid = t if t_valid is None else t_valid
-    return _launch("encoder_attention_packed", device, q, k, v, t_valid, 2 * bg, 2, t * d2,
-                   HEAD_DIM, d2, 1.0)
+    return _launch("encoder_attention_packed", device, "packed", q, k, v, t_valid, 1.0)

@@ -1,17 +1,20 @@
 """Fused Whisper encoder-block phases (bf16): LN + QKV, and attention +
-o-projection + residual + LN2, each one launch.
+o-projection + residual + LN2.
 
 Replaces the TPU kernels tpu_audio/ops/pallas/fused_encoder.py:ln_qkv_packed
-and tpu_audio/ops/pallas/fused_encoder.py:attn_oproj_ln with
-`csrc/fused_encoder.cu` (`ln_qkv`, `attn_oproj_ln`).
+with `csrc/ln_qkv.cu` and
+tpu_audio/ops/pallas/fused_encoder.py:attn_oproj_ln with
+`csrc/fused_encoder.cu`.
 
 Bound on the H100: tensor-core arithmetic — at large-v3-turbo batch 16 a
-block is ~500 GFLOP against ~0.25 GB of activations. Design: WMMA bf16
-fragments with f32 accumulation. `ln_qkv` normalizes 64 rows once into
-shared memory and streams the packed weight past them. `attn_oproj_ln`
-keeps the attention output out of device memory: per 16-row query tile it
-runs online-softmax attention head by head and adds each head's slice of
-the o-projection into a (16, D) f32 shared-memory accumulator (the TPU
+block is ~500 GFLOP against ~0.25 GB of activations. `ln_qkv` is two
+launches behind one call: a LayerNorm pass writes the normalized rows (bf16)
+to a scratch tensor, then a persistent TMA + wgmma GEMM (128 x 256 tiles,
+a 3-stage ring filled by a producer warp, two consumer warpgroups) adds the
+bias and writes q, k, v head-major. `attn_oproj_ln` keeps the attention output out
+of device memory: per 16-row query tile it runs online-softmax attention
+head by head (WMMA fragments) and adds each head's slice of the
+o-projection into a (16, D) f32 shared-memory accumulator (the TPU
 kernel's 256-row VMEM accumulator would not fit a block's 227 KB).
 
 Layout: the TPU kernels pair-pack two heads into 128 lanes for the MXU;
@@ -34,7 +37,7 @@ HEAD_DIM = 64           # attn_oproj_ln's kernel is compiled for hd = 64
 MASKED = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LN_QKV = _build.Kernel("tpa_ln_qkv", _P, _P, _P, _P, _P, _P, _P, _P,
+_LN_QKV = _build.Kernel("tpa_ln_qkv", _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _F)
 _ATTN = _build.Kernel("tpa_attn_oproj_ln", _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _I, _I, _I, _I, _F)
@@ -61,12 +64,20 @@ def pack_qkv_weights(attn: dict, n_heads: int, dtype: torch.dtype
 
 # ---------------------------------------------------------------- ln_qkv
 
+def ln_rows_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """The LayerNorm pass of `ln_qkv`: f32 statistics over the last axis,
+    f32 out (the kernel then rounds it to the weight's dtype)."""
+    d = x.shape[-1]
+    return F.layer_norm(x.float(), (d,), ln_w.float(), ln_b.float(), eps)
+
+
 def ln_qkv_plain(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                  w_qkv: torch.Tensor, b_qkv: torch.Tensor, n_heads: int,
                  eps: float = 1e-5):
     """Plain PyTorch version of `ln_qkv`."""
     b, t, d = x.shape
-    xn = F.layer_norm(x.float(), (d,), ln_w.float(), ln_b.float(), eps)
+    xn = ln_rows_plain(x, ln_w, ln_b, eps)
     y = (xn.to(w_qkv.dtype) @ w_qkv.T).float() + b_qkv
     y = y.to(x.dtype).reshape(b, t, 3, n_heads, d // n_heads)
     y = y.permute(2, 0, 3, 1, 4)
@@ -80,8 +91,8 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     projected by the packed weight (`pack_qkv_weights`), scale folded in.
 
     On CUDA: x and w_qkv bf16, ln_w, ln_b, b_qkv f32, all contiguous,
-    D a multiple of 128. A D whose block needs more shared memory than the
-    card gives raises from the entry point."""
+    D a multiple of 128. The normalized rows go through a (B·T, D) bf16
+    scratch tensor allocated here."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_w, ln_b, w_qkv, b_qkv, n_heads, eps)
     device = _build.require_cuda("ln_qkv", x, ln_w, ln_b, w_qkv, b_qkv)
@@ -95,11 +106,15 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     _build.check("ln_qkv ln_b", ln_b, torch.float32, (d,))
     _build.check("ln_qkv w_qkv", w_qkv, torch.bfloat16, (3 * d, d))
     _build.check("ln_qkv b_qkv", b_qkv, torch.float32, (3 * d,))
+    for name, a in (("x", x), ("ln_w", ln_w), ("ln_b", ln_b), ("w_qkv", w_qkv)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"ln_qkv: {name} must start on a 16-byte boundary")
     shape = (b, n_heads, t, d // n_heads)
     q, k, v = (torch.empty(shape, dtype=torch.bfloat16, device=device)
                for _ in range(3))
-    _LN_QKV(device, x, ln_w, ln_b, w_qkv, b_qkv, q, k, v, b, t, d, n_heads,
-            eps)
+    xn = torch.empty((b * t, d), dtype=torch.bfloat16, device=device)
+    _LN_QKV(device, x, ln_w, ln_b, w_qkv, b_qkv, xn, q, k, v, b, t, d,
+            n_heads, eps)
     LAUNCHES["ln_qkv"] += 1
     return q, k, v
 
