@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from `tpu_audio_torch/csrc/` with nvcc (one
      process per source, all at once); print the build's warnings and the
-     TMA + wgmma kernels' ptxas lines and HGMMA counts, and fail on a spill;
+     TMA + wgmma kernels' ptxas lines and wgmma (HGMMA, IGMMA) counts, and
+     fail on a spill;
   3. hold each kernel against its plain PyTorch version at the shapes of
      Whisper large-v3-turbo (batch-16 transcription for the mel, encoder
      and cross-attention kernels; the int8 decoder's and lm head's shapes
@@ -72,7 +73,10 @@ seven planted faults (a partial last row tile among them), the
 encoder-attention kernel (both entries, all three layouts) at batch 16 and
 B=1 and at t_valid 1, 1000 and 1500, with five faults (the last partial key
 tile dropped among them), the four W8A8 encoder-block kernels against
-their plain versions on block 0 of the w8a8 tree at batch 16, the q4/q8
+their plain versions on block 0 of the w8a8 tree at batch 16 (fc1 and fc2
+at B=1 too; fc1's codes and row scales judged themselves, with faults of
+its cluster exchange and tile edges planted; fc2's tail tile, last k stage
+and row scales), the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
 and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down),
 with planted faults on inputs where every term matters. Each kernel is
@@ -89,6 +93,9 @@ W4A8 kernels' part of phase 3, and phase 10. `python3 chip_smoke.py
 --encoder-only` runs phases 1, 2, the bf16 encoder kernels' part of phase 3
 (`ln_qkv`, `attn_oproj_ln`, encoder attention) and phase 9's fused against
 per-op encoder at batch 16: a short check of the TMA + wgmma kernels.
+`python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
+encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
+batch 16: a short check of `csrc/fused_encoder_int8.cu`.
 
 The second line from the end is a JSON object describing each kernel; the
 last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -519,19 +526,70 @@ def check_int8_encoder(model, randn, rows: list) -> None:
     def dequant(out):
         return out[0].float() * out[1]
 
-    def steps(got, ref):
+    def steps(got, ref, label="plain"):
         step = (got[0].int() - ref[0].int()).abs()
         share = (step > 0).float().mean().item()
-        log(f"fc1_gelu_int8 codes: {share:.3e} of them one step from plain, "
-            f"largest step {step.max().item()}")
-        if step.max().item() > 1 or share > 0.01:
-            raise AssertionError("fc1_gelu_int8: codes outside one step in 1 % of entries")
+        sg_rel = ((got[1] - ref[1]).abs() / torch.maximum(got[1].abs(), ref[1].abs())).max().item()
+        return (f"{share:.3e} of the codes one step from {label}, largest step "
+                f"{step.max().item()}, sg rel {sg_rel:.3e}",
+                step.max().item() <= 1 and share <= 0.01 and sg_rel <= 1e-5)
 
+    def held_codes(got, ref, what):
+        text, inside = steps(got, ref)
+        log(f"fc1_gelu_int8 {what}: {text}")
+        if not inside:
+            raise AssertionError(f"fc1_gelu_int8 {what}: codes outside one step in 1 % of "
+                                 "entries or sg outside rel 1e-5")
+
+    def fc1_faults(got, hb, b):
+        """Faults judged on the codes and sg (the steps limit, sg rel 1e-5), not
+        on codes x scale: a scale per slice of FF dequantises more closely."""
+        ref = fe8.fc1_gelu_int8_plain(hb, w1, cs1, bias1)
+        rows_m = ref[0].shape[0] * ref[0].shape[1]
+        split = fe8.fc1_split(ff)[1]
+
+        def per_slice():  # each block's FF / C columns by their own row max
+            hq, sh = fe8.quant_rows_plain(hb)
+            act = fe8._gelu(fe8._s8_product(hq, w1).reshape(ref[0].shape) * sh.reshape(
+                ref[1].shape) * cs1.reshape(-1) + bias1)
+            parts = [fe8.quantize_rows(a) for a in act.chunk(split, dim=-1)]
+            return torch.cat([p[0] for p in parts], dim=-1), parts[0][1]
+
+        def unwritten_tail():  # the last partial 128-row tile never stored
+            codes, sg = (a.clone().reshape(rows_m, -1) for a in ref)
+            codes[rows_m // 128 * 128:] = 0
+            sg[rows_m // 128 * 128:] = 0
+            return codes.reshape(ref[0].shape), sg.reshape(ref[1].shape)
+
+        def shifted_scales():  # the scales of the first tile's rows one row down
+            sg = ref[1].clone().reshape(-1)
+            sg[:128] = sg[:128].roll(1)
+            return ref[0], sg.reshape(ref[1].shape)
+
+        for label, fault in (("each FF/C slice quantised by its own row max", per_slice),
+                             ("the last partial row tile left unwritten", unwritten_tail),
+                             ("the first tile's scales shifted by a row", shifted_scales)):
+            text, inside = steps(got, fault(), "the fault")
+            if inside:
+                raise AssertionError(f"fc1_gelu_int8 batch {b}: the check cannot see {label} "
+                                     f"({text})")
+            log(f"control fc1_gelu_int8 batch {b}, {label}: {text}: outside the limit")
+
+    log(f"fc1_gelu_int8: {fe8.fc1_split(ff)[1]} blocks a cluster, "
+        f"cudaOccupancyMaxActiveClusters {fe8.fc1_active_clusters(d, ff, w1.device)}")
     g8 = fe8.fc1_gelu_int8(hn, w1, cs1, bias1)
     ref = fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias1)
     err = compare(f"fc1_gelu_int8 codes x scale (16, {t}, {ff})", dequant(g8), dequant(ref),
                   rel=2e-2)
-    steps(g8, ref)
+    held_codes(g8, ref, "batch 16")
+    fc1_faults(g8, hn, BATCH)
+    one = fe8.fc1_gelu_int8(hn[:1], w1, cs1, bias1)
+    ref1 = fe8.fc1_gelu_int8_plain(hn[:1], w1, cs1, bias1)
+    err = max(err, compare(f"fc1_gelu_int8 codes x scale (1, {t}, {ff}), a partial last "
+                           "row tile", dequant(one), dequant(ref1), rel=2e-2))
+    held_codes(one, ref1, "batch 1")
+    fc1_faults(one, hn[:1], 1)
+    del ref, ref1, one
     ms, pms = timed_pair(lambda: fe8.fc1_gelu_int8(hn, w1, cs1, bias1),
                          lambda: fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias1), 10)
     rows.append(kernel_row("fc1_gelu_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
@@ -546,7 +604,7 @@ def check_int8_encoder(model, randn, rows: list) -> None:
     big = fe8.fc1_gelu_int8(hn, w1, cs1, bias_big)
     err = max(err, compare("fc1_gelu_int8 codes x scale, bias as large as the product",
                            dequant(big), fc1_plain()[0], rel=2e-2))
-    steps(big, fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias_big))
+    held_codes(big, fe8.fc1_gelu_int8_plain(hn, w1, cs1, bias_big), "bias as large as the product")
     planted_faults("fc1_gelu_int8", (dequant(big),), [
         ("GELU dropped", faulty(fe8, "_gelu", lambda a: a, fc1_plain)),
         ("the bias dropped", lambda: fc1_plain(torch.zeros_like(bias_big))),
@@ -559,14 +617,31 @@ def check_int8_encoder(model, randn, rows: list) -> None:
 
     out = fe8.fc2_residual_int8(*g8, y, w2, cs2, bias2)
     err = compare(f"fc2_residual_int8 {shape} bf16", out, fc2_plain(), rel=2e-2)
-    ys = randn(BATCH, t, d, dtype=torch.bfloat16, scale=0.3)
-    small = fe8.fc2_residual_int8(*big, ys, w2, cs2, bias2)
-    err = max(err, compare("fc2_residual_int8, a residual as small as the product", small,
-                           fc2_plain(*big, ys), rel=2e-2))
-    planted_faults("fc2_residual_int8", (small,), [
-        ("the residual dropped", lambda: (fc2_plain(*big, torch.zeros_like(ys)),)),
-        ("sg ignored", lambda: (fc2_plain(big[0], torch.ones_like(big[1]), ys),)),
-    ], rel=2e-2)
+    # faults on fc1's codes with row scales drawn over a decade, so each row's
+    # scale matters, and a residual as small as the product
+    for b in (BATCH, 1):
+        gq = big[0][:b]
+        sgv = (big[1][:b] * torch.exp(randn(b, t, 1, scale=0.5))).contiguous()
+        ys = randn(b, t, d, dtype=torch.bfloat16, scale=0.3)
+        small = fe8.fc2_residual_int8(gq, sgv, ys, w2, cs2, bias2)
+        err = max(err, compare(f"fc2_residual_int8 ({b}, {t}, {d}), a residual as small as "
+                               "the product", small, fc2_plain(gq, sgv, ys), rel=2e-2))
+
+        def unwritten_tail(gq=gq, sgv=sgv, ys=ys):
+            ref = fc2_plain(gq, sgv, ys).clone().reshape(b * t, d)
+            ref[b * t // 128 * 128:] = 0
+            return (ref.reshape(b, t, d),)
+
+        last_stage = gq.clone()
+        last_stage[..., -128:] = 0
+        planted_faults(f"fc2_residual_int8 batch {b}", (small,), [
+            ("the residual dropped", lambda: (fc2_plain(gq, sgv, torch.zeros_like(ys)),)),
+            ("sg ignored", lambda: (fc2_plain(gq, torch.ones_like(sgv), ys),)),
+            ("the last partial row tile left unwritten", unwritten_tail),
+            ("the last 128-deep k stage dropped", lambda: (fc2_plain(last_stage, sgv, ys),)),
+            ("each row given the next row's sg",
+             lambda: (fc2_plain(gq, sgv.roll(-1, dims=1), ys),)),
+        ], rel=2e-2)
     ms, pms = timed_pair(lambda: fe8.fc2_residual_int8(*g8, y, w2, cs2, bias2), fc2_plain, 10)
     rows.append(kernel_row("fc2_residual_int8", "tpu_audio_torch/csrc/fused_encoder_int8.cu",
                            "tpu_audio/ops/pallas/fused_encoder.py:561", err, ms, pms,
@@ -1090,31 +1165,27 @@ def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> float:
     return wall
 
 
-def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dict:
-    """Phase 7: bench.py's "full w8a8" row at batch 16 and its
-    "single-stream w8a8" row, on the full w8a8 tree; returns the launch
-    counts of the batch-16 run."""
-    from tpu_audio_torch.api.stt import WhisperEngine
-    from tpu_audio_torch.models.whisper import batch as wbatch
-    from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, WhisperPipeline, _pad_frames
-    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
-    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+def w8a8_encoder_ab(model, model_bf16, clips, dev, card: str):
+    """The int8 and bf16 fused encoders alone on phase 4's 16 windows, by
+    CUDA events in the order int8, bf16, bf16, int8, and their features'
+    cosine (> 0.999). Returns the windows' mel and the launches of one
+    int8 encode (n_audio_layer of each W8A8 kernel)."""
     from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
-    from tpu_audio_torch.ops.kernels import fused_mel
-    from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
-    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 
     cfg = model.cfg
-    mods = (fused_mel, fe, fe8, ckv, i8mm, fws)
-
-    # 1. the encoders alone on phase 4's 16 windows, by CUDA events
     mel16 = batch_mels(clips, cfg.n_mels, dev)
 
     def encode(m):
         with torch.inference_mode():
             return m.encode(mel16)
 
-    feats_i8, feats_bf16 = encode(model), encode(model_bf16)  # warm-up, and the features
+    reset(fe8)
+    feats_i8 = encode(model)  # warm-up, and the features
+    launches = launch_counts(fe8)
+    feats_bf16 = encode(model_bf16)
+    if any(n != cfg.n_audio_layer for n in launches.values()):
+        raise AssertionError(f"w8a8 encoder: expected {cfg.n_audio_layer} launches of each "
+                             f"int8 encoder kernel: {launches}")
     times = {"int8": [], "bf16": []}
     for label in ("int8", "bf16", "bf16", "int8"):
         times[label].append(events_ms(lambda: encode(model if label == "int8" else model_bf16)))
@@ -1136,7 +1207,29 @@ def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dic
     log(f"w8a8 encoder features against bf16 (16, {t}, {d}): cosine {cos:.6f}, rel {e:.3e}")
     if not cos > 0.999:
         raise AssertionError("the int8 encoder's features are not within cosine 0.999 of bf16")
-    del feats_i8, feats_bf16
+    return mel16, launches
+
+
+def full_w8a8(model, model_bf16, tok, clips, dev, walls: dict, card: str) -> dict:
+    """Phase 7: bench.py's "full w8a8" row at batch 16 and its
+    "single-stream w8a8" row, on the full w8a8 tree; returns the launch
+    counts of the batch-16 run."""
+    from tpu_audio_torch.api.stt import WhisperEngine
+    from tpu_audio_torch.models.whisper import batch as wbatch
+    from tpu_audio_torch.models.whisper.pipeline import N_FRAMES, WhisperPipeline, _pad_frames
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+    from tpu_audio_torch.ops.kernels import fused_mel
+    from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+
+    cfg = model.cfg
+    mods = (fused_mel, fe, fe8, ckv, i8mm, fws)
+    lyr = cfg.n_audio_layer
+
+    # 1. the encoders alone on phase 4's 16 windows, by CUDA events
+    mel16, _ = w8a8_encoder_ab(model, model_bf16, clips, dev, card)
 
     # 2. transcribe_windows at batch 16
     reset(*mods)
@@ -2317,16 +2410,19 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     return total
 
 
-# the TMA + wgmma kernels of csrc/ (hopper.cuh), and whether each issues wgmma
+# the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
+# them, and whether each issues wgmma
 HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
-                  "encoder_attention_kernel": True}
+                  "encoder_attention_kernel": True, "quant_rows_kernel": False,
+                  "fc1_gemm_kernel": True, "fc2_gemm_kernel": True}
 
 
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
-    present, its count of HGMMA (wgmma) instructions. Raises on a spill, or on a wgmma kernel that
-    holds no HGMMA."""
+    present, its count of wgmma instructions (HGMMA for bf16, IGMMA for
+    s8 in the SASS). Raises on a spill in any instantiation, or on a wgmma
+    kernel that holds none."""
     info, name = {}, None
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
@@ -2349,20 +2445,22 @@ def hopper_report(lib_path: Path) -> None:
             if found:
                 fn = found.group(1)
                 hgmma[fn] = 0
-            elif fn and "HGMMA" in line:
+            elif fn and re.search(r"\b[HIQ]GMMA", line):
                 hgmma[fn] += 1
     for short, wgmma in HOPPER_KERNELS.items():
         names = [n for n in info if short in n]
         if not names:
             raise AssertionError(f"ptxas reported no kernel {short}")
-        lines = "; ".join(info[names[0]])
-        count = None if hgmma is None else sum(c for n, c in hgmma.items() if short in n)
-        log(f"ptxas {short}: {lines}; HGMMA instructions: "
-            + ("not counted (no cuobjdump)" if count is None else str(count)))
-        if "0 bytes spill stores, 0 bytes spill loads" not in lines:
-            raise AssertionError(f"{short} spills: {lines}")
-        if wgmma and count == 0:
-            raise AssertionError(f"{short} holds no HGMMA instruction")
+        for name in names:
+            lines = "; ".join(info[name])
+            count = None if hgmma is None else sum(c for n, c in hgmma.items() if name in n)
+            log(f"ptxas {short}" + (f" ({name})" if len(names) > 1 else "") + f": {lines}; "
+                "wgmma (HGMMA/IGMMA) instructions: "
+                + ("not counted (no cuobjdump)" if count is None else str(count)))
+            if "0 bytes spill stores, 0 bytes spill loads" not in lines:
+                raise AssertionError(f"{name} spills: {lines}")
+            if wgmma and count == 0:
+                raise AssertionError(f"{name} holds no wgmma instruction")
 
 
 def randn_on(dev):
@@ -2449,6 +2547,13 @@ def main() -> None:
         check_encoder_attention(cfg, randn, rows)
         counts = encoder_ab(model, clips, dev, card)
         print_result(rows, {name: n for c in counts.values() for name, n in c.items() if n})
+        return
+    if "--w8a8-only" in sys.argv[1:]:  # phases 1, 2, the W8A8 kernels' part of 3, 7's A/B
+        model_w8a8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params))
+        del params
+        rows = []
+        check_int8_encoder(model_w8a8, randn_on(dev), rows)
+        print_result(rows, w8a8_encoder_ab(model_w8a8, model, clips, dev, card)[1])
         return
     # the mlx group-affine trees of the published quantised checkpoints
     model_q4 = wmodel.Whisper(cfg, quant.quantize_tree(params, bits=4))

@@ -1,5 +1,6 @@
 """PyTorch port, the Python side of the TMA + wgmma kernels of
-`tpu_audio_torch/csrc/` (`ln_qkv.cu`, `encoder_attention.cu`) on the CPU:
+`tpu_audio_torch/csrc/` (`ln_qkv.cu`, `encoder_attention.cu`,
+`fused_encoder_int8.cu`'s fc1 and fc2) on the CPU:
 
 - `encoder_attention.tma_view`, the tensor-map description of each
   attention layout, read the way the TMA unit reads it ((64, 1, 128, 1)
@@ -9,6 +10,9 @@
   through `torch.as_strided`;
 - `ln_rows_plain`, `ln_qkv`'s LayerNorm pass, against the JAX kernel's
   `_ln_f32` at f32;
+- `quant_rows_plain`, `fc1_gelu_int8`'s row-quantisation pass, against the
+  JAX kernels' `_quant_rows` bit for bit (an all-zero row, exact ties);
+- `fc1_split`, fc1's cluster split of FF, takes every Whisper width;
 - the wrappers refuse the shapes they refuse without launching anything.
 """
 
@@ -18,9 +22,11 @@ import pytest
 import torch
 
 from tpu_audio.ops.pallas import fused_encoder as jfe
+from tpu_audio_torch.models.whisper.config import PRESETS
 from tpu_audio_torch.ops.kernels import _build
 from tpu_audio_torch.ops.kernels import encoder_attention as ea
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
 
 B, H, HD = 2, 4, 64
 
@@ -116,6 +122,48 @@ def test_ln_rows_plain_matches_jax_ln_f32(rng, d, offset):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+def quant_rows_input(rng, rows: int, d: int) -> np.ndarray:
+    """Seeded rows of bf16 values (as f32) with an offset of their own, an
+    all-zero row (scale 1e-10), and two rows whose values land on exact
+    ties: max 127 (scale 1) with ±k.5 entries, and max 63.5 (scale 0.5)
+    with ±k.25 entries, which round half to even."""
+    x = rng.standard_normal((rows, d)) * rng.uniform(0.1, 10, (rows, 1))
+    x = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).float().numpy()
+    x[1] = 0.0
+    ties = rng.integers(-60, 60, d) + 0.5
+    x[2] = ties
+    x[2, 0] = 127.0
+    x[3] = ties / 2
+    x[3, 0] = 63.5
+    return x
+
+
+@pytest.mark.parametrize("rows", [5, 37])
+def test_quant_rows_plain_matches_jax_quant_rows(rng, rows):
+    """fc1's row-quantisation pass (its plain half) against the JAX
+    kernels' `_quant_rows`, bit for bit, at D = 1280."""
+    x = quant_rows_input(rng, rows, 1280)
+    codes, scales = fe8.quant_rows_plain(torch.from_numpy(x).to(torch.bfloat16).reshape(1, rows, -1))
+    jcodes, jscales = jfe._quant_rows(jnp.asarray(x))
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(jscales).reshape(-1))
+    assert scales[1].item() == np.float32(1e-10) and not codes[1].any()
+    assert scales[2].item() == 1.0 and scales[3].item() == 0.5
+    np.testing.assert_array_equal(codes[2, 1:].numpy(), np.round(x[2, 1:]))  # half to even
+    np.testing.assert_array_equal(codes[3, 1:].numpy(), np.round(2 * x[3, 1:]))
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_fc1_split_takes_every_whisper_width(preset):
+    """Each Whisper width's FF = 4 D splits into clusters of at most 16
+    blocks of 2 × 160 or 2 × 128 columns, and D is a multiple of 128."""
+    d = PRESETS[preset].n_audio_state
+    nw, blocks = fe8.fc1_split(4 * d)
+    assert d % 128 == 0 and blocks * 2 * nw == 4 * d and blocks <= fe8.CLUSTER_MAX
+    assert nw == (160 if 4 * d == 5120 else 128)
+
+
 def meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -128,6 +176,17 @@ def ln_qkv_args(d=1280, heads=20, x_shape=None, x_dtype=torch.bfloat16, w_rows=N
 
 def attn_args(shape, k_shape=None):
     return meta(*shape), meta(*(k_shape or shape)), meta(*shape)
+
+
+def fc1_args(d=1280, ff=5120):
+    return (meta(2, 1500, d), meta(ff, d, dtype=torch.int8), meta(ff, dtype=torch.float32),
+            meta(ff, dtype=torch.float32))
+
+
+def fc2_args(d=1280, ff=5120):
+    return (meta(2, 1500, ff, dtype=torch.int8), meta(2, 1500, 1, dtype=torch.float32),
+            meta(2, 1500, d), meta(d, ff, dtype=torch.int8), meta(d, dtype=torch.float32),
+            meta(d, dtype=torch.float32))
 
 
 REFUSED = {
@@ -149,6 +208,14 @@ REFUSED = {
         *attn_args((2, 700, 4, 64)), t_valid=701),
     "encoder_attention k of another shape": lambda: ea.encoder_attention(
         *attn_args((2, 700, 4, 64), k_shape=(2, 600, 4, 64))),
+    "fc1_gelu_int8 FF not a multiple of the cluster's split": lambda: fe8.fc1_gelu_int8(
+        *fc1_args(ff=5000)),
+    "fc1_gelu_int8 FF past 16 blocks a cluster": lambda: fe8.fc1_gelu_int8(*fc1_args(ff=5376)),
+    "fc1_gelu_int8 D not a multiple of 128": lambda: fe8.fc1_gelu_int8(*fc1_args(d=1000)),
+    "fc2_residual_int8 D not a multiple of 128": lambda: fe8.fc2_residual_int8(
+        *fc2_args(d=1000)),
+    "fc2_residual_int8 FF not a multiple of 128": lambda: fe8.fc2_residual_int8(
+        *fc2_args(ff=5000)),
 }
 
 
@@ -160,16 +227,18 @@ def fake_card(monkeypatch):
     calls = []
     monkeypatch.setattr(fe, "_LN_QKV", lambda *a: calls.append("ln_qkv"))
     monkeypatch.setattr(ea, "_KERNEL", lambda *a: calls.append("encoder_attention"))
+    monkeypatch.setattr(fe8, "_FC1", lambda *a: calls.append("fc1_gelu_int8"))
+    monkeypatch.setattr(fe8, "_FC2", lambda *a: calls.append("fc2_residual_int8"))
     return calls
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_wrappers_refuse_without_launching(fake_card, case):
-    before = {**fe.LAUNCHES, **ea.LAUNCHES}
+    before = {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES}
     with pytest.raises(ValueError):
         REFUSED[case]()
     assert fake_card == []
-    assert {**fe.LAUNCHES, **ea.LAUNCHES} == before
+    assert {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES} == before
 
 
 def test_wrappers_launch_what_they_accept(fake_card, monkeypatch):
@@ -185,3 +254,19 @@ def test_wrappers_launch_what_they_accept(fake_card, monkeypatch):
     assert fake_card == ["ln_qkv", "encoder_attention", "encoder_attention", "encoder_attention"]
     assert fe.LAUNCHES["ln_qkv"] == 1
     assert ea.LAUNCHES == {"encoder_attention": 2, "encoder_attention_packed": 1}
+
+
+@pytest.mark.parametrize("d,ff", [(1280, 5120), (1024, 4096), (384, 1536)])
+def test_fc_wrappers_launch_what_they_accept(fake_card, monkeypatch, d, ff):
+    """The control of the fc1/fc2 refusals above: accepted shapes (large,
+    medium and tiny Whisper widths) reach `_FC1` and `_FC2` once each and
+    count one launch each; fc1 returns its codes and row scales."""
+    monkeypatch.setattr(fe8, "LAUNCHES", dict.fromkeys(fe8.LAUNCHES, 0))
+    codes, sg = fe8.fc1_gelu_int8(*fc1_args(d, ff))
+    assert tuple(codes.shape) == (2, 1500, ff) and codes.dtype == torch.int8
+    assert tuple(sg.shape) == (2, 1500, 1) and sg.dtype == torch.float32
+    out = fe8.fc2_residual_int8(*fc2_args(d, ff))
+    assert tuple(out.shape) == (2, 1500, d) and out.dtype == torch.bfloat16
+    assert fake_card == ["fc1_gelu_int8", "fc2_residual_int8"]
+    assert fe8.LAUNCHES == {"ln_qkv_int8": 0, "attn_oproj_ln_int8": 0, "fc1_gelu_int8": 1,
+                            "fc2_residual_int8": 1}

@@ -231,9 +231,9 @@ extern "C" int tpa_encoder_attention(const bf16* q, const bf16* k, const bf16* v
                                static_cast<uint64_t>(stride_outer)};
   const uint32_t box[4] = {ea::HD, 1, ea::BKV, 1}, qbox[4] = {ea::HD, 1, ea::BQ, 1};
   CUtensorMap mq, mk, mv;
-  cudaError_t err = hp::encode_bf16_map(&mq, q, 4, dims, strides, qbox);
-  if (err == cudaSuccess) err = hp::encode_bf16_map(&mk, k, 4, dims, strides, box);
-  if (err == cudaSuccess) err = hp::encode_bf16_map(&mv, v, 4, dims, strides, box);
+  cudaError_t err = hp::encode_map(&mq, hp::kBf16, q, 4, dims, strides, qbox);
+  if (err == cudaSuccess) err = hp::encode_map(&mk, hp::kBf16, k, 4, dims, strides, box);
+  if (err == cudaSuccess) err = hp::encode_map(&mv, hp::kBf16, v, 4, dims, strides, box);
   if (err == cudaSuccess) err = tpa::allow_smem(encoder_attention_kernel, ea::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + ea::BQ - 1) / ea::BQ, n_heads);

@@ -106,10 +106,6 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
   }
 }
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // + bias, bf16, head-major: one warpgroup's 64 rows of the (m0, n0) tile,
 // staged through its rows of `cst`.
 __device__ __forceinline__ void store_tile(const float (&acc)[128], bf16* cst,
@@ -130,7 +126,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[128], bf16* cst,
     *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) =
         hp::pack_bf16(acc[4 * j + 2] + bb.x, acc[4 * j + 3] + bb.y);
   }
-  named_barrier(1 + wg, 128);
+  hp::named_barrier(1 + wg, 128);
 
   // each head's slice of a row is contiguous in q, k or v: 16-byte stores.
   // A thread keeps one 8-column chunk and walks every 4th row.
@@ -156,7 +152,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[128], bf16* cst,
       }
     }
   }
-  named_barrier(1 + wg, 128);  // the rows are read before the next tile writes them
+  hp::named_barrier(1 + wg, 128);  // the rows are read before the next tile writes them
 }
 
 // Persistent: block i takes output tiles i, i + gridDim.x, ..., the N tiles
@@ -253,8 +249,8 @@ extern "C" int tpa_ln_qkv(const bf16* x, const float* ln_w, const float* ln_b, c
   const uint64_t dims_b[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(3 * D)};
   const uint64_t strides[1] = {static_cast<uint64_t>(D)};
   const uint32_t box_a[2] = {lq::BK, lq::BM}, box_b[2] = {lq::BK, lq::BN};
-  err = hp::encode_bf16_map(&map_a, xn, 2, dims_a, strides, box_a);
-  if (err == cudaSuccess) err = hp::encode_bf16_map(&map_b, w, 2, dims_b, strides, box_b);
+  err = hp::encode_map(&map_a, hp::kBf16, xn, 2, dims_a, strides, box_a);
+  if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kBf16, w, 2, dims_b, strides, box_b);
   if (err == cudaSuccess) err = tpa::allow_smem(qkv_gemm_kernel, lq::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;

@@ -1,6 +1,6 @@
 """The W8A8 Whisper encoder block: LN + QKV, attention + o-projection +
-residual + LN2, fc1 + GELU, fc2 + residual, each one launch, with int8
-weights and activation rows quantised inside the kernels.
+residual + LN2, fc1 + GELU, fc2 + residual, with int8 weights and
+activation rows quantised inside the kernels.
 
 Replaces the TPU kernels tpu_audio/ops/pallas/fused_encoder.py:
 ln_qkv_packed_int8, attn_oproj_ln_int8, fc1_gelu_int8 and
@@ -8,10 +8,17 @@ fc2_residual_int8 with `csrc/fused_encoder_int8.cu`.
 
 Bound on the H100: tensor-core operations — at large-v3-turbo batch 16 a
 block is ~944 G int8 ops and 184 GFLOP of bf16 attention against ~1 GB of
-activations. Design: mma.sync s8 fragments with exact int32 sums; the
-attention is the bf16 kernel's (shared through `csrc/attention_tile.cuh`);
-each kernel keeps what the next quantisation needs in shared memory: the
-LayerNorm rows, a head pair's f32 output, eight rows of post-GELU f32.
+activations. Design: exact int32 sums on the tensor cores; `ln_qkv_int8`
+and `attn_oproj_ln_int8` use mma.sync s8 fragments (the attention is the
+bf16 kernel's, shared through `csrc/attention_tile.cuh`); `fc1_gelu_int8`
+and `fc2_residual_int8` are TMA + s8 wgmma GEMMs (`csrc/hopper.cuh`).
+`fc2_residual_int8` is one persistent GEMM. `fc1_gelu_int8` is two
+launches: a row-quantisation pass writes h's int8 codes (M, D) and row
+scales (M) into scratch that the wrapper allocates with `torch.empty`
+(`quant_rows_plain` is its plain version), then a GEMM whose thread-block
+clusters split FF (`fc1_split`) and exchange each row's partial |max|
+through distributed shared memory, so a row is requantised over all FF
+values without leaving the chip.
 
 Quantisation, as the TPU kernels: every activation row is quantised by
 `int8_matmul.quantize_rows` (max|row| / 127, round half to even); the
@@ -45,7 +52,9 @@ _LN_QKV = _build.Kernel("tpa_ln_qkv_int8", _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _F)
 _ATTN = _build.Kernel("tpa_attn_oproj_ln_int8", _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _I, _I, _I, _I, _F)
-_FC1 = _build.Kernel("tpa_fc1_gelu_int8", _P, _P, _P, _P, _P, _P, _I, _I, _I)
+_FC1 = _build.Kernel("tpa_fc1_gelu_int8", _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I)
+_FC1_CLUSTERS = _build.Kernel("tpa_fc1_gelu_int8_clusters", _P, _I, _I)
 _FC2 = _build.Kernel("tpa_fc2_residual_int8", _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I)
 
@@ -207,11 +216,39 @@ def attn_oproj_ln_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ----------------------------------------------------------- fc1_gelu_int8
 
+def quant_rows_plain(h):
+    """Plain PyTorch version of fc1's row-quantisation pass: h (B, T, D) →
+    (codes (B·T, D) int8, scales (B·T,) f32)."""
+    hq, sh = quantize_rows(h.float().reshape(-1, h.shape[-1]))
+    return hq, sh.reshape(-1)
+
+
 def fc1_gelu_int8_plain(h, w_i8, cs, bias):
     """Plain PyTorch version of `fc1_gelu_int8`."""
     hq, sh = quantize_rows(h.float())
     a = _s8_product(hq, w_i8) * sh * cs.reshape(-1) + bias.float()
     return quantize_rows(_gelu(a))
+
+
+CLUSTER_MAX = 16   # blocks a cluster (non-portable past 8)
+
+
+def fc1_split(ff: int) -> tuple[int, int] | None:
+    """(columns a warpgroup, blocks a cluster) of fc1's GEMM for FF: a
+    block takes 2 × 160 (or 2 × 128) of a row tile's FF columns, and the
+    blocks of one cluster cover all FF; None where no split fits."""
+    for nw in (160, 128):
+        if ff % (2 * nw) == 0 and ff // (2 * nw) <= CLUSTER_MAX:
+            return nw, ff // (2 * nw)
+    return None
+
+
+def fc1_active_clusters(d: int, ff: int, device) -> int:
+    """How many of fc1's clusters the card runs at once
+    (`cudaOccupancyMaxActiveClusters`)."""
+    out = torch.zeros(1, dtype=torch.int32)
+    _FC1_CLUSTERS(torch.device(device), out, d, ff)
+    return int(out.item())
 
 
 def fc1_gelu_int8(h: torch.Tensor, w_i8: torch.Tensor, cs: torch.Tensor,
@@ -220,8 +257,9 @@ def fc1_gelu_int8(h: torch.Tensor, w_i8: torch.Tensor, cs: torch.Tensor,
     gelu(quantised h · w_i8ᵀ · row scale · cs + bias), the GELU's output
     quantised per row over all FF values: the next GEMM's activations.
 
-    On CUDA: h bf16; w_i8 (FF, D) int8; cs, bias f32; all contiguous; D and
-    FF multiples of 128."""
+    On CUDA: h bf16; w_i8 (FF, D) int8; cs, bias f32; all contiguous; D a
+    multiple of 128 and FF one that `fc1_split` takes (320 · C or 256 · C,
+    C ≤ 16: every Whisper width)."""
     if h.device.type == "cpu":
         return fc1_gelu_int8_plain(h, w_i8, cs, bias)
     device = _build.require_cuda("fc1_gelu_int8", h, w_i8, cs, bias)
@@ -230,15 +268,18 @@ def fc1_gelu_int8(h: torch.Tensor, w_i8: torch.Tensor, cs: torch.Tensor,
                          f"got {tuple(h.shape)} and {tuple(w_i8.shape)}")
     b, t, d = h.shape
     ff = w_i8.shape[0]
-    if d % 128 or ff % 128:
-        raise ValueError(f"fc1_gelu_int8: unsupported D={d} or FF={ff}")
+    if d % 128 or fc1_split(ff) is None:
+        raise ValueError(f"fc1_gelu_int8: unsupported D={d} or FF={ff} (D a multiple "
+                         f"of 128, FF 320·C or 256·C with C ≤ {CLUSTER_MAX})")
     _build.check("fc1_gelu_int8 h", h, torch.bfloat16, (b, t, d))
     _build.check("fc1_gelu_int8 w_i8", w_i8, torch.int8, (ff, d))
     _scales("fc1_gelu_int8 cs", cs, ff)
     _build.check("fc1_gelu_int8 bias", bias, torch.float32, (ff,))
+    hq = torch.empty((b * t, d), dtype=torch.int8, device=device)     # scratch
+    sh = torch.empty((b * t,), dtype=torch.float32, device=device)    # scratch
     codes = torch.empty((b, t, ff), dtype=torch.int8, device=device)
     sg = torch.empty((b, t, 1), dtype=torch.float32, device=device)
-    _FC1(device, h, w_i8, cs, bias, codes, sg, b * t, d, ff)
+    _FC1(device, h, w_i8, cs, bias, hq, sh, codes, sg, b * t, d, ff)
     LAUNCHES["fc1_gelu_int8"] += 1
     return codes, sg
 
