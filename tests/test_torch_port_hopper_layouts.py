@@ -1,6 +1,6 @@
 """PyTorch port, the Python side of the TMA + wgmma kernels of
 `tpu_audio_torch/csrc/` (`ln_qkv.cu`, `encoder_attention.cu`,
-`fused_encoder_int8.cu`'s fc1 and fc2) on the CPU:
+`fused_encoder_int8.cu`) on the CPU:
 
 - `encoder_attention.tma_view`, the tensor-map description of each
   attention layout, read the way the TMA unit reads it ((64, 1, 128, 1)
@@ -12,8 +12,18 @@
   `_ln_f32` at f32;
 - `quant_rows_plain`, `fc1_gelu_int8`'s row-quantisation pass, against the
   JAX kernels' `_quant_rows` bit for bit (an all-zero row, exact ties);
-- `fc1_split`, fc1's cluster split of FF, takes every Whisper width;
-- the wrappers refuse the shapes they refuse without launching anything.
+- `ln_quant_rows_plain`, `ln_qkv_int8`'s first pass, against the JAX
+  `_ln_f32` + `_quant_rows`: the codes bit for bit, the scales within an
+  f32 ulp or two (the two frameworks sum a row in another order);
+- `pair_codes_plain`, `attn_oproj_ln_int8`'s first pass, against the JAX
+  `_quant_rows` of each head pair of the same attention output, bit for
+  bit, keys past t_valid masked; `oproj_ln_int8_plain`, its second pass,
+  against the TPU kernel's accumulation written in JAX: y bit for bit, h
+  to the last bits of the LayerNorm;
+- `fc1_split` and `oproj_split`, the cluster splits of FF and of D, take
+  every Whisper width;
+- the wrappers refuse the shapes they refuse without launching anything,
+  and launch what they accept with the scratch of their two passes.
 """
 
 import jax.numpy as jnp
@@ -154,6 +164,95 @@ def test_quant_rows_plain_matches_jax_quant_rows(rng, rows):
     np.testing.assert_array_equal(codes[3, 1:].numpy(), np.round(2 * x[3, 1:]))
 
 
+@pytest.mark.parametrize("d,rows", [(256, 37), (1280, 5)])
+def test_ln_quant_rows_plain_matches_jax_ln_and_quant_rows(rng, d, rows):
+    """ln_qkv_int8's LayerNorm + row-quantisation pass against the JAX
+    kernel's `_quant_rows(_ln_f32(x))` on rows offset from zero: the codes
+    bit for bit, the scales within rel 1e-6 (the LayerNorm's sums are taken
+    in another order by each framework, a last bit of a row's |max|)."""
+    x = rng.standard_normal((1, rows, d)) * 2 + rng.standard_normal((1, rows, 1)) * 3
+    x = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    g = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.5 * rng.standard_normal(d)).astype(np.float32)
+    codes, scales = fe8.ln_quant_rows_plain(x, torch.from_numpy(g), torch.from_numpy(b))
+    jcodes, jscales = jfe._quant_rows(jfe._ln_f32(jnp.asarray(x.float().numpy()[0]),
+                                                  jnp.asarray(g), jnp.asarray(b), 1e-5))
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (rows, d)
+    assert scales.dtype == torch.float32 and tuple(scales.shape) == (rows,)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_allclose(scales.numpy(), np.asarray(jscales).reshape(-1), rtol=1e-6, atol=0)
+
+
+def attention_inputs(rng, b: int, t: int, heads: int = H):
+    return [torch.from_numpy((rng.standard_normal((b, heads, t, HD)) * s).astype(np.float32))
+            for s in (0.5, 0.5, 1.0)]
+
+
+@pytest.mark.parametrize("t,t_valid", [(40, 25), (130, 130)])
+def test_pair_codes_plain_matches_jax_quant_rows(rng, t, t_valid):
+    """attn_oproj_ln_int8's first pass: the attention output of each head
+    pair (heads 2g, 2g + 1 side by side, columns [128 g, 128 g + 128)) coded
+    by the JAX `_quant_rows`, bit for bit; keys past t_valid change
+    nothing."""
+    q, k, v = attention_inputs(rng, 2, t)
+    codes, scales = fe8.pair_codes_plain(q, k, v, t_valid)
+    assert codes.dtype == torch.int8 and tuple(codes.shape) == (2, t, H * HD)
+    assert scales.dtype == torch.float32 and tuple(scales.shape) == (2, t, H // 2)
+    r = fe.attention_plain(q, k, v, t_valid).numpy()               # (B, H, T, hd) f32
+    for g in range(H // 2):
+        pair = np.concatenate([r[:, 2 * g], r[:, 2 * g + 1]], axis=-1)  # (B, T, 128)
+        jc, js = jfe._quant_rows(jnp.asarray(pair.reshape(-1, 2 * HD)))
+        np.testing.assert_array_equal(codes[..., g * 128:(g + 1) * 128].numpy(),
+                                      np.asarray(jc).reshape(2, t, 128))
+        np.testing.assert_array_equal(scales[..., g].numpy(), np.asarray(js).reshape(2, t))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, t_valid:] = 50.0
+    v2[:, :, t_valid:] = -50.0
+    masked = fe8.pair_codes_plain(q, k2, v2, t_valid)
+    assert torch.equal(masked[0], codes) and torch.equal(masked[1], scales)
+
+
+def test_oproj_ln_int8_plain_matches_the_tpu_accumulation(rng):
+    """attn_oproj_ln_int8's second pass against the TPU kernel's
+    accumulation written in JAX: acc = x + bo, then pair by pair acc +=
+    (int32 product · row scale) · cso; y bit for bit, h = `_ln_f32(acc)` to
+    the last bits of the LayerNorm's sums."""
+    b, t, d = 2, 37, H * HD
+    codes = rng.integers(-127, 128, (b, t, d)).astype(np.int8)
+    scales = rng.uniform(1e-3, 1e-2, (b, t, H // 2)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(torch.bfloat16)
+    wo = rng.integers(-127, 128, (d, d)).astype(np.int8)
+    cso, bo, g2, b2 = (rng.uniform(1e-3, 1e-2, d).astype(np.float32),
+                       (0.1 * rng.standard_normal(d)).astype(np.float32),
+                       (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+                       (0.1 * rng.standard_normal(d)).astype(np.float32))
+    y, h = fe8.oproj_ln_int8_plain(torch.from_numpy(codes), torch.from_numpy(scales), x,
+                                   torch.from_numpy(wo), *map(torch.from_numpy, (cso, bo, g2, b2)))
+    acc = jnp.asarray(x.float().numpy()) + bo
+    for g in range(H // 2):
+        cols = slice(g * 128, (g + 1) * 128)
+        part = jnp.einsum("btk,nk->btn", jnp.asarray(codes[..., cols]), jnp.asarray(wo[:, cols]),
+                          preferred_element_type=jnp.int32)
+        acc = acc + part.astype(jnp.float32) * scales[..., g:g + 1] * cso
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  np.asarray(acc.astype(jnp.bfloat16).astype(jnp.float32)))
+    jh = np.asarray(jfe._ln_f32(acc, jnp.asarray(g2), jnp.asarray(b2), 1e-5))
+    # one bf16 ulp (2^-8 to 2^-7 of the value), and 1e-5 where terms cancel
+    np.testing.assert_allclose(h.float().numpy(), jh, rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_oproj_split_takes_every_whisper_width(preset):
+    """Each Whisper width D splits into one cluster of ceil(D / 256) blocks
+    of 256 columns (the last 128 at D = 384), at most 8 (a portable
+    cluster); widths not a multiple of 128 or past 2048 are refused."""
+    d = PRESETS[preset].n_audio_state
+    blocks = fe8.oproj_split(d)
+    assert blocks == {384: 2, 512: 2, 768: 3, 1024: 4, 1280: 5}[d]
+    assert (blocks - 1) * 256 < d <= blocks * 256 and blocks <= fe8.OPROJ_CLUSTER_MAX
+    assert fe8.oproj_split(d + 64) is None and fe8.oproj_split(2048 + 128) is None
+
+
 @pytest.mark.parametrize("preset", list(PRESETS))
 def test_fc1_split_takes_every_whisper_width(preset):
     """Each Whisper width's FF = 4 D splits into clusters of at most 16
@@ -181,6 +280,13 @@ def attn_args(shape, k_shape=None):
 def fc1_args(d=1280, ff=5120):
     return (meta(2, 1500, d), meta(ff, d, dtype=torch.int8), meta(ff, dtype=torch.float32),
             meta(ff, dtype=torch.float32))
+
+
+def attn8_args(heads=20, t=1500, x_d=None, wo_d=None):
+    d = heads * HD
+    return (*attn_args((2, heads, t, HD)), meta(2, t, x_d or d), meta(wo_d or d, wo_d or d,
+                                                                       dtype=torch.int8),
+            *(meta(d, dtype=torch.float32) for _ in range(4)))
 
 
 def fc2_args(d=1280, ff=5120):
@@ -216,6 +322,28 @@ REFUSED = {
         *fc2_args(d=1000)),
     "fc2_residual_int8 FF not a multiple of 128": lambda: fe8.fc2_residual_int8(
         *fc2_args(ff=5000)),
+    "ln_qkv_int8 an odd head count": lambda: fe8.ln_qkv_int8(
+        *ln_qkv_args(d=192 * 2, heads=3, w_rows=3 * 384)[:3], meta(3 * 384, 384, dtype=torch.int8),
+        meta(3 * 384, dtype=torch.float32), meta(3 * 384, dtype=torch.float32), 3),
+    "ln_quant_rows D not a multiple of 128": lambda: fe8.ln_quant_rows(
+        *ln_qkv_args(d=1000)[:3]),
+    "qkv_from_codes codes of another shape": lambda: fe8.qkv_from_codes(
+        meta(2999, 1280, dtype=torch.int8), meta(3000, dtype=torch.float32),
+        meta(3840, 1280, dtype=torch.int8), meta(3840, dtype=torch.float32),
+        meta(3840, dtype=torch.float32), (2, 1500, 1280), 20),
+    "attn_oproj_ln_int8 D past 2048": lambda: fe8.attn_oproj_ln_int8(
+        *attn8_args(heads=34), t_valid=1500),
+    "attn_oproj_ln_int8 hd 32": lambda: fe8.attn_oproj_ln_int8(
+        *attn_args((2, 20, 700, 32)), meta(2, 700, 640), meta(640, 640, dtype=torch.int8),
+        *(meta(640, dtype=torch.float32) for _ in range(4)), t_valid=700),
+    "attn_oproj_ln_int8 t_valid past T": lambda: fe8.attn_oproj_ln_int8(
+        *attn8_args(), t_valid=1501),
+    "attn_oproj_ln_int8 x of another width": lambda: fe8.attn_oproj_ln_int8(
+        *attn8_args(x_d=1024), t_valid=1500),
+    "pair_codes t_valid 0": lambda: fe8.pair_codes(*attn_args((2, 20, 1500, HD)), 0),
+    "oproj_ln_int8 scales not one a head pair": lambda: fe8.oproj_ln_int8(
+        meta(2, 1500, 1280, dtype=torch.int8), meta(2, 1500, 20, dtype=torch.float32),
+        *attn8_args()[3:]),
 }
 
 
@@ -229,16 +357,18 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(ea, "_KERNEL", lambda *a: calls.append("encoder_attention"))
     monkeypatch.setattr(fe8, "_FC1", lambda *a: calls.append("fc1_gelu_int8"))
     monkeypatch.setattr(fe8, "_FC2", lambda *a: calls.append("fc2_residual_int8"))
+    for name in ("_LN_QUANT", "_QKV", "_PAIR_CODES", "_OPROJ"):
+        monkeypatch.setattr(fe8, name, lambda *a, name=name: calls.append(name))
     return calls
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_wrappers_refuse_without_launching(fake_card, case):
-    before = {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES}
+    before = {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES, **fe8.PASS_LAUNCHES}
     with pytest.raises(ValueError):
         REFUSED[case]()
     assert fake_card == []
-    assert {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES} == before
+    assert {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES, **fe8.PASS_LAUNCHES} == before
 
 
 def test_wrappers_launch_what_they_accept(fake_card, monkeypatch):
@@ -270,3 +400,44 @@ def test_fc_wrappers_launch_what_they_accept(fake_card, monkeypatch, d, ff):
     assert fake_card == ["fc1_gelu_int8", "fc2_residual_int8"]
     assert fe8.LAUNCHES == {"ln_qkv_int8": 0, "attn_oproj_ln_int8": 0, "fc1_gelu_int8": 1,
                             "fc2_residual_int8": 1}
+
+
+@pytest.mark.parametrize("heads", [20, 16, 6])
+def test_int8_attention_wrappers_launch_their_two_passes(fake_card, monkeypatch, heads):
+    """The control of the ln_qkv_int8 / attn_oproj_ln_int8 refusals above, at
+    the large, medium and tiny Whisper widths: each entry runs its two
+    launches with the scratch between them (LayerNorm1's codes (M, D) and
+    scales (M); the pair codes (B, T, D) and scales (B, T, H / 2)), counts
+    one launch in LAUNCHES, and its passes called alone count in
+    PASS_LAUNCHES only."""
+    monkeypatch.setattr(fe8, "LAUNCHES", dict.fromkeys(fe8.LAUNCHES, 0))
+    monkeypatch.setattr(fe8, "PASS_LAUNCHES", dict.fromkeys(fe8.PASS_LAUNCHES, 0))
+    seen = {}
+    for name in ("_LN_QUANT", "_QKV", "_PAIR_CODES", "_OPROJ"):
+        monkeypatch.setattr(fe8, name, lambda dev, *a, name=name: (fake_card.append(name),
+                                                                   seen.setdefault(name, a)))
+    d, t = heads * HD, 1500
+    q, k, v = fe8.ln_qkv_int8(*ln_qkv_args(d=d, heads=heads)[:3], meta(3 * d, d, dtype=torch.int8),
+                              meta(3 * d, dtype=torch.float32), meta(3 * d, dtype=torch.float32),
+                              heads)
+    assert all(tuple(a.shape) == (2, heads, t, HD) and a.dtype == torch.bfloat16 for a in (q, k, v))
+    xq, sx = seen["_LN_QUANT"][3:5]
+    assert (xq.dtype, tuple(xq.shape), sx.dtype, tuple(sx.shape)) == (
+        torch.int8, (2 * t, d), torch.float32, (2 * t,))
+    assert seen["_QKV"][0] is xq and seen["_QKV"][1] is sx
+    y, h = fe8.attn_oproj_ln_int8(q, k, v, *attn8_args(heads=heads)[3:], t_valid=t)
+    assert tuple(y.shape) == tuple(h.shape) == (2, t, d) and y.dtype == torch.bfloat16
+    codes, scales = seen["_PAIR_CODES"][3:5]
+    assert (codes.dtype, tuple(codes.shape), scales.dtype, tuple(scales.shape)) == (
+        torch.int8, (2, t, d), torch.float32, (2, t, heads // 2))
+    assert seen["_OPROJ"][0] is codes and seen["_OPROJ"][1] is scales
+    assert fake_card == ["_LN_QUANT", "_QKV", "_PAIR_CODES", "_OPROJ"]
+    assert fe8.LAUNCHES == {"ln_qkv_int8": 1, "attn_oproj_ln_int8": 1, "fc1_gelu_int8": 0,
+                            "fc2_residual_int8": 0}
+    fe8.pair_codes(q, k, v, t)
+    fe8.oproj_ln_int8(codes, scales, *attn8_args(heads=heads)[3:])
+    fe8.ln_quant_rows(*ln_qkv_args(d=d, heads=heads)[:3])
+    fe8.qkv_from_codes(xq, sx, meta(3 * d, d, dtype=torch.int8), meta(3 * d, dtype=torch.float32),
+                       meta(3 * d, dtype=torch.float32), (2, t, d), heads)
+    assert fe8.PASS_LAUNCHES == dict.fromkeys(fe8.PASS_LAUNCHES, 1)
+    assert fe8.LAUNCHES["ln_qkv_int8"] == fe8.LAUNCHES["attn_oproj_ln_int8"] == 1

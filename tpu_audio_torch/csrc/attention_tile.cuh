@@ -1,7 +1,5 @@
-// One head's encoder self-attention for a block of 16 query rows, shared by
-// the bf16 and the int8 attention + o-projection kernels
-// (fused_encoder.cu, fused_encoder_int8.cu) and the bare attention kernel
-// (encoder_attention.cu).
+// One head's encoder self-attention for a block of 16 query rows, for the
+// bf16 attention + o-projection kernel (fused_encoder.cu).
 //
 // `head` runs online-softmax attention over 64-key tiles with WMMA
 // 16x16x16 bf16 fragments and f32 accumulators: S = Q K^T times `scale` in

@@ -9,8 +9,7 @@
 //                  slice of the o-projection accumulated in f32 into a
 //                  (16, D) shared-memory accumulator that starts at x + bias;
 //                  finally y = acc (bf16) and h = LayerNorm2(acc). The
-//                  per-head attention is `attention_tile.cuh`, shared with
-//                  the int8 kernel of fused_encoder_int8.cu.
+//                  per-head attention is `attention_tile.cuh`.
 //
 // Bound on the H100: tensor-core arithmetic. At large-v3-turbo batch 16
 // (B*T = 24000 rows, D = 1280, 20 heads) one block is 184 GFLOP of

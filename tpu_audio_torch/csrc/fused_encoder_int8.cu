@@ -9,16 +9,16 @@
 //                       (3D, D) int8 weight -> acc * sx * cs + bias, written
 //                       head-major as bf16 q, k, v (B, H, T, 64); cs carries
 //                       the per-channel weight scales, hd^-0.25 folded into
-//                       the q and k columns.
-//   attn_oproj_ln_int8  replaces fused_encoder.py:attn_oproj_ln_int8. Per
-//                       (batch, 16-row query tile) and head pair: both heads'
-//                       attention (attention_tile.cuh, as the bf16 kernel),
-//                       normalised in f32 into a (16, 128) pair tile, that
-//                       tile row-quantised (one scale per row per pair, never
-//                       rounded to bf16 first), an s8 product with the pair's
-//                       128 input channels of the o-weight, and
-//                       acc * sa * cso added in f32 onto x + bo. Finally y and
-//                       h = LayerNorm2(y).
+//                       the q and k columns. Two launches: ln_quant_rows,
+//                       then s8_gemm<true>.
+//   attn_oproj_ln_int8  replaces fused_encoder.py:attn_oproj_ln_int8. Both
+//                       heads' attention of each head pair, normalised in
+//                       f32 and row-quantised per pair (one scale per row per
+//                       pair, never rounded to bf16 first); an s8 product of
+//                       each pair's codes with the pair's 128 input channels
+//                       of the o-weight, acc * sa * cso added in f32 onto
+//                       x + bo; finally y and h = LayerNorm2(y). Two
+//                       launches: pair_codes, then oproj_ln.
 //   fc1_gelu_int8       replaces fused_encoder.py:fc1_gelu_int8. h -> row
 //                       quantisation -> s8 GEMM with the (FF, D) weight ->
 //                       acc * sh * cs + bias -> erf GELU (erff) -> the row's
@@ -27,14 +27,14 @@
 //                       then fc1_gemm.
 //   fc2_residual_int8   replaces fused_encoder.py:fc2_residual_int8. s8 GEMM
 //                       of those codes with the (D, FF) weight ->
-//                       acc * sg * cs + bias + y.
+//                       acc * sg * cs + bias + y (s8_gemm<false>).
 //
 // Row quantisation everywhere: s = max(max|row| / 127, 1e-10), codes
 // clip(rint(row / s), -127, 127) (round half to even, as torch.round and
-// jnp.round), as int8_matmul.cu; the division is true division. fc1 and fc2
-// round each product and sum of their epilogues on its own (no FMA
-// contraction), in the plain versions' order, so their outputs equal the
-// plain versions' on the card bit for bit.
+// jnp.round), as int8_matmul.cu; the division is true division. The
+// epilogues round each product and sum on its own (no FMA contraction), in
+// the plain versions' order, so that fc1's, fc2's and oproj_ln's y equal
+// the plain versions' on the card bit for bit, given the same codes.
 //
 // Bound on the H100 at large-v3-turbo batch 16 (M = B*T = 24000 rows,
 // D = 1280, FF = 5120, 20 heads): tensor-core operations for all four.
@@ -45,25 +45,51 @@
 // int8 ops each (0.159 ms) against 191 MB and 252 MB. About 21 ms for the
 // 32 blocks of one batch of 16.
 //
-// ln_qkv_int8 and attn_oproj_ln_int8: mma.sync m16n8k32 s8 fragments taken
-// from 128-deep k chunks that each lane reads with two 16-byte loads, k
-// permuted alike in A and B (row strides of 16 mod 128 bytes keep the
-// shared-memory loads free of bank conflicts); no TMA, no wgmma.
-// - ln_qkv_int8 normalises and quantises 64 rows once into 83 KB of shared
-//   memory (half the bf16 kernel's tile) and streams 128 x 128 weight tiles
-//   past them; 8 warps of 32 x 32 outputs.
-// - attn_oproj_ln_int8 needs both heads of a pair finished before the
-//   pair's row maximum exists, so it loops over pairs and keeps the f32 pair
-//   tile and its codes in shared memory beside the (16, D) accumulator; the
-//   o-weight's fragments come from L2.
-// fc1_gelu_int8 and fc2_residual_int8: TMA + s8 wgmma (hopper.cuh), A and B
-// K-major 128-byte-swizzled tiles 128 bytes deep (four k32 steps a stage).
-// - fc2_residual_int8 (fc2_gemm): the persistent GEMM of ln_qkv.cu's
-//   qkv_gemm in s8: 128 x 256 tiles (940 at batch 16 over 132 SMs), a
-//   producer warp keeping a 3-stage ring of TMA loads in flight across
-//   tiles, two consumer warpgroups of m64n256k32 (128 s32 a thread); the
-//   epilogue rounds to bf16 into shared memory and stores 16-byte chunks.
-//   A 128 x 160 tile (1504 tiles, a fuller last round) measured slower.
+// All four are TMA + wgmma kernels (hopper.cuh): A and B K-major
+// 128-byte-swizzled tiles 128 bytes deep (four k32 steps a stage), s32 sums.
+// - s8_gemm (fc2_residual_int8, and ln_qkv_int8's product): the persistent
+//   GEMM of ln_qkv.cu's qkv_gemm in s8: 128 x 256 tiles (940 for fc2, 2820
+//   for ln_qkv_int8 at batch 16, over 132 SMs), a producer warp keeping a
+//   3-stage ring of TMA loads in flight across tiles, two consumer
+//   warpgroups of m64n256k32 (128 s32 a thread); the epilogue rounds to bf16
+//   into shared memory and stores 16-byte chunks: rows of (M, N) for fc2,
+//   each head's 64 columns of a row into q, k or v for ln_qkv_int8 (a
+//   128-row tile straddles batches at T = 1500, so each row finds its own
+//   (b, t)). A 128 x 160 tile (1504 fc2 tiles, a fuller last round)
+//   measured slower. ln_quant_rows (one warp a row) writes the LayerNormed
+//   rows' codes and scales into the caller's scratch (61 MB read, 31 MB
+//   written) first: the s8 product needs the codes as its A tiles.
+// - attn_oproj_ln_int8: the TPU kernel keeps a (rows, D) f32 o-projection
+//   accumulator across the pairs; 128 rows x 1280 f32 is 640 KB, more than
+//   a block holds, and 16-row tiles waste the tensor cores and K/V reads 8x.
+//   So it is split at the pair codes, two launches with a scratch between:
+//   pair_codes is encoder_attention.cu's block (attention_wgmma.cuh's
+//   `attend`: 128 query rows of one head, 4-stage K/V ring, wgmma for S
+//   and P V, two blocks an SM) in clusters of two, heads 2g and 2g + 1 of
+//   the same rows. The block first sweeps the key tiles for each row's
+//   exact max (S alone), so that its bf16 probabilities round as the plain
+//   version's (rounded against a running max, each probability may land
+//   on the other side of a bf16 rounding, and the codes of a row with it).
+//   Each block divides O by l (true division, as the plain
+//   version), takes each row's |max| over its 64 channels, stores it into
+//   the peer (st.shared::cluster, one cluster barrier), codes its 64
+//   columns by the pair's scale and writes them with 16-byte stores into
+//   columns 128 g + 64 j of the (M, D) codes; rank 0 writes the pair's
+//   scale into (M, D / 128). oproj_ln is an s8 GEMM whose 128-byte k-stages
+//   are exactly the pairs, each with its own row scale, so each stage's s32
+//   sums (m64n128k32, starting from zero) are dequantised and added in f32
+//   before the next: acc = x + bo, then acc += (sum * sa) * cso a pair, in
+//   the plain version's order (|sum| < 2^22: converted exactly by adding
+//   1.5 * 2^23). LayerNorm2 needs all D columns of a row, so a cluster of
+//   ceil(D / 256) blocks (5 at D = 1280) shares a 128-row tile, each block
+//   256 columns in two halves of 128 (128 f32 a thread), and the row
+//   statistics go through every rank's shared memory in two rounds (the
+//   sum, then the sum of squared deviations from the mean), each one
+//   cluster barrier; y and h leave as bf16, no f32 leaves the chip. The
+//   card holds 22 clusters of 5 (110 SMs); blocks of 128 columns in
+//   clusters of 10 fit 7 (70 SMs) and took 1.7x as long. Thread 0 refills
+//   the ring as the stages are released, running on into the next tile
+//   during this one's epilogue.
 // - fc1_gelu_int8: the row scale needs all FF post-GELU values of a row.
 //   quant_rows (one warp a row) writes h's codes and scales into the
 //   caller's scratch (61 MB read, 31 MB written); then fc1_gemm,
@@ -90,63 +116,15 @@
 
 #include <cstdint>
 
-#include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
-namespace attn = tpa::attn;
 namespace hp = tpa::hopper;
+namespace aw = tpa::attn_wgmma;
 
 namespace {
-
-// ------------------------------------------------ s8 x s8 -> s32 fragments
-// mma.sync m16n8k32: A 16 x 32 row-major, B 32 x 8 column-major (each of the
-// 8 columns' 32 k values contiguous), C 16 x 8 int32. With g = lane / 4 and
-// t = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k32"):
-//   A registers: (row g, k 4t..4t+3), (row g+8, k 4t..), (row g, k 16+4t..),
-//                (row g+8, k 16+4t..)
-//   B registers: (column g, k 4t..4t+3), (column g, k 16+4t..)
-//   C:           c0, c1 = (row g, columns 2t, 2t+1); c2, c3 = (row g+8, ...)
-// No `volatile`: the product has no side effect, so the compiler may move
-// loads across it.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A product over a 128-deep k chunk runs as four m16n8k32 steps with k
-// permuted alike in A and B (a sum does not depend on the order of its
-// terms): lane t = lane % 4 of a row holds the row's bytes [32t, 32t + 32),
-// two 16-byte loads, and step s gives it bytes 32t + 4s.. as the fragment's
-// k 4t.. and bytes 32t + 16 + 4s.. as its k 16 + 4t.. .
-struct KChunk {
-  int4 lo, hi;
-};
-
-// The chunk of the row at p (16-byte aligned, k0 already added).
-__device__ __forceinline__ KChunk load_chunk(const int8_t* p) {
-  const int4* v = reinterpret_cast<const int4*>(p + 32 * (threadIdx.x & 3));
-  return {v[0], v[1]};
-}
-
-__device__ __forceinline__ int part(const int4& v, int s) {
-  return s == 0 ? v.x : (s == 1 ? v.y : (s == 2 ? v.z : v.w));
-}
-
-// C (16 x 8) += A B over one chunk: a0 and a1 are A's rows g and g + 8, b is
-// B's column g.
-__device__ __forceinline__ void mma_chunk(int (&c)[4], const KChunk& a0, const KChunk& a1,
-                                          const KChunk& b) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int fa[4] = {part(a0.lo, s), part(a1.lo, s), part(a0.hi, s), part(a1.hi, s)};
-    const int fb[2] = {part(b.lo, s), part(b.hi, s)};
-    mma_s8(c, fa, fb);
-  }
-}
 
 __device__ __forceinline__ float row_scale(float amax) { return fmaxf(amax / 127.0f, 1e-10f); }
 
@@ -154,214 +132,9 @@ __device__ __forceinline__ signed char code(float v, float s) {
   return static_cast<signed char>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
 }
 
-// A warp's 32 x 32 block of C += A B^T over one 128-deep chunk: A's 32 rows
-// at a (stride lda), B's 32 columns at b (stride ldb).
-__device__ __forceinline__ void warp_tile_32x32(int (&acc)[2][4][4], const int8_t* a, int lda,
-                                                const int8_t* b, int ldb) {
-  const int g = (threadIdx.x & 31) >> 2;
-  KChunk ka[2][2], kb[4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    ka[i][0] = load_chunk(a + (i * 16 + g) * lda);
-    ka[i][1] = load_chunk(a + (i * 16 + g + 8) * lda);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) kb[j] = load_chunk(b + (j * 8 + g) * ldb);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mma_chunk(acc[i][j], ka[i][0], ka[i][1], kb[j]);
-}
-
-// --------------------------------------------------------------- ln_qkv_int8
-namespace lq8 {
-constexpr int BM = 64, BN = 128, BK = 128, kThreads = 256;
-constexpr int LDB = BK + 16;  // weight tile row stride (bytes)
-inline int smem_bytes(int d) { return BM * (d + 16) + BN * LDB + BM * 4; }
-}  // namespace lq8
-
-__global__ void __launch_bounds__(lq8::kThreads)
-ln_qkv_int8_kernel(const bf16* __restrict__ x,        // (M, D), M = B*T
-                   const float* __restrict__ ln_w,    // (D)
-                   const float* __restrict__ ln_b,    // (D)
-                   const int8_t* __restrict__ w,      // (3D, D)
-                   const float* __restrict__ cs,      // (3D)
-                   const float* __restrict__ bias,    // (3D)
-                   bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v,
-                   int M, int T, int D, int H, float eps) {
-  using namespace lq8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = D + 16;
-  int8_t* As = reinterpret_cast<int8_t*>(smem);             // BM x lda codes
-  int8_t* Bs = As + BM * lda;                                // BN x LDB weight tile
-  float* sx = reinterpret_cast<float*>(Bs + BN * LDB);       // BM row scales
-  const int m0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // LayerNorm (f32 statistics, two passes), then the row's codes and scale
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    int8_t* dst = As + r * lda;
-    const int m = m0 + r;
-    if (m >= M) {
-      for (int c = lane; c < D; c += 32) dst[c] = 0;
-      if (lane == 0) sx[r] = 0.f;
-      continue;
-    }
-    const bf16* src = x + static_cast<long>(m) * D;
-    float s = 0.f;
-    for (int c = lane; c < D; c += 32) s += __bfloat162float(src[c]);
-    const float mu = tpa::warp_sum(s) / D;
-    float ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = __bfloat162float(src[c]) - mu;
-      ss += d * d;
-    }
-    const float rstd = rsqrtf(tpa::warp_sum(ss) / D + eps);
-    float amax = 0.f;
-    for (int c = lane; c < D; c += 32)
-      amax = fmaxf(amax, fabsf((__bfloat162float(src[c]) - mu) * rstd * ln_w[c] + ln_b[c]));
-    const float scale = row_scale(tpa::warp_max(amax));
-    for (int c = lane; c < D; c += 32)
-      dst[c] = code((__bfloat162float(src[c]) - mu) * rstd * ln_w[c] + ln_b[c], scale);
-    if (lane == 0) sx[r] = scale;
-  }
-  __syncthreads();
-
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps, 32 x 32 outputs each
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int hd = D / H;
-  for (int n0 = 0; n0 < 3 * D; n0 += BN) {
-    int acc[2][4][4] = {};
-    for (int k0 = 0; k0 < D; k0 += BK) {
-      for (int i = threadIdx.x; i < BN * BK / 16; i += kThreads) {
-        const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-        *reinterpret_cast<int4*>(Bs + r * LDB + c) =
-            *reinterpret_cast<const int4*>(w + static_cast<long>(n0 + r) * D + k0 + c);
-      }
-      __syncthreads();
-      warp_tile_32x32(acc, As + wm * 32 * lda + k0, lda, Bs + wn * 32 * LDB, LDB);
-      __syncthreads();
-    }
-    // acc * sx * cs + bias, scattered head-major to q / k / v
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 32 + i * 16 + g + 8 * half;
-        const int m = m0 + r;
-        if (m >= M) continue;
-        const float s = sx[r];
-        const int b = m / T, t = m - b * T;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + wn * 32 + j * 8 + t2;
-          const int which = n / D, nn = n - which * D;
-          const int h = nn / hd, e = nn - h * hd;
-          bf16* dst = which == 0 ? q : (which == 1 ? k : v);
-          const float y0 = static_cast<float>(acc[i][j][2 * half]) * s * cs[n] + bias[n];
-          const float y1 = static_cast<float>(acc[i][j][2 * half + 1]) * s * cs[n + 1] + bias[n + 1];
-          *reinterpret_cast<__nv_bfloat162*>(dst + ((static_cast<long>(b) * H + h) * T + t) * hd + e) =
-              __floats2bfloat162_rn(y0, y1);
-        }
-      }
-  }
-}
-
-// -------------------------------------------------------- attn_oproj_ln_int8
-namespace ao8 {
-constexpr int PAIR = 2 * attn::HD;  // 128 channels of a head pair
-constexpr int LDP = PAIR + 4;       // f32 pair tile row stride
-constexpr int LDQ = PAIR + 16;      // pair codes row stride (bytes)
-inline int smem_bytes(int d) {
-  return attn::BQ * (d + 4) * 4 + attn::kTileBytes + attn::BQ * LDP * 4 + attn::BQ * LDQ +
-         attn::BQ * 4;
-}
-}  // namespace ao8
-
-__global__ void __launch_bounds__(attn::kThreads)
-attn_oproj_ln_int8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,          // (B, H, T, HD)
-                          const bf16* __restrict__ x,          // (B, T, D) residual
-                          const int8_t* __restrict__ wo,       // (D, D), out x in
-                          const float* __restrict__ cso,       // (D) channel scales
-                          const float* __restrict__ bo,        // (D)
-                          const float* __restrict__ g2, const float* __restrict__ b2,  // (D)
-                          bf16* __restrict__ y, bf16* __restrict__ hout,  // (B, T, D)
-                          int T, int H, int t_valid, float eps) {
-  using namespace attn;
-  using ao8::LDP;
-  using ao8::LDQ;
-  using ao8::PAIR;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * HD;
-  const int lda = D + 4;
-  float* acc = reinterpret_cast<float*>(smem);                                 // BQ x lda
-  const Tile tile = carve(smem + BQ * lda * 4);
-  float* pair = reinterpret_cast<float*>(smem + BQ * lda * 4 + kTileBytes);   // BQ x LDP
-  int8_t* codes = reinterpret_cast<int8_t*>(pair + BQ * LDP);                 // BQ x LDQ
-  float* sa = reinterpret_cast<float*>(codes + BQ * LDQ);                     // BQ
-
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int t = q0 + r;
-    acc[r * lda + c] =
-        t < T ? __bfloat162float(x[(static_cast<long>(b) * T + t) * D + c]) + bo[c] : 0.f;
-  }
-
-  for (int gp = 0; gp < H / 2; ++gp) {
-    // both heads of the pair, normalised in f32
-    for (int j = 0; j < 2; ++j) {
-      const long off = (static_cast<long>(b) * H + 2 * gp + j) * T * HD;
-      attn::head(tile, q + off, k + off, v + off, q0, T, t_valid);
-      for (int i = tid; i < BQ * HD; i += kThreads) {
-        const int r = i / HD, c = i % HD;
-        pair[r * LDP + j * HD + c] = tile.o[r * LDO + c] / tile.l[r];
-      }
-      __syncthreads();
-    }
-
-    // one scale per row over the pair's 128 channels; each lane 4 channels
-    for (int r = warp; r < BQ; r += kWarps) {
-      const float4 val = *reinterpret_cast<const float4*>(pair + r * LDP + lane * 4);
-      const float amax = fmaxf(fmaxf(fabsf(val.x), fabsf(val.y)), fmaxf(fabsf(val.z), fabsf(val.w)));
-      const float s = row_scale(tpa::warp_max(amax));
-      *reinterpret_cast<char4*>(codes + r * LDQ + lane * 4) =
-          make_char4(code(val.x, s), code(val.y, s), code(val.z, s), code(val.w, s));
-      if (lane == 0) sa[r] = s;
-    }
-    __syncthreads();
-
-    // acc[:, n] += (codes @ wo[n, 128 gp : 128 gp + 128]^T) * sa * cso[n]
-    // (one 128-deep chunk); warp w owns output columns [8w, 8w + 8) + 32 i
-    static_assert(PAIR == 128, "the pair's product is one chunk");
-    const KChunk a0 = load_chunk(codes + g * LDQ), a1 = load_chunk(codes + (g + 8) * LDQ);
-    const float s0 = sa[g], s1 = sa[g + 8];
-#pragma unroll 4
-    for (int n0 = warp * 8; n0 < D; n0 += kWarps * 8) {
-      const KChunk b = load_chunk(wo + static_cast<long>(n0 + g) * D + gp * PAIR);
-      const float2 cs = *reinterpret_cast<const float2*>(cso + n0 + t2);
-      int c[4] = {0, 0, 0, 0};
-      mma_chunk(c, a0, a1, b);
-      float* row0 = acc + g * lda + n0 + t2;
-      float* row1 = row0 + 8 * lda;
-      row0[0] += static_cast<float>(c[0]) * s0 * cs.x;
-      row0[1] += static_cast<float>(c[1]) * s0 * cs.y;
-      row1[0] += static_cast<float>(c[2]) * s1 * cs.x;
-      row1[1] += static_cast<float>(c[3]) * s1 * cs.y;
-    }
-    __syncthreads();
-  }
-
-  store_y_ln(acc, lda, g2, b2, y, hout, b, q0, T, D, eps);
-}
-
-// ------------------------------------------------------------- fc1_gelu_int8
-// quant_rows: one warp a row, 16-byte loads; h's codes and scale into the
-// caller's scratch.
+// ---------------------------------------------------------- the row passes
+// quant_rows (fc1_gelu_int8): one warp a row, 16-byte loads; h's codes and
+// scale into the caller's scratch.
 constexpr int kQuantRows = 8;  // rows (warps) per quant_rows block
 
 __global__ void __launch_bounds__(kQuantRows * 32)
@@ -392,6 +165,83 @@ quant_rows_kernel(const bf16* __restrict__ h, int8_t* __restrict__ hq, float* __
   if (lane == 0) sh[row] = s;
 }
 
+// ln_quant_rows (ln_qkv_int8): LayerNorm1 in f32 (the mean, then the mean square of the
+// deviations, as the TPU kernels' _ln_f32), the row's |max|, its codes and
+// scale into the caller's scratch; one warp a row, 16-byte loads, the row
+// re-read from L1 in each pass. Each product and sum of the normalisation
+// is rounded on its own, in the plain version's order.
+__global__ void __launch_bounds__(kQuantRows * 32)
+ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+                     const float* __restrict__ ln_b, int8_t* __restrict__ xq,
+                     float* __restrict__ sx, int M, int D, float eps) {
+  const int row = blockIdx.x * kQuantRows + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<long long>(row) * D);
+  uint2* dst = reinterpret_cast<uint2*>(xq + static_cast<long long>(row) * D);
+  const int nv = D / 8;
+  float s = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    const uint4 u = src[c];
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+  }
+  const float mu = tpa::warp_sum(s) / D;
+  float ss = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    const uint4 u = src[c];
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float d = __bfloat162float(e[j]) - mu;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(tpa::warp_sum(ss) / D + eps);
+  // the 8 normalised values of chunk c
+  const auto norm = [&](int c, float (&v)[8]) {
+    const uint4 u = src[c];
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    const float4 w0 = reinterpret_cast<const float4*>(ln_w)[2 * c];
+    const float4 w1 = reinterpret_cast<const float4*>(ln_w)[2 * c + 1];
+    const float4 b0 = reinterpret_cast<const float4*>(ln_b)[2 * c];
+    const float4 b1 = reinterpret_cast<const float4*>(ln_b)[2 * c + 1];
+    const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__bfloat162float(e[j]), mu), rstd), w[j]),
+                       b[j]);
+  };
+  float amax = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    float v[8];
+    norm(c, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+  const float scale = row_scale(tpa::warp_max(amax));
+  for (int c = lane; c < nv; c += 32) {
+    float v[8];
+    norm(c, v);
+    uint2 out;
+    signed char* o = reinterpret_cast<signed char*>(&out);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = code(v[j], scale);
+    dst[c] = out;
+  }
+  if (lane == 0) sx[row] = scale;
+}
+
+// Two floats from shared memory, loaded where they are used: a volatile load
+// is not hoisted out of a loop into registers that the loop needs.
+__device__ __forceinline__ float2 lds_f2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(hp::smem_addr(p)));
+  return v;
+}
+
+// ------------------------------------------------------------- fc1_gelu_int8
 // (acc * s) * c + b, each product and sum rounded on its own (no FMA
 // contraction), the plain version's order.
 __device__ __forceinline__ float dequant(int acc, float s, float c, float b) {
@@ -447,7 +297,7 @@ __device__ __forceinline__ int round_clip(float q) {
 }
 
 // Two codes in the low 16 bits, the first in the low byte.
-__device__ __forceinline__ uint32_t pair_codes(float q0, float q1) {
+__device__ __forceinline__ uint32_t two_codes(float q0, float q1) {
   return (round_clip(q0) & 0xFF) | (round_clip(q1) & 0xFF) << 8;
 }
 
@@ -504,7 +354,7 @@ fc1_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // hq (M, D) int8
   uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + T::BN);
   uint64_t* empty = full + kStages;
   unsigned char* head_end = smem_raw + T::kHead;
-  unsigned char* ring = head_end + ((1024 - (hp::smem_addr(head_end) & 1023)) & 1023);
+  unsigned char* ring = hp::align_1024(head_end);
 
   const uint32_t rank = hp::cluster_rank(), n_ranks = FF / T::BN;
   const int n0 = rank * T::BN;
@@ -648,9 +498,9 @@ fc1_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // hq (M, D) int8
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int j = 4 * q + i;
-        pk_lo[i] = pair_codes(quotient(__int_as_float(acc[4 * j]), g_lo, i_lo),
+        pk_lo[i] = two_codes(quotient(__int_as_float(acc[4 * j]), g_lo, i_lo),
                               quotient(__int_as_float(acc[4 * j + 1]), g_lo, i_lo));
-        pk_hi[i] = pair_codes(quotient(__int_as_float(acc[4 * j + 2]), g_hi, i_hi),
+        pk_hi[i] = two_codes(quotient(__int_as_float(acc[4 * j + 2]), g_hi, i_hi),
                               quotient(__int_as_float(acc[4 * j + 3]), g_hi, i_hi));
       }
       const uint2 w_lo = gather_chunk(pk_lo, lane), w_hi = gather_chunk(pk_hi, lane);
@@ -660,8 +510,8 @@ fc1_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // hq (M, D) int8
   }
 }
 
-// --------------------------------------------------------- fc2_residual_int8
-namespace f2 {
+// ------------------------------------ s8_gemm: fc2_residual_int8, ln_qkv_int8
+namespace s8g {
 constexpr int BM = 128, BN = 256, BK = 128, kStages = 3;
 constexpr int kConsumers = 2;                    // warpgroups of 64 rows
 constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
@@ -669,32 +519,38 @@ constexpr int kABytes = BM * BK;                 // 16 KB
 constexpr int kBBytes = BN * BK;                 // 32 KB
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int LDC = BN + 8;                      // staged output row, bf16
-constexpr int kSmem = 1024 + kStages * kStageBytes + BM * LDC * 2 + 2 * kStages * 8;
-}  // namespace f2
+// the ring, the staged tile, two buffers of the tile's cs and bias, the barriers
+constexpr int kSmem = 1024 + kStages * kStageBytes + BM * LDC * 2 + 4 * BN * 4 + 2 * kStages * 8;
+}  // namespace s8g
 
+// out = codes (M, K) . w (N, K)^T * sa[row] * cs + bias, rounded once to
+// bf16. kHeads false (fc2): + the residual res (M, N), rows of out (M, N).
+// kHeads true (ln_qkv_int8): N = 3D, D = 64 H; out holds q, k and v, each
+// (B, H, T, 64), one after the other, and each row's columns [64 h,
+// 64 h + 64) of the q, k or v third go to row (b, h, t) of it.
 // Persistent: block i takes output tiles i, i + gridDim.x, ..., the N tiles
 // of one row block consecutive; the ring runs on into the next tile while
 // this one is stored (the pattern of ln_qkv.cu's qkv_gemm).
-__global__ void __launch_bounds__(f2::kThreads, 1)
-fc2_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, FF) int8
-                __grid_constant__ const CUtensorMap map_b,  // w (D, FF) int8
-                const float* __restrict__ sg,               // (M)
-                const bf16* __restrict__ y,                 // (M, D) residual
-                const float* __restrict__ cs,               // (D)
-                const float* __restrict__ bias,             // (D)
-                bf16* __restrict__ out,                     // (M, D)
-                int M, int D, int FF) {
-  using namespace f2;
+template <bool kHeads>
+__global__ void __launch_bounds__(s8g::kThreads, 1)
+s8_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, K) int8
+               __grid_constant__ const CUtensorMap map_b,  // w (N, K) int8
+               const float* __restrict__ sa,               // (M)
+               const float* __restrict__ cs,               // (N)
+               const float* __restrict__ bias,             // (N)
+               const bf16* __restrict__ res,               // (M, N) residual (fc2)
+               bf16* __restrict__ out, int M, int N, int K, int T, int H) {
+  using namespace s8g;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (hp::smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = smem;                                        // kStages x (A | B)
-  bf16* cst = reinterpret_cast<bf16*>(smem + kStages * kStageBytes);  // BM x LDC
-  uint64_t* full = reinterpret_cast<uint64_t*>(cst + BM * LDC);
+  unsigned char* ring = hp::align_1024(smem_raw);                    // kStages x (A | B)
+  bf16* cst = reinterpret_cast<bf16*>(ring + kStages * kStageBytes);  // BM x LDC
+  float* cb = reinterpret_cast<float*>(cst + BM * LDC);  // [tile parity][cs | bias][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(cb + 4 * BN);
   uint64_t* empty = full + kStages;
 
-  const int n_tiles_n = (D + BN - 1) / BN;
+  const int n_tiles_n = (N + BN - 1) / BN;
   const int n_tiles = n_tiles_n * ((M + BM - 1) / BM);
-  const int ksteps = FF / BK;
+  const int ksteps = K / BK;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -726,8 +582,17 @@ fc2_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, FF) int
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x & 31;
   const int r0 = wg * 64 + warp * 16 + lane / 4;
   int it = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x, parity = 0; tile < n_tiles; tile += gridDim.x, parity ^= 1) {
     const int n0 = (tile % n_tiles_n) * BN, m0 = (tile / n_tiles_n) * BM;
+    // the tile's cs and bias into shared memory (read by the epilogue from
+    // there, so that the compiler does not hold them in registers beside
+    // the accumulators); a warpgroup is at most one tile ahead of the other
+    float* cs_s = cb + parity * 2 * BN;
+    for (int i = threadIdx.x; i < BN; i += kConsumers * 128) {
+      cs_s[i] = n0 + i < N ? cs[n0 + i] : 0.f;
+      cs_s[BN + i] = n0 + i < N ? bias[n0 + i] : 0.f;
+    }
+    hp::named_barrier(3, kConsumers * 128);
     int acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -749,74 +614,569 @@ fc2_gemm_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, FF) int
     hp::fence_regs(acc);
     if (lane == 0) hp::mbar_arrive(&empty[(it - 1) % kStages]);
 
-    // acc * sg * cs + bias + y, rounded once to bf16 into the staged tile
+    // acc * sa * cs + bias (+ res), rounded once to bf16 into the staged tile
     const int m_lo = m0 + r0, m_hi = m_lo + 8;
-    const float s_lo = m_lo < M ? sg[m_lo] : 0.f, s_hi = m_hi < M ? sg[m_hi] : 0.f;
+    const float s_lo = m_lo < M ? sa[m_lo] : 0.f, s_hi = m_hi < M ? sa[m_hi] : 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int c = j * 8 + (lane % 4) * 2, n = n0 + c;
-      float2 cc = make_float2(0.f, 0.f), bb = cc, y_lo = cc, y_hi = cc;
-      if (n < D) {
-        cc = *reinterpret_cast<const float2*>(cs + n);
-        bb = *reinterpret_cast<const float2*>(bias + n);
-        if (m_lo < M)
-          y_lo = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(y + static_cast<long long>(m_lo) * D + n));
-        if (m_hi < M)
-          y_hi = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(y + static_cast<long long>(m_hi) * D + n));
+      const float2 cc = lds_f2(cs_s + c), bb = lds_f2(cs_s + BN + c);
+      float2 y_lo = make_float2(0.f, 0.f), y_hi = y_lo;
+      if constexpr (!kHeads) {
+        if (n < N && m_lo < M)
+          y_lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              res + static_cast<long long>(m_lo) * N + n));
+        if (n < N && m_hi < M)
+          y_hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              res + static_cast<long long>(m_hi) * N + n));
       }
-      *reinterpret_cast<uint32_t*>(cst + r0 * LDC + c) =
-          hp::pack_bf16(__fadd_rn(dequant(acc[4 * j], s_lo, cc.x, bb.x), y_lo.x),
-                        __fadd_rn(dequant(acc[4 * j + 1], s_lo, cc.y, bb.y), y_lo.y));
-      *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) =
-          hp::pack_bf16(__fadd_rn(dequant(acc[4 * j + 2], s_hi, cc.x, bb.x), y_hi.x),
-                        __fadd_rn(dequant(acc[4 * j + 3], s_hi, cc.y, bb.y), y_hi.y));
+      float v[4] = {dequant(acc[4 * j], s_lo, cc.x, bb.x),
+                    dequant(acc[4 * j + 1], s_lo, cc.y, bb.y),
+                    dequant(acc[4 * j + 2], s_hi, cc.x, bb.x),
+                    dequant(acc[4 * j + 3], s_hi, cc.y, bb.y)};
+      if constexpr (!kHeads) {
+        v[0] = __fadd_rn(v[0], y_lo.x);
+        v[1] = __fadd_rn(v[1], y_lo.y);
+        v[2] = __fadd_rn(v[2], y_hi.x);
+        v[3] = __fadd_rn(v[3], y_hi.y);
+      }
+      *reinterpret_cast<uint32_t*>(cst + r0 * LDC + c) = hp::pack_bf16(v[0], v[1]);
+      *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) = hp::pack_bf16(v[2], v[3]);
     }
     hp::named_barrier(1 + wg, 128);
-    // 16-byte stores of the warpgroup's 64 rows, neighbouring threads on
-    // neighbouring chunks of a row
-    constexpr int kChunks = BN / 8;
-    for (int i = tid; i < 64 * kChunks; i += 128) {
-      const int r = wg * 64 + i / kChunks, c = (i % kChunks) * 8;
-      const int m = m0 + r, n = n0 + c;
-      if (m < M && n < D)
-        *reinterpret_cast<uint4*>(out + static_cast<long long>(m) * D + n) =
-            *reinterpret_cast<const uint4*>(cst + r * LDC + c);
+    // 16-byte stores of the warpgroup's 64 rows: a thread keeps one 8-column
+    // chunk and walks every fourth row, neighbouring threads on neighbouring
+    // chunks of a row
+    constexpr int kChunks = BN / 8, kStep = 128 / kChunks;
+    const int c = (tid % kChunks) * 8, n = n0 + c, r_first = wg * 64 + tid / kChunks;
+    if (n < N) {
+      bf16* dst = out + n;  // row m at dst + m * N
+      int b = 0, t = 0;     // kHeads: row m = b T + t at dst + (b H T + t) * 64
+      if constexpr (kHeads) {  // head hh of the 3H, q's, k's or v's head hh - which H
+        const int hh = n / 64, which = hh < H ? 0 : (hh < 2 * H ? 1 : 2);
+        dst = out + static_cast<long long>(which) * M * H * 64 +
+              static_cast<long long>(hh - which * H) * T * 64 + n % 64;
+        b = (m0 + r_first) / T;
+        t = m0 + r_first - b * T;
+      }
+      for (int r = r_first; r < wg * 64 + 64; r += kStep) {
+        const int m = m0 + r;
+        if (m >= M) break;
+        const long long off = kHeads ? (static_cast<long long>(b) * H * T + t) * 64
+                                     : static_cast<long long>(m) * N;
+        *reinterpret_cast<uint4*>(dst + off) = *reinterpret_cast<const uint4*>(cst + r * LDC + c);
+        if constexpr (kHeads) {
+          for (t += kStep; t >= T; t -= T) ++b;
+        }
+      }
     }
     hp::named_barrier(1 + wg, 128);  // the rows are read before the next tile writes them
   }
 }
 
+// ------------------------------------------------------ attn_oproj_ln_int8
+// pair_codes: one block per (head, 128 query rows), clusters of the two
+// heads 2g and 2g + 1 (rank j) of one batch on the same rows.
+namespace pc {
+constexpr int LDS = 64 + 16;  // staged codes row (bytes), 16-byte aligned rows
+constexpr int kStageOff = (aw::kRingSmem + 127) / 128 * 128;
+constexpr int kSmem = 1024 + kStageOff + aw::BQ * LDS + aw::BQ * 4;
+}  // namespace pc
+
+// The int32 value v (|v| < 2^22) as a float, exactly, on the full-rate
+// pipes: its bits added to those of 1.5 * 2^23, then 1.5 * 2^23 subtracted.
+__device__ __forceinline__ float small_int_to_float(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
+}
+
+__global__ void __launch_bounds__(aw::kThreads, 2)
+pair_codes_kernel(__grid_constant__ const CUtensorMap map_q,  // head-major (B*H, T, 64)
+                  __grid_constant__ const CUtensorMap map_k,
+                  __grid_constant__ const CUtensorMap map_v,
+                  int8_t* __restrict__ codes,   // (B*T, D)
+                  float* __restrict__ scales,   // (B*T, D / 128)
+                  int T, int H, int t_valid) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hp::align_1024(smem_raw);
+  int8_t* stage = reinterpret_cast<int8_t*>(smem + pc::kStageOff);      // BQ x LDS
+  float* peer_max = reinterpret_cast<float*>(stage + aw::BQ * pc::LDS);  // BQ: the peer's row |max|
+  const int n = blockIdx.y, q0 = blockIdx.x * aw::BQ;
+  const uint32_t j = hp::cluster_rank();  // head 2g + j
+  const int b = n / H, g = (n % H) / 2, n_g = H / 2, D = H * aw::HD;
+  hp::cluster_arrive();  // this block runs: the peer may store into it after its wait
+
+  float o[32], l[2];
+  // scale 1: hd^-0.25 is folded into q and k; probabilities against the exact row max
+  aw::attend<true>(&map_q, &map_k, &map_v, smem, 0, n, q0, t_valid, 1.f, o, l);
+
+  // O / l by true division, as the plain version divides; each row's |max|
+  // over this head's 64 channels
+  float amax[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    o[i] = __fdiv_rn(o[i], l[(i / 2) % 2]);
+    amax[(i / 2) % 2] = fmaxf(amax[(i / 2) % 2], fabsf(o[i]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 1));
+    amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 2));
+  }
+  const int tid = threadIdx.x % 128, lane = threadIdx.x & 31, wg = threadIdx.x / 128;
+  const int r = wg * 64 + (tid / 32) * 16 + lane / 4;  // this thread's rows r, r + 8 of the tile
+  hp::cluster_wait();
+  if (lane % 4 == 0) {
+    hp::st_peer(peer_max + r, j ^ 1, amax[0]);
+    hp::st_peer(peer_max + r + 8, j ^ 1, amax[1]);
+  }
+  hp::cluster_arrive();
+  hp::cluster_wait();
+
+  // the pair's scale, and this head's codes by it: two a lane in each
+  // 8-column chunk, staged for 16-byte stores
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    const float s = row_scale(fmaxf(amax[h], peer_max[row])), inv = __frcp_rn(s);
+#pragma unroll
+    for (int jj = 0; jj < aw::HD / 8; ++jj)
+      *reinterpret_cast<uint16_t*>(stage + row * pc::LDS + 8 * jj + 2 * (lane % 4)) =
+          static_cast<uint16_t>(two_codes(quotient(o[4 * jj + 2 * h], s, inv),
+                                          quotient(o[4 * jj + 2 * h + 1], s, inv)));
+    const int t = q0 + row;
+    if (j == 0 && lane % 4 == 0 && t < T) scales[(static_cast<long long>(b) * T + t) * n_g + g] = s;
+  }
+  hp::named_barrier(1 + wg, 128);
+  for (int i = tid; i < 64 * 4; i += 128) {  // the warpgroup's 64 rows, four 16-byte chunks each
+    const int row = wg * 64 + i / 4, c = (i % 4) * 16, t = q0 + row;
+    if (t < T)
+      *reinterpret_cast<uint4*>(codes + (static_cast<long long>(b) * T + t) * D + 128 * g +
+                                64 * j + c) =
+          *reinterpret_cast<const uint4*>(stage + row * pc::LDS + c);
+  }
+}
+
+// oproj_ln: a cluster of ceil(D / 256) blocks (rank r: output columns
+// [256 r, 256 r + 256), the last block 128 where D is an odd multiple of
+// 128) takes a 128-row tile; the grid holds as many clusters as the card
+// runs at once, and cluster i walks row tiles i, i + gridDim.y, ... .
+namespace ol {
+constexpr int BM = 128, BN = 256, BH = 128, BK = 128, kStages = 3;
+constexpr int kConsumers = 2;               // warpgroups of 64 rows
+constexpr int kThreads = kConsumers * 128;  // thread 0 also issues the loads
+constexpr int kMaxCluster = 8;              // D <= 2048, a portable cluster
+constexpr int kABytes = BM * BK;            // 16 KB: the codes of one pair
+constexpr int kHBytes = BH * BK;            // 16 KB: wo's 128 columns of it, a half
+constexpr int kStageBytes = kABytes + 2 * kHBytes;
+constexpr int LDC = BH + 8;                 // staged output row (a half), bf16
+constexpr int kMaxPairs = 16;
+// from the 1024-aligned base: the ring, the staged half tile, two rounds of
+// every rank's row partials, two buffers of the tile's pair scales, the
+// block's cso, bo, g2 and b2, the barriers
+constexpr int kSmem = 1024 + kStages * kStageBytes + BM * LDC * 2 + 2 * kMaxCluster * BM * 4 +
+                      2 * kMaxPairs * BM * 4 + 4 * BN * 4 + 2 * kStages * 8;
+}  // namespace ol
+
+// Thread 0 streams each step's codes tile and the block's two weight halves
+// through the ring (step g: pair g % ksteps of the block's (g / ksteps)-th
+// row tile) and refills the stage of step g - 1 once both warpgroups have
+// released it, so that the next tile's first stages load during this
+// tile's epilogue (a producer warp would cap the block at 168 registers;
+// the two halves' accumulators take 128 a thread). A warpgroup multiplies
+// its 64 rows by each half in turn (m64n128k32 into one set of s32 sums)
+// and adds that half's sums into its f32 accumulator.
+__global__ void __launch_bounds__(ol::kThreads, 1)
+oproj_ln_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, D) int8
+                __grid_constant__ const CUtensorMap map_b,  // wo (D, D) int8, out x in
+                const float* __restrict__ sa,               // (M, D / 128) pair scales
+                const bf16* __restrict__ x,                 // (M, D) residual
+                const float* __restrict__ cso, const float* __restrict__ bo,
+                const float* __restrict__ g2, const float* __restrict__ b2,  // (D)
+                bf16* __restrict__ y, bf16* __restrict__ hout,               // (M, D)
+                int M, int D, float eps) {
+  using namespace ol;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hp::align_1024(smem_raw);                    // kStages x (A | B0 | B1)
+  bf16* cst = reinterpret_cast<bf16*>(ring + kStages * kStageBytes);  // BM x LDC
+  float* psum = reinterpret_cast<float*>(cst + BM * LDC);  // [rank][row]: Σ y
+  float* psq = psum + kMaxCluster * BM;                     // [rank][row]: Σ (y - mean)^2
+  float* sa_s = psq + kMaxCluster * BM;                     // [tile parity][row][pair]
+  float* cso_s = sa_s + 2 * kMaxPairs * BM;
+  float* bo_s = cso_s + BN;
+  float* g2_s = bo_s + BN;
+  float* b2_s = g2_s + BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b2_s + BN);
+  uint64_t* empty = full + kStages;
+
+  const uint32_t rank = hp::cluster_rank(), n_ranks = (D + BN - 1) / BN;
+  const int n0 = rank * BN, halves = D - n0 < BN ? 1 : 2;
+  const int ksteps = D / BK;  // one head pair a k step
+  const int n_tiles = (M + BM - 1) / BM;
+  const int n_steps = ksteps * ((n_tiles - static_cast<int>(blockIdx.y) +
+                                 static_cast<int>(gridDim.y) - 1) / static_cast<int>(gridDim.y));
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumers * 4);  // one arrival per warp
+    }
+    hp::mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < BN; i += kThreads) {
+    const bool in = n0 + i < D;
+    cso_s[i] = in ? cso[n0 + i] : 0.f;
+    bo_s[i] = in ? bo[n0 + i] : 0.f;
+    g2_s[i] = in ? g2[n0 + i] : 0.f;
+    b2_s[i] = in ? b2[n0 + i] : 0.f;
+  }
+  __syncthreads();
+  hp::cluster_arrive();  // every block of the cluster runs before a peer stores into it
+  hp::cluster_wait();
+
+  const auto issue = [&](int step) {  // (thread 0)
+    const int s = step % kStages, kk = step % ksteps;
+    const int m0 =
+        (static_cast<int>(blockIdx.y) + step / ksteps * static_cast<int>(gridDim.y)) * BM;
+    unsigned char* st = ring + s * kStageBytes;
+    hp::mbar_arrive_expect_tx(&full[s], kStageBytes);  // a half past D arrives as zeros
+    hp::tma_load_2d(st, &map_a, &full[s], kk * BK, m0);
+    hp::tma_load_2d(st + kABytes, &map_b, &full[s], kk * BK, n0);
+    hp::tma_load_2d(st + kABytes + kHBytes, &map_b, &full[s], kk * BK, n0 + BH);
+  };
+  const auto release = [&](int step) {
+    if (lane == 0) hp::mbar_arrive(&empty[step % kStages]);
+    if (threadIdx.x == 0 && step >= 1 && step - 1 + kStages < n_steps) {
+      hp::mbar_wait(&empty[(step - 1) % kStages], ((step - 1) / kStages) & 1);
+      issue(step - 1 + kStages);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int step = 0; step < kStages && step < n_steps; ++step) issue(step);
+
+  // this thread: rows r0 and r0 + 8 of each tile, columns
+  // 128 h + c0 + 8 j + {0, 1} of the block's (the accumulator layout of
+  // hopper.cuh; acc[h] the half h)
+  const int r0 = wg * 64 + (tid / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
+  float acc[2][BH / 2];
+
+  // The row sums of lo and hi over all D columns, every block and lane of
+  // the cluster adding the same terms in the same order: the four lanes of
+  // a row, then every rank's partial through its shared memory, taken by
+  // the four lanes in turn.
+  const auto exchange = [&](float* buf, float& lo, float& hi) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      lo += __shfl_xor_sync(0xffffffffu, lo, o);
+      hi += __shfl_xor_sync(0xffffffffu, hi, o);
+    }
+    for (uint32_t q = lane % 4; q < n_ranks; q += 4) {
+      hp::st_peer(buf + rank * BM + r0, q, lo);
+      hp::st_peer(buf + rank * BM + r0 + 8, q, hi);
+    }
+    hp::cluster_arrive();
+    hp::cluster_wait();
+    lo = 0.f;
+    hi = 0.f;
+    for (uint32_t q = lane % 4; q < n_ranks; q += 4) {
+      lo += buf[q * BM + r0];
+      hi += buf[q * BM + r0 + 8];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      lo += __shfl_xor_sync(0xffffffffu, lo, o);
+      hi += __shfl_xor_sync(0xffffffffu, hi, o);
+    }
+  };
+  // the staged half h of this warpgroup's 64 rows out to dst (M, D) with
+  // 16-byte stores: a thread keeps one 8-column chunk and walks every
+  // eighth row
+  const auto store_rows = [&](bf16* dst, int m0, int h) {
+    hp::named_barrier(1 + wg, 128);
+    constexpr int kChunks = BH / 8;
+    const int c = (tid % kChunks) * 8;
+    for (int r = wg * 64 + tid / kChunks; r < wg * 64 + 64; r += 128 / kChunks) {
+      if (m0 + r >= M) break;
+      *reinterpret_cast<uint4*>(dst + static_cast<long long>(m0 + r) * D + n0 + BH * h + c) =
+          *reinterpret_cast<const uint4*>(cst + r * LDC + c);
+    }
+    hp::named_barrier(1 + wg, 128);  // the rows are read before they are staged again
+  };
+
+  int step = 0;
+  for (int tile = blockIdx.y, parity = 0; tile < n_tiles; tile += gridDim.y, parity ^= 1) {
+    const int m0 = tile * BM, m_lo = m0 + r0, m_hi = m_lo + 8;
+    // the tile's pair scales into shared memory (rows past M: 0); a
+    // warpgroup is at most one tile ahead of the other
+    float* sa_t = sa_s + parity * kMaxPairs * BM;
+    for (int i = threadIdx.x; i < BM * ksteps; i += kThreads)
+      sa_t[i] = m0 + i / ksteps < M ? sa[static_cast<long long>(m0) * ksteps + i] : 0.f;
+    hp::named_barrier(3, kThreads);
+    // acc = x + bo (rows past M and columns past D: bo, never stored)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int jn = 0; jn < BH / 8; ++jn) {
+        const int c = BH * h + c0 + 8 * jn;
+        float2 x_lo = make_float2(0.f, 0.f), x_hi = x_lo;
+        if (h < halves && m_lo < M)
+          x_lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              x + static_cast<long long>(m_lo) * D + n0 + c));
+        if (h < halves && m_hi < M)
+          x_hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              x + static_cast<long long>(m_hi) * D + n0 + c));
+        const float2 bb = *reinterpret_cast<const float2*>(bo_s + c);
+        acc[h][4 * jn] = __fadd_rn(x_lo.x, bb.x);
+        acc[h][4 * jn + 1] = __fadd_rn(x_lo.y, bb.y);
+        acc[h][4 * jn + 2] = __fadd_rn(x_hi.x, bb.x);
+        acc[h][4 * jn + 3] = __fadd_rn(x_hi.y, bb.y);
+      }
+    }
+    for (int kk = 0; kk < ksteps; ++kk, ++step) {
+      const int s = step % kStages;
+      hp::mbar_wait(&full[s], (step / kStages) & 1);
+      const float sa_lo = sa_t[r0 * ksteps + kk], sa_hi = sa_t[(r0 + 8) * ksteps + kk];
+      const uint64_t da = hp::desc_sw128(ring + s * kStageBytes + wg * 64 * BK);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= halves) break;
+        const uint64_t db = hp::desc_sw128(ring + s * kStageBytes + kABytes + h * kHBytes);
+        int part[BH / 2];  // the half's s32 sums: the first wgmma ignores their values
+        hp::fence_regs(part);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int k32 = 0; k32 < BK / 32; ++k32)  // the pair's sums start from zero
+          hp::wgmma_m64n128k32_s8(part, da + 2 * k32, db + 2 * k32, k32 > 0 ? 1 : 0);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(part);
+        // acc + (sum * sa) * cso, each product and sum rounded on its own
+#pragma unroll
+        for (int jn = 0; jn < BH / 8; ++jn) {
+          const float2 cc = lds_f2(cso_s + BH * h + c0 + 8 * jn);
+          acc[h][4 * jn] = __fadd_rn(
+              acc[h][4 * jn], __fmul_rn(__fmul_rn(small_int_to_float(part[4 * jn]), sa_lo), cc.x));
+          acc[h][4 * jn + 1] =
+              __fadd_rn(acc[h][4 * jn + 1],
+                        __fmul_rn(__fmul_rn(small_int_to_float(part[4 * jn + 1]), sa_lo), cc.y));
+          acc[h][4 * jn + 2] =
+              __fadd_rn(acc[h][4 * jn + 2],
+                        __fmul_rn(__fmul_rn(small_int_to_float(part[4 * jn + 2]), sa_hi), cc.x));
+          acc[h][4 * jn + 3] =
+              __fadd_rn(acc[h][4 * jn + 3],
+                        __fmul_rn(__fmul_rn(small_int_to_float(part[4 * jn + 3]), sa_hi), cc.y));
+        }
+      }
+      release(step);
+    }
+
+    // LayerNorm2's statistics over all D columns: the mean, then the mean
+    // square of the deviations from it (the TPU kernels' _ln_f32)
+    float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h >= halves) break;
+#pragma unroll
+      for (int jn = 0; jn < BH / 8; ++jn) {
+        s_lo += acc[h][4 * jn] + acc[h][4 * jn + 1];
+        s_hi += acc[h][4 * jn + 2] + acc[h][4 * jn + 3];
+      }
+    }
+    exchange(psum, s_lo, s_hi);
+    const float mu_lo = s_lo / D, mu_hi = s_hi / D;
+    float q_lo = 0.f, q_hi = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h >= halves) break;
+#pragma unroll
+      for (int jn = 0; jn < BH / 8; ++jn) {
+        const float d0 = acc[h][4 * jn] - mu_lo, d1 = acc[h][4 * jn + 1] - mu_lo;
+        const float d2 = acc[h][4 * jn + 2] - mu_hi, d3 = acc[h][4 * jn + 3] - mu_hi;
+        q_lo += d0 * d0 + d1 * d1;
+        q_hi += d2 * d2 + d3 * d3;
+      }
+    }
+    exchange(psq, q_lo, q_hi);
+    const float rstd_lo = rsqrtf(q_lo / D + eps), rstd_hi = rsqrtf(q_hi / D + eps);
+
+    // y, then h = (y - mean) * rstd * g2 + b2 (the plain version's order),
+    // each staged as bf16 a half at a time and stored
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h >= halves) break;
+#pragma unroll
+      for (int jn = 0; jn < BH / 8; ++jn) {
+        const int c = c0 + 8 * jn;
+        *reinterpret_cast<uint32_t*>(cst + r0 * LDC + c) =
+            hp::pack_bf16(acc[h][4 * jn], acc[h][4 * jn + 1]);
+        *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) =
+            hp::pack_bf16(acc[h][4 * jn + 2], acc[h][4 * jn + 3]);
+      }
+      store_rows(y, m0, h);
+#pragma unroll
+      for (int jn = 0; jn < BH / 8; ++jn) {
+        const int c = c0 + 8 * jn;
+        const float2 gg = *reinterpret_cast<const float2*>(g2_s + BH * h + c);
+        const float2 bb = *reinterpret_cast<const float2*>(b2_s + BH * h + c);
+        const auto ln = [&](float v, float mu, float rstd, float w, float bias) {
+          return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), w), bias);
+        };
+        *reinterpret_cast<uint32_t*>(cst + r0 * LDC + c) =
+            hp::pack_bf16(ln(acc[h][4 * jn], mu_lo, rstd_lo, gg.x, bb.x),
+                          ln(acc[h][4 * jn + 1], mu_lo, rstd_lo, gg.y, bb.y));
+        *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) =
+            hp::pack_bf16(ln(acc[h][4 * jn + 2], mu_hi, rstd_hi, gg.x, bb.x),
+                          ln(acc[h][4 * jn + 3], mu_hi, rstd_hi, gg.y, bb.y));
+      }
+      store_rows(hout, m0, h);
+    }
+  }
+}
+
 }  // namespace
 
-extern "C" int tpa_ln_qkv_int8(const bf16* x, const float* ln_w, const float* ln_b,
-                               const int8_t* w, const float* cs, const float* bias, bf16* q,
-                               bf16* k, bf16* v, int batch, int T, int D, int H, float eps,
-                               cudaStream_t stream) {
-  if (D % lq8::BK || H % 2 || D != H * attn::HD) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = lq8::smem_bytes(D);
-  cudaError_t err = tpa::allow_smem(ln_qkv_int8_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int M = batch * T;
-  ln_qkv_int8_kernel<<<(M + lq8::BM - 1) / lq8::BM, lq8::kThreads, smem, stream>>>(
-      x, ln_w, ln_b, w, cs, bias, q, k, v, M, T, D, H, eps);
+namespace {
+
+// Launch s8_gemm_kernel<kHeads> on all SMs (or fewer blocks than tiles).
+template <bool kHeads>
+cudaError_t s8_gemm(const int8_t* a, const int8_t* w, const float* sa, const float* cs,
+                    const float* bias, const bf16* res, bf16* out, int M, int N, int K, int T,
+                    int H, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t dims_b[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(N)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(K)};
+  const uint32_t box_a[2] = {s8g::BK, s8g::BM}, box_b[2] = {s8g::BK, s8g::BN};
+  const auto kernel = s8_gemm_kernel<kHeads>;
+  cudaError_t err = hp::encode_map(&map_a, hp::kS8, a, 2, dims_a, strides, box_a);
+  if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kS8, w, 2, dims_b, strides, box_b);
+  if (err == cudaSuccess) err = tpa::allow_smem(kernel, s8g::kSmem);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + s8g::BN - 1) / s8g::BN * ((M + s8g::BM - 1) / s8g::BM);
+  kernel<<<tiles < sms ? tiles : sms, s8g::kThreads, s8g::kSmem, stream>>>(
+      map_a, map_b, sa, cs, bias, res, out, M, N, K, T, H);
+  return cudaGetLastError();
+}
+
+// A launch of `grid` blocks of `threads` in clusters of `cluster` blocks;
+// attr holds its one attribute.
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, dim3 grid, dim3 cluster,
+                                  int threads, int smem, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster.x;
+  attr->val.clusterDim.y = cluster.y;
+  attr->val.clusterDim.z = cluster.z;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t pair_codes(const bf16* q, const bf16* k, const bf16* v, int8_t* codes, float* scales,
+                       int batch, int T, int H, int t_valid, cudaStream_t stream) {
+  const int n_heads = batch * H;
+  CUtensorMap mq, mk, mv;  // the head-major layout as encoder_attention.py:tma_view's pre_bh
+  cudaError_t err = aw::encode_qkv_maps(&mq, &mk, &mv, q, k, v, n_heads, T, 1,
+                                        static_cast<long long>(T) * aw::HD, aw::HD, aw::HD);
+  if (err == cudaSuccess) err = tpa::allow_smem(pair_codes_kernel, pc::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(&attr, dim3((T + aw::BQ - 1) / aw::BQ, n_heads), dim3(1, 2, 1),
+                     aw::kThreads, pc::kSmem, stream);
+  return cudaLaunchKernelEx(&cfg, pair_codes_kernel, mq, mk, mv, codes, scales, T, H, t_valid);
+}
+
+// Launch oproj_ln_kernel, or, given `clusters`, report how many of its
+// clusters (ceil(D / 256) blocks each) the card holds at once instead.
+cudaError_t oproj_ln(const int8_t* codes, const int8_t* wo, const float* scales, const bf16* x,
+                     const float* cso, const float* bo, const float* g2, const float* b2, bf16* y,
+                     bf16* h, int M, int D, float eps, cudaStream_t stream, int* clusters) {
+  const unsigned n_ranks = (D + ol::BN - 1) / ol::BN;
+  cudaError_t err = tpa::allow_smem(oproj_ln_kernel, ol::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + ol::BM - 1) / ol::BM;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, dim3(n_ranks, tiles), dim3(n_ranks, 1, 1),
+                                          ol::kThreads, ol::kSmem, stream);
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, oproj_ln_kernel, &cfg);
+  if (err != cudaSuccess || clusters != nullptr) {
+    if (clusters != nullptr) *clusters = active;
+    return err;
+  }
+  if (active < 1) return cudaErrorLaunchOutOfResources;
+  cfg.gridDim.y = tiles < active ? tiles : active;
+  CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(M)};
+  const uint64_t dims_b[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(D)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(D)};
+  const uint32_t box[2] = {ol::BK, ol::BM};
+  err = hp::encode_map(&map_a, hp::kS8, codes, 2, dims_a, strides, box);
+  if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kS8, wo, 2, dims_b, strides, box);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, oproj_ln_kernel, map_a, map_b, scales, x, cso, bo, g2, b2, y, h,
+                            M, D, eps);
+}
+
+// D = 64 H in clusters of ceil(D / 256) blocks: H even, D at most 2048.
+bool oproj_width(int H) {
+  return H > 0 && H % 2 == 0 && H * aw::HD <= ol::kMaxCluster * ol::BN;
+}
+
+}  // namespace
+
+// ln_qkv_int8's two launches (the wrapper runs both; each alone serves the
+// checks): ln_quant_rows (x -> xq, sx, the caller's scratch), then the s8
+// GEMM with the head-major epilogue.
+extern "C" int tpa_ln_quant_rows(const bf16* x, const float* ln_w, const float* ln_b, int8_t* xq,
+                                 float* sx, int M, int D, float eps, cudaStream_t stream) {
+  if (D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  ln_quant_rows_kernel<<<(M + kQuantRows - 1) / kQuantRows, kQuantRows * 32, 0, stream>>>(
+      x, ln_w, ln_b, xq, sx, M, D, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpa_attn_oproj_ln_int8(const bf16* q, const bf16* k, const bf16* v,
-                                      const bf16* x, const int8_t* wo, const float* cso,
-                                      const float* bo, const float* g2, const float* b2, bf16* y,
-                                      bf16* h, int batch, int T, int H, int t_valid, float eps,
-                                      cudaStream_t stream) {
-  if (H % 2 || t_valid < 1 || t_valid > T) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = ao8::smem_bytes(H * attn::HD);
-  cudaError_t err = tpa::allow_smem(attn_oproj_ln_int8_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + attn::BQ - 1) / attn::BQ, batch);
-  attn_oproj_ln_int8_kernel<<<grid, attn::kThreads, smem, stream>>>(q, k, v, x, wo, cso, bo, g2,
-                                                                    b2, y, h, T, H, t_valid, eps);
-  return static_cast<int>(cudaGetLastError());
+// qkv: q, k and v (B, H, T, 64) one after the other.
+extern "C" int tpa_qkv_gemm_int8(const int8_t* xq, const float* sx, const int8_t* w,
+                                 const float* cs, const float* bias, bf16* qkv, int batch, int T,
+                                 int D, int H, cudaStream_t stream) {
+  if (D % s8g::BK || H % 2 || D != H * aw::HD) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      s8_gemm<true>(xq, w, sx, cs, bias, nullptr, qkv, batch * T, 3 * D, D, T, H, stream));
+}
+
+// attn_oproj_ln_int8's two launches: pair_codes (q, k, v -> codes, scales,
+// the caller's scratch), then oproj_ln.
+extern "C" int tpa_pair_codes(const bf16* q, const bf16* k, const bf16* v, int8_t* codes,
+                              float* scales, int batch, int T, int H, int t_valid,
+                              cudaStream_t stream) {
+  if (!oproj_width(H) || t_valid < 1 || t_valid > T) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(pair_codes(q, k, v, codes, scales, batch, T, H, t_valid, stream));
+}
+
+extern "C" int tpa_oproj_ln(const int8_t* codes, const float* scales, const bf16* x,
+                            const int8_t* wo, const float* cso, const float* bo, const float* g2,
+                            const float* b2, bf16* y, bf16* h, int M, int D, float eps,
+                            cudaStream_t stream) {
+  if (D % aw::HD || !oproj_width(D / aw::HD)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      oproj_ln(codes, wo, scales, x, cso, bo, g2, b2, y, h, M, D, eps, stream, nullptr));
+}
+
+// How many of oproj_ln's clusters (ceil(D / 256) blocks each) fit the card at once.
+extern "C" int tpa_oproj_ln_clusters(int* clusters, int H, cudaStream_t stream) {
+  if (!oproj_width(H)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(oproj_ln(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, ol::BM, H * aw::HD, 0.f, stream,
+                                   clusters));
 }
 
 namespace {
@@ -909,22 +1269,7 @@ extern "C" int tpa_fc1_gelu_int8_clusters(int* clusters, int D, int FF, cudaStre
 extern "C" int tpa_fc2_residual_int8(const int8_t* g, const float* sg, const bf16* y,
                                      const int8_t* w, const float* cs, const float* bias,
                                      bf16* out, int M, int D, int FF, cudaStream_t stream) {
-  if (D % 128 || FF % f2::BK) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_a, map_b;
-  const uint64_t dims_a[2] = {static_cast<uint64_t>(FF), static_cast<uint64_t>(M)};
-  const uint64_t dims_b[2] = {static_cast<uint64_t>(FF), static_cast<uint64_t>(D)};
-  const uint64_t strides[1] = {static_cast<uint64_t>(FF)};
-  const uint32_t box_a[2] = {f2::BK, f2::BM}, box_b[2] = {f2::BK, f2::BN};
-  cudaError_t err = hp::encode_map(&map_a, hp::kS8, g, 2, dims_a, strides, box_a);
-  if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kS8, w, 2, dims_b, strides, box_b);
-  if (err == cudaSuccess) err = tpa::allow_smem(fc2_gemm_kernel, f2::kSmem);
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (D + f2::BN - 1) / f2::BN * ((M + f2::BM - 1) / f2::BM);
-  fc2_gemm_kernel<<<tiles < sms ? tiles : sms, f2::kThreads, f2::kSmem, stream>>>(
-      map_a, map_b, sg, y, cs, bias, out, M, D, FF);
-  return static_cast<int>(cudaGetLastError());
+  if (D % 128 || FF % s8g::BK) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      s8_gemm<false>(g, w, sg, cs, bias, y, out, M, D, FF, 0, 0, stream));
 }

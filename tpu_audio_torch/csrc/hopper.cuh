@@ -1,5 +1,6 @@
 // Hopper (sm_90a) machinery shared by the TMA + wgmma kernels of
-// tpu_audio_torch (ln_qkv.cu, encoder_attention.cu, fused_encoder_int8.cu):
+// tpu_audio_torch (ln_qkv.cu, encoder_attention.cu, attention_wgmma.cuh,
+// fused_encoder_int8.cu):
 //
 //   host:   a 2-D or 4-D tensor map (bf16 or int8 elements) with a 128-byte
 //           swizzle, encoded by cuTensorMapEncodeTiled, looked up at run
@@ -93,6 +94,12 @@ constexpr CUtensorMapDataType kS8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte-aligned address at or after p in shared memory (a
+// kernel's dynamic shared memory holds 1024 bytes of slack for it).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -168,7 +168,7 @@ qkv_gemm_kernel(__grid_constant__ const CUtensorMap map_a,   // xn (M, D)
                 int M, int T, int D, int H) {
   using namespace lq;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (hp::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = hp::align_1024(smem_raw);
   unsigned char* ring = smem;                                        // kStages x (A | B)
   bf16* cst = reinterpret_cast<bf16*>(smem + kStages * kStageBytes);  // BM x LDC
   uint64_t* full = reinterpret_cast<uint64_t*>(cst + BM * LDC);

@@ -123,10 +123,11 @@ def ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 def attention_plain(q, k, v, t_valid: int, scale: float = 1.0) -> torch.Tensor:
     """Head-major q, k, v (…, T, hd) → the attention output (…, T, hd) in
-    f32, as the kernels compute it (`csrc/attention_tile.cuh`): f32 scores
-    times `scale` (1 where it is folded into q and k), keys ≥ t_valid
-    masked, f32 softmax, the exponentials rounded to v's dtype before the
-    value product, which sums in f32, and the division after it."""
+    f32, as the kernels compute it (`csrc/attention_tile.cuh`,
+    `csrc/attention_wgmma.cuh`): f32 scores times `scale` (1 where it is
+    folded into q and k), keys ≥ t_valid masked, f32 softmax, the
+    exponentials rounded to v's dtype before the value product, which sums
+    in f32, and the division after it."""
     scores = (q.float() @ k.float().transpose(-1, -2)) * scale   # (…, T, T)
     keys = torch.arange(q.shape[-2], device=q.device)
     scores = scores.masked_fill(keys >= t_valid, MASKED)
