@@ -69,7 +69,12 @@ Phases (any failure raises and the script exits non-zero):
      faults planted in the W4A8 kernels.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
-seven planted faults (a partial last row tile among them), the
+seven planted faults (a partial last row tile among them), `attn_oproj_ln`
+at t_valid 1, 1000 and 1500 and B=1 with ten (the tail row tile, a tile
+straddling two batches, each head's output in the next head's columns
+among them) and its two launches alone (`attn_heads`' scratch within rel
+2e-2, `oproj_ln` on the plain scratch within a bf16 ulp, with the last
+head's k-stage dropped and LayerNorm2 over one block planted), the
 encoder-attention kernel (both entries, all three layouts) at batch 16 and
 B=1 and at t_valid 1, 1000 and 1500, with five faults (the last partial key
 tile dropped among them), the four W8A8 encoder-block kernels against
@@ -461,21 +466,54 @@ def held_codes(name: str, got, ref, scale_rel: float, faults=()) -> None:
         log(f"control {name}, {label}: {text}: outside the limit")
 
 
-def within_ulp(name: str, got: torch.Tensor, ref: torch.Tensor, floor=None) -> None:
-    """Raise unless every value of got (bf16) is within one bf16 ulp of
-    ref's, the ulp taken at the larger of the two values and `floor` (a
-    tensor broadcast against them: the size of an addend that the value
-    may have cancelled)."""
+def ulps(got: torch.Tensor, ref: torch.Tensor, floor=None) -> torch.Tensor:
+    """|got - ref| in bf16 ulps, the ulp taken at the larger of the two
+    values and `floor` (a tensor broadcast against them: the size of an
+    addend that the value may have cancelled)."""
     g, r = got.float(), ref.float()
     big = torch.maximum(g.abs(), r.abs())
     if floor is not None:
         big = torch.maximum(big, floor.abs())
     big = big.clamp_min(torch.finfo(torch.bfloat16).tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
-    worst = ((g - r).abs() / ulp).max().item()
+    return (g - r).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
+def within_ulp(name: str, got: torch.Tensor, ref: torch.Tensor, floor=None) -> None:
+    """Raise unless every value of got (bf16) is within one bf16 ulp of
+    ref's (`ulps`)."""
+    worst = ulps(got, ref, floor).max().item()
     if not worst <= 1.0:
         raise AssertionError(f"{name}: {worst:.2f} bf16 ulps from the plain version")
     log(f"{name}: within {worst:.2f} bf16 ulp of the plain version")
+
+
+def tail_tile_unwritten(outs, t: int, heads: bool = False):
+    """outs (B, T, D), or head-major (B, H, T, hd) with `heads`, with the
+    rows of the last partial 128-row tile of the B·T rows left zero: a
+    kernel that never stores that tile."""
+    outs = [a.clone() for a in outs]
+    rows_m = outs[0].shape[0] * t
+    m = torch.arange(rows_m // 128 * 128, rows_m, device=outs[0].device)
+    for a in outs:
+        if heads:
+            a[m // t, :, m % t] = 0
+        else:
+            a.view(-1, a.shape[-1])[m] = 0
+    return outs
+
+
+def straddled_tiles(outs, t: int):
+    """outs (B, T, D) with the rows past each batch boundary of a 128-row
+    tile that straddles two batches taken from the batch before, at the
+    same t: a kernel that reads such a tile from its first row's batch."""
+    outs = [a.clone() for a in outs]
+    b = outs[0].shape[0]
+    for a in outs:
+        flat = a.view(b * t, -1)
+        for edge in range(t, b * t, t):
+            end = min(-(-edge // 128) * 128, b * t)
+            flat[edge:end] = flat[edge - t:end - t]
+    return outs
 
 
 def check_int8_encoder(model, randn, rows: list) -> None:
@@ -525,16 +563,6 @@ def check_int8_encoder(model, randn, rows: list) -> None:
             raise AssertionError(f"{name}: max |got - plain| {err:.3e}, not bit for bit")
         log(f"{name}: equal to the plain version bit for bit")
 
-    def unwritten_tail(outs, rows_m, heads=False):  # the last partial 128-row tile never stored
-        outs = [a.clone() for a in outs]
-        m = torch.arange(rows_m // 128 * 128, rows_m, device=outs[0].device)
-        for a in outs:
-            if heads:  # (B, H, T, hd)
-                a[m // t, :, m % t] = 0
-            else:      # (B, T, D)
-                a.view(-1, a.shape[-1])[m] = 0
-        return outs
-
     # ln_qkv_int8 at batch 16 (a half tile at the end) and B=1 (a partial
     # last tile of 92 rows): the whole entry (rel 2e-2), then its two
     # launches alone: LayerNorm1's codes and scales, and the GEMM on the
@@ -570,7 +598,7 @@ def check_int8_encoder(model, randn, rows: list) -> None:
             ("LayerNorm skipped", faulty(fe8, "_ln_f32", lambda x, w, b, eps: x, qkv_plain)),
             ("q and k written to each other's heads", lambda: (ref[1], ref[0], ref[2])),
             ("the last partial 128-row tile left unwritten",
-             lambda: unwritten_tail(ref, b * t, heads=True)),
+             lambda: tail_tile_unwritten(ref, t, heads=True)),
         ], rel=2e-2)
         qkv_times[b] = timed_pair(lambda: fe8.ln_qkv_int8(x_b, ln_w, ln_b, w_qkv, cs_qkv, b_qkv, h),
                                   qkv_plain, 10)
@@ -637,7 +665,7 @@ def check_int8_encoder(model, randn, rows: list) -> None:
         ("cso dropped", lambda: attn_plain(c=torch.ones_like(cso))),
         ("the residual dropped", lambda: attn_plain(x=torch.zeros_like(xa))),
         ("LN2 dropped (h = y)", lambda: (ref[0],) * 2),
-        ("the last partial 128-row tile left unwritten", lambda: unwritten_tail(ref, BATCH * t)),
+        ("the last partial 128-row tile left unwritten", lambda: tail_tile_unwritten(ref, t)),
     ], rel=2e-2)
     del got, ref
     # the key-tile edges (one valid key, all keys) and B=1 (a partial last
@@ -651,7 +679,7 @@ def check_int8_encoder(model, randn, rows: list) -> None:
                          for n, g, r in zip(("y", "h"), got, ref)))
         if b == 1 and tv == t_mask:
             planted_faults("attn_oproj_ln_int8 batch 1", got, [
-                ("the last partial 128-row tile left unwritten", lambda: unwritten_tail(ref, t))],
+                ("the last partial 128-row tile left unwritten", lambda: tail_tile_unwritten(ref, t))],
                 rel=2e-2)
         del got, ref
 
@@ -879,7 +907,13 @@ def check_encoder_kernels(model, cfg, randn, rows: list) -> None:
     """Phase 3, the bf16 fused encoder's kernels at block 0 of the
     large-v3-turbo weights, batch 16: `ln_qkv` (and `check_ln_qkv`) and
     `attn_oproj_ln`, each against its plain version, timed, with planted
-    faults."""
+    faults. `attn_oproj_ln` also on attention-sized inputs at t_valid 1,
+    1000 and 1500 and at B=1, and its two launches alone: `attn_heads`'
+    scratch against `attn_heads_plain` (rel 2e-2, cosine 0.999), `oproj_ln`
+    on the plain scratch (y and h within a bf16 ulp), each timed beside
+    SDPA or torch.matmul of its product."""
+    import torch.nn.functional as F
+
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
 
     # encoder block 0 at batch 16
@@ -915,16 +949,35 @@ def check_encoder_kernels(model, cfg, randn, rows: list) -> None:
               for n, g, r in zip(("y", "h"), got, ref))
     ms, pms = timed_pair(lambda: fe.attn_oproj_ln(*attn_args),
                          lambda: fe.attn_oproj_ln_plain(*attn_args), 5)
-    hd = d // cfg.n_audio_head
-    attn_roof = bound({"bf16": 4 * BATCH * cfg.n_audio_head * t_audio * t_audio * hd
-                       + 2 * m_rows * d * d}, nbytes(*attn_args[:8], *got))
-    del got, ref, attn_args, qkv_args, x
+    # each launch alone, beside SDPA on the same q, k, v and torch.matmul of
+    # the o-projection's product
+    h, hd = cfg.n_audio_head, d // cfg.n_audio_head
+    scratch = fe.attn_heads(*attn_args[:3], t_audio)
+    pass_ms = (time_ms(lambda: fe.attn_heads(*attn_args[:3], t_audio), 10),
+               time_ms(lambda: fe.oproj_ln(scratch, *attn_args[3:8]), 10))
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(*attn_args[:3], scale=1.0), 10)
+    flat = scratch.view(m_rows, d)
+    matmul = time_ms(lambda: torch.matmul(flat, wo.T), 10)
+    log(f"time attn_oproj_ln batch 16: {ms:.4f} ms = attn_heads {pass_ms[0]:.4f} (SDPA on the "
+        f"same q, k, v {sdpa:.4f}) + oproj_ln {pass_ms[1]:.4f} (torch.matmul ({m_rows}, {d}) x "
+        f"({d}, {d}) bf16 {matmul:.4f}) alone; oproj_ln: {fe.oproj_split(d)} blocks a cluster, "
+        f"cudaOccupancyMaxActiveClusters {fe.oproj_active_clusters(h, wo.device)}")
+    attn_roof = bound({"bf16": 4 * BATCH * h * t_audio * t_audio * hd + 2 * m_rows * d * d},
+                      nbytes(*attn_args[:8], *got))
+    for name, roof, t_pass in (
+            ("attn_heads", bound({"bf16": 4 * BATCH * h * t_audio * t_audio * hd},
+                                 nbytes(*attn_args[:3], scratch)), pass_ms[0]),
+            ("oproj_ln", bound({"bf16": 2 * m_rows * d * d},
+                               nbytes(scratch, *attn_args[3:8], *got)), pass_ms[1])):
+        log(f"bound attn_oproj_ln's {name}: {roof[0]:.4f} ms by {roof[1]}; alone {t_pass:.4f} ms "
+            f"= {roof[0] / t_pass:.3f} of the bound")
+    del got, ref, attn_args, qkv_args, x, scratch, flat
 
     # In the block above the attention adds ~1 % to the residual x, so y and
     # h would read inside the limit with the attention wrong. Here the
     # attention term is as large as x and the bias: peaked scores (q.k std
     # ~2), unit-variance values, keys >= 1000 masked, x and bias std 0.1.
-    hshape = (BATCH, cfg.n_audio_head, t_audio, d // cfg.n_audio_head)
+    hshape = (BATCH, h, t_audio, hd)
     qa, ka = (randn(*hshape, dtype=torch.bfloat16, scale=0.5) for _ in range(2))
     va = randn(*hshape, dtype=torch.bfloat16)
     xa = randn(BATCH, t_audio, d, dtype=torch.bfloat16, scale=0.1)
@@ -934,9 +987,15 @@ def check_encoder_kernels(model, cfg, randn, rows: list) -> None:
     def plain(q=qa, k=ka, v=va, x=xa, w=wo, b=boa, t_valid=t_mask):
         return fe.attn_oproj_ln_plain(q, k, v, x, w, b, g2, b2, t_valid)
 
+    scr_ref = fe.attn_heads_plain(qa, ka, va, t_mask)
+
+    def from_scratch(a):  # the second pass on a scratch with a fault
+        return fe.oproj_ln_plain(a, xa, wo, boa, g2, b2)
+
     got = fe.attn_oproj_ln(qa, ka, va, xa, wo, boa, g2, b2, t_mask)
+    ref = plain()
     err = max(err, *(compare(f"attn_oproj_ln {n}, attention-sized inputs, t_valid {t_mask}",
-                             g, r, rel=2e-2) for n, g, r in zip(("y", "h"), got, plain())))
+                             g, r, rel=2e-2) for n, g, r in zip(("y", "h"), got, ref)))
     planted_faults("attn_oproj_ln", got, [
         ("the attention dropped", lambda: plain(v=torch.zeros_like(va))),
         ("wo untransposed", lambda: plain(w=wo.T.contiguous())),
@@ -944,13 +1003,82 @@ def check_encoder_kernels(model, cfg, randn, rows: list) -> None:
         ("each head given the next head's values", lambda: plain(v=va.roll(1, dims=1))),
         ("the bias dropped", lambda: plain(b=torch.zeros_like(boa))),
         ("the residual dropped", lambda: plain(x=torch.zeros_like(xa))),
-        ("LN2 dropped (h = y)", lambda: (plain()[0],) * 2),
+        ("LN2 dropped (h = y)", lambda: (ref[0],) * 2),
+        ("the last partial 128-row tile left unwritten", lambda: tail_tile_unwritten(ref, t_audio)),
+        ("the rows of each 128-row tile that straddles two batches read from the batch "
+         "before", lambda: straddled_tiles(ref, t_audio)),
+        ("each head's output written to the next head's columns",
+         lambda: from_scratch(scr_ref.roll(hd, dims=-1))),
     ], rel=2e-2)
+    del got, ref
+    # the key-tile edges (one valid key, all keys) and B=1 (a partial last
+    # row tile of 92 rows)
+    for b, tv in ((BATCH, 1), (BATCH, t_audio), (1, 1), (1, t_mask), (1, t_audio)):
+        one = (qa[:b], ka[:b], va[:b], xa[:b])
+        got = fe.attn_oproj_ln(*one, wo, boa, g2, b2, tv)
+        ref = fe.attn_oproj_ln_plain(*one, wo, boa, g2, b2, tv)
+        err = max(err, *(compare(f"attn_oproj_ln {n} ({b}, {t_audio}, {d}), attention-sized "
+                                 f"inputs, t_valid {tv}", g, r, rel=2e-2)
+                         for n, g, r in zip(("y", "h"), got, ref)))
+        if b == 1 and tv == t_mask:
+            planted_faults("attn_oproj_ln batch 1", got, [
+                ("the last partial 128-row tile left unwritten",
+                 lambda: tail_tile_unwritten(ref, t_audio))], rel=2e-2)
+        del got, ref
+
+    # its two launches alone: the scratch against attn_heads_plain (rel 2e-2,
+    # cosine 0.999, the share more than one bf16 step off reported); the
+    # o-projection on the plain scratch: y within one bf16 ulp and h within
+    # one ulp at the size of the terms it adds and subtracts
+    for b in (BATCH, 1):
+        qkv_b = (qa[:b], ka[:b], va[:b])
+        scr_b = scr_ref[:b]
+        scr = fe.attn_heads(*qkv_b, t_mask)
+        compare(f"attn_heads ({b}, {t_audio}, {d}) bf16 scratch, t_valid {t_mask}", scr, scr_b,
+                rel=2e-2)
+        log(f"attn_heads batch {b}: {(ulps(scr, scr_b) > 1).float().mean().item():.3e} of the "
+            "entries more than one bf16 step from the plain version")
+        planted_faults(f"attn_heads batch {b}", (scr,), [
+            ("each head's output written to the next head's columns",
+             lambda: (scr_b.roll(hd, dims=-1),))], rel=2e-2)
+        oproj_args = (scr_b, xa[:b], wo, boa, g2, b2)
+        got = fe.oproj_ln(*oproj_args)
+        ref = fe.oproj_ln_plain(*oproj_args)
+        # the kernel and the plain version sum the product's D terms in
+        # another order, in f32: where y cancels them, that last-bit
+        # difference is one at the size of the terms, so y's ulp is taken at
+        # least at the row's RMS of the product, and h's at least at that
+        # times g2 · rstd, at the normalised mean and at b2
+        prod_rms = (scr_b.float() @ wo.float().T).square().mean(-1, keepdim=True).sqrt()
+        within_ulp(f"oproj_ln y on the plain scratch, batch {b}", got[0], ref[0],
+                   floor=prod_rms)
+        yf = ref[0].float()
+        rstd = torch.rsqrt(yf.var(-1, unbiased=False, keepdim=True) + 1e-5)
+        terms = torch.maximum((yf.mean(-1, keepdim=True) * g2 * rstd).abs(), b2.abs())
+        within_ulp(f"oproj_ln h on the plain scratch, batch {b}", got[1], ref[1],
+                   floor=torch.maximum(terms, (g2 * rstd * prod_rms).abs()))
+        last_head = scr_b.clone()
+        last_head[..., -hd:] = 0
+
+        def block_ln(oproj_args=oproj_args, ref=ref):  # each block's 256 columns alone
+            a, xb = oproj_args[:2]
+            yb = xb.float() + boa + a.float() @ wo.float().T
+            hb = torch.cat([F.layer_norm(yp, (yp.shape[-1],), w, bb, 1e-5) for yp, w, bb in
+                            zip(yb.split(256, -1), g2.split(256), b2.split(256))], -1)
+            return ref[0], hb.to(torch.bfloat16)
+
+        planted_faults(f"oproj_ln batch {b}", got, [
+            ("the last head's k-stage dropped",
+             lambda oproj_args=oproj_args: fe.oproj_ln_plain(last_head, *oproj_args[1:])),
+            ("LayerNorm2's statistics over one block of the cluster (256 columns)", block_ln),
+        ], rel=2e-2)
+        del got, ref, scr, last_head
     rows.append(kernel_row("attn_oproj_ln", "tpu_audio_torch/csrc/fused_encoder.cu",
                            "tpu_audio/ops/pallas/fused_encoder.py:207", err, ms, pms, attn_roof,
                            None, "no one PyTorch call computes attention, o-projection and "
-                           "LayerNorm; scaled_dot_product_attention is the attention alone"))
-    del got, qa, ka, va, xa
+                           f"LayerNorm; SDPA on its q, k, v {sdpa:.4f} ms, torch.matmul of its "
+                           f"product {matmul:.4f} ms"))
+    del qa, ka, va, xa, scr_ref
 
 
 def check_encoder_attention(cfg, randn, rows: list) -> None:
@@ -2582,7 +2710,8 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
 # them, and whether each issues wgmma
 HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
-                  "encoder_attention_kernel": True, "quant_rows_kernel": False,
+                  "encoder_attention_kernel": True, "attn_heads_kernel": True,
+                  "oproj_ln_bf16_kernel": True, "quant_rows_kernel": False,
                   "ln_quant_rows_kernel": False, "fc1_gemm_kernel": True,
                   "s8_gemm_kernel": True, "pair_codes_kernel": True, "oproj_ln_kernel": True}
 

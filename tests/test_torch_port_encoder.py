@@ -1,5 +1,6 @@
 """PyTorch port, Whisper encoder: the layers and the fused encoder-block
-phases (ln_qkv, attn_oproj_ln) against the JAX package, in f32 on the CPU.
+phases (ln_qkv, attn_oproj_ln) against the JAX package, in f32 on the CPU,
+and at bf16 the rounding of their plain versions against the JAX kernels'.
 
 The JAX fused-encoder kernels run in interpret mode, as
 tests/test_pallas_kernels.py runs them. Their q/k/v are pair-packed
@@ -155,6 +156,46 @@ def test_block_phases_match_pallas(rng, t, k_bias):
                                 ln2["bias"], t_valid=t)
         np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
         np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+
+
+def test_bf16_plain_versions_round_once_as_the_tpu_kernels(rng):
+    """At bf16, ln_qkv_plain and attn_oproj_ln_plain keep each matrix product
+    in f32 until the bias or the residual is added and round once, as the
+    TPU kernels do (preferred_element_type=f32): at most 1 % of the q, k, v,
+    y and h entries differ from the JAX kernels in interpret mode. A product
+    rounded to bf16 before the addition moves 15-27 % of them by a bf16
+    step. attn_oproj_ln_plain takes the JAX kernel's q, k, v, so that each
+    phase is held alone."""
+    b, t, d, n_heads = 2, 256, 256, 4
+    p = block_params(rng, d)
+    x = (rng.standard_normal((b, t, d)) * 0.3).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jp = to_jax(p)
+    jq, jk, jv = jfe.ln_qkv_packed(jx, jp["ln1"], jp["attn"], n_heads, block_t=128,
+                                   interpret=True)
+    jy, jh = jfe.attn_oproj_ln(jq, jk, jv, jx, jp["attn"]["o"], jp["ln2"], t_valid=t,
+                               block_q=128, interpret=True)
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    def bf16(a):
+        return torch.from_numpy(np.array(a)).to(torch.bfloat16)
+
+    tp = params_from_numpy(p, device="cpu")
+    w, bias = fe.pack_qkv_weights(tp["attn"], n_heads, torch.bfloat16)
+    tx = bf16(f32(jx))
+    qkv = fe.ln_qkv_plain(tx, tp["ln1"]["weight"], tp["ln1"]["bias"], w, bias, n_heads)
+    o, ln2 = tp["attn"]["o"], tp["ln2"]
+    qkv_jax = [bf16(packed_to_head_major(f32(a), t)) for a in (jq, jk, jv)]
+    y, h = fe.attn_oproj_ln_plain(*qkv_jax, tx, o["weight"].to(torch.bfloat16), o["bias"],
+                                  ln2["weight"], ln2["bias"], t_valid=t)
+    pairs = [*zip("qkv", qkv, (packed_to_head_major(f32(a), t) for a in (jq, jk, jv))),
+             ("y", y, f32(jy)), ("h", h, f32(jh))]
+    for name, got, ref in pairs:
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+        share = float(np.mean(got.float().numpy() != ref))
+        assert share <= 0.01, f"{name}: {share:.2%} of the entries differ from JAX"
 
 
 def test_attn_oproj_ln_masks_keys_past_t_valid(rng):

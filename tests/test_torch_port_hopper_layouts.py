@@ -1,6 +1,6 @@
 """PyTorch port, the Python side of the TMA + wgmma kernels of
 `tpu_audio_torch/csrc/` (`ln_qkv.cu`, `encoder_attention.cu`,
-`fused_encoder_int8.cu`) on the CPU:
+`fused_encoder.cu`, `fused_encoder_int8.cu`) on the CPU:
 
 - `encoder_attention.tma_view`, the tensor-map description of each
   attention layout, read the way the TMA unit reads it ((64, 1, 128, 1)
@@ -20,8 +20,12 @@
   bit, keys past t_valid masked; `oproj_ln_int8_plain`, its second pass,
   against the TPU kernel's accumulation written in JAX: y bit for bit, h
   to the last bits of the LayerNorm;
+- `attn_heads_plain` and `oproj_ln_plain`, the passes of the bf16
+  `attn_oproj_ln`: composed, its plain version bit for bit (and so are the
+  CPU wrappers); the second against the TPU kernel's f32 accumulation
+  written in JAX;
 - `fc1_split` and `oproj_split`, the cluster splits of FF and of D, take
-  every Whisper width;
+  every Whisper width, for both o-projections;
 - the wrappers refuse the shapes they refuse without launching anything,
   and launch what they accept with the scratch of their two passes.
 """
@@ -241,6 +245,73 @@ def test_oproj_ln_int8_plain_matches_the_tpu_accumulation(rng):
     np.testing.assert_allclose(h.float().numpy(), jh, rtol=2 ** -7, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_oproj_ln_plain_is_its_two_passes(rng, dtype):
+    """The bf16 attn_oproj_ln's passes: `attn_heads_plain` puts head h's
+    attention output, rounded to the input dtype, in columns [64 h, 64 h +
+    64) of a token-major (B, T, D) tensor, keys past t_valid masked;
+    `oproj_ln_plain` on it gives `attn_oproj_ln_plain` bit for bit, and so
+    do the CPU wrappers of the entry and of each pass."""
+    b, t, t_valid, d = 2, 40, 25, H * HD
+    q, k, v = (a.to(dtype) for a in attention_inputs(rng, b, t))
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(dtype)
+    wo = torch.from_numpy((rng.standard_normal((d, d)) * 0.05).astype(np.float32)).to(dtype)
+    bo, g2, b2 = (torch.from_numpy(a.astype(np.float32)) for a in (
+        0.1 * rng.standard_normal(d), 1 + 0.1 * rng.standard_normal(d),
+        0.1 * rng.standard_normal(d)))
+    attn = fe.attn_heads_plain(q, k, v, t_valid)
+    assert attn.dtype == dtype and tuple(attn.shape) == (b, t, d)
+    r = fe.attention_plain(q, k, v, t_valid).to(dtype)
+    for hh in range(H):
+        assert torch.equal(attn[..., hh * HD:(hh + 1) * HD], r[:, hh])
+    ref = fe.attn_oproj_ln_plain(q, k, v, x, wo, bo, g2, b2, t_valid)
+    for got in (fe.oproj_ln_plain(attn, x, wo, bo, g2, b2),
+                fe.oproj_ln(fe.attn_heads(q, k, v, t_valid), x, wo, bo, g2, b2),
+                fe.attn_oproj_ln(q, k, v, x, wo, bo, g2, b2, t_valid)):
+        assert all(torch.equal(g, e) and g.dtype == dtype for g, e in zip(got, ref))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, t_valid:] = 50.0
+    v2[:, :, t_valid:] = -50.0
+    assert torch.equal(fe.attn_heads_plain(q, k2, v2, t_valid), attn)
+
+
+def test_oproj_ln_plain_matches_the_tpu_accumulation(rng):
+    """The bf16 attn_oproj_ln's second pass at f32 against the TPU kernel's
+    accumulation written in JAX: acc = x + bo, then pair by pair acc += the
+    pair's 128 attention columns · wo's 128 input channels of the pair
+    (preferred_element_type f32); y = acc and h = `_ln_f32(acc)`, to the
+    last bits of f32 sums taken in another order."""
+    b, t, d = 2, 37, H * HD
+    attn, x = (rng.standard_normal((b, t, d)).astype(np.float32) for _ in range(2))
+    wo = (rng.standard_normal((d, d)) * 0.05).astype(np.float32)
+    bo, g2, b2 = ((0.1 * rng.standard_normal(d)).astype(np.float32),
+                  (1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+                  (0.1 * rng.standard_normal(d)).astype(np.float32))
+    y, h = fe.oproj_ln_plain(*map(torch.from_numpy, (attn, x, wo, bo, g2, b2)))
+    acc = jnp.asarray(x) + bo
+    for g in range(H // 2):
+        cols = slice(g * 128, (g + 1) * 128)
+        acc = acc + jnp.einsum("btk,nk->btn", jnp.asarray(attn[..., cols]),
+                               jnp.asarray(wo[:, cols]), preferred_element_type=jnp.float32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(acc), rtol=1e-5, atol=1e-5)
+    jh = np.asarray(jfe._ln_f32(acc, jnp.asarray(g2), jnp.asarray(b2), 1e-5))
+    np.testing.assert_allclose(h.numpy(), jh, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_bf16_oproj_split_takes_every_whisper_width(preset):
+    """The bf16 o-projection splits each Whisper width as the int8 one does
+    (one rule): hd 64, D = 64 H a multiple of 128, one cluster of ceil(D /
+    256) blocks covering D; the heads of a width with no split refused."""
+    cfg = PRESETS[preset]
+    d, heads = cfg.n_audio_state, cfg.n_audio_head
+    assert d == heads * HD and fe8.oproj_split is fe.oproj_split
+    blocks = fe.oproj_split(d)
+    assert blocks == {384: 2, 512: 2, 768: 3, 1024: 4, 1280: 5}[d]
+    assert blocks * 256 - d in (0, 128) and blocks <= fe.OPROJ_CLUSTER_MAX
+    assert fe.oproj_split(d + 64) is None and fe.oproj_split(0) is None
+
+
 @pytest.mark.parametrize("preset", list(PRESETS))
 def test_oproj_split_takes_every_whisper_width(preset):
     """Each Whisper width D splits into one cluster of ceil(D / 256) blocks
@@ -287,6 +358,13 @@ def attn8_args(heads=20, t=1500, x_d=None, wo_d=None):
     return (*attn_args((2, heads, t, HD)), meta(2, t, x_d or d), meta(wo_d or d, wo_d or d,
                                                                        dtype=torch.int8),
             *(meta(d, dtype=torch.float32) for _ in range(4)))
+
+
+def oproj_args(d=1280, t=1500, x_d=None, wo_d=None, wo_int8=False):
+    """x, wo, bo, ln2_w, ln2_b of the bf16 attn_oproj_ln at width D."""
+    return (meta(2, t, x_d or d), meta(wo_d or d, wo_d or d,
+                                       dtype=torch.int8 if wo_int8 else torch.bfloat16),
+            *(meta(d, dtype=torch.float32) for _ in range(3)))
 
 
 def fc2_args(d=1280, ff=5120):
@@ -344,6 +422,27 @@ REFUSED = {
     "oproj_ln_int8 scales not one a head pair": lambda: fe8.oproj_ln_int8(
         meta(2, 1500, 1280, dtype=torch.int8), meta(2, 1500, 20, dtype=torch.float32),
         *attn8_args()[3:]),
+    "attn_oproj_ln hd 32": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 20, 700, 32)), *oproj_args(640, t=700), t_valid=700),
+    "attn_oproj_ln D an odd multiple of 64": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 5, 700, HD)), *oproj_args(320, t=700), t_valid=700),
+    "attn_oproj_ln D past 2048": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 34, 700, HD)), *oproj_args(34 * HD, t=700), t_valid=700),
+    "attn_oproj_ln t_valid 0": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 20, 1500, HD)), *oproj_args(), t_valid=0),
+    "attn_oproj_ln t_valid past T": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 20, 1500, HD)), *oproj_args(), t_valid=1501),
+    "attn_oproj_ln x of another width": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 20, 1500, HD)), *oproj_args(x_d=1024), t_valid=1500),
+    "attn_oproj_ln wo of another width": lambda: fe.attn_oproj_ln(
+        *attn_args((2, 20, 1500, HD)), *oproj_args(wo_d=1024), t_valid=1500),
+    "attn_heads t_valid 0": lambda: fe.attn_heads(*attn_args((2, 20, 1500, HD)), 0),
+    "attn_heads hd 128": lambda: fe.attn_heads(*attn_args((2, 10, 1500, 128)), 1500),
+    "oproj_ln attention output of another shape": lambda: fe.oproj_ln(
+        meta(2, 1499, 1280), *oproj_args()),
+    "oproj_ln D without a split": lambda: fe.oproj_ln(meta(2, 1500, 320),
+                                                      *oproj_args(320)),
+    "oproj_ln int8 weight": lambda: fe.oproj_ln(meta(2, 1500, 1280), *oproj_args(wo_int8=True)),
 }
 
 
@@ -354,6 +453,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(_build, "require_cuda", lambda name, *tensors: tensors[0].device)
     calls = []
     monkeypatch.setattr(fe, "_LN_QKV", lambda *a: calls.append("ln_qkv"))
+    for name in ("_ATTN_HEADS", "_OPROJ"):
+        monkeypatch.setattr(fe, name, lambda *a, name=name: calls.append(f"fe.{name}"))
     monkeypatch.setattr(ea, "_KERNEL", lambda *a: calls.append("encoder_attention"))
     monkeypatch.setattr(fe8, "_FC1", lambda *a: calls.append("fc1_gelu_int8"))
     monkeypatch.setattr(fe8, "_FC2", lambda *a: calls.append("fc2_residual_int8"))
@@ -364,11 +465,15 @@ def fake_card(monkeypatch):
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_wrappers_refuse_without_launching(fake_card, case):
-    before = {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES, **fe8.PASS_LAUNCHES}
+    def counts():
+        return [dict(c) for c in (fe.LAUNCHES, fe.PASS_LAUNCHES, ea.LAUNCHES, fe8.LAUNCHES,
+                                  fe8.PASS_LAUNCHES)]
+
+    before = counts()
     with pytest.raises(ValueError):
         REFUSED[case]()
     assert fake_card == []
-    assert {**fe.LAUNCHES, **ea.LAUNCHES, **fe8.LAUNCHES, **fe8.PASS_LAUNCHES} == before
+    assert counts() == before
 
 
 def test_wrappers_launch_what_they_accept(fake_card, monkeypatch):
@@ -441,3 +546,34 @@ def test_int8_attention_wrappers_launch_their_two_passes(fake_card, monkeypatch,
                        meta(3 * d, dtype=torch.float32), (2, t, d), heads)
     assert fe8.PASS_LAUNCHES == dict.fromkeys(fe8.PASS_LAUNCHES, 1)
     assert fe8.LAUNCHES["ln_qkv_int8"] == fe8.LAUNCHES["attn_oproj_ln_int8"] == 1
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_bf16_attention_wrapper_launches_its_two_passes(fake_card, monkeypatch, preset):
+    """The control of the bf16 attn_oproj_ln refusals above, at every Whisper
+    width: the entry runs attn_heads, then oproj_ln on the (B, T, D) bf16
+    scratch that attn_heads wrote, counts one launch in LAUNCHES, and its
+    passes called alone count in PASS_LAUNCHES only."""
+    monkeypatch.setattr(fe, "LAUNCHES", dict.fromkeys(fe.LAUNCHES, 0))
+    monkeypatch.setattr(fe, "PASS_LAUNCHES", dict.fromkeys(fe.PASS_LAUNCHES, 0))
+    seen = {}
+    for name in ("_ATTN_HEADS", "_OPROJ"):
+        monkeypatch.setattr(fe, name, lambda dev, *a, name=name: (fake_card.append(name),
+                                                                  seen.setdefault(name, a)))
+    cfg = PRESETS[preset]
+    d, heads, t = cfg.n_audio_state, cfg.n_audio_head, 1500
+    qkv = attn_args((2, heads, t, HD))
+    y, h = fe.attn_oproj_ln(*qkv, *oproj_args(d), t_valid=1000)
+    assert tuple(y.shape) == tuple(h.shape) == (2, t, d) and y.dtype == h.dtype == torch.bfloat16
+    attn = seen["_ATTN_HEADS"][3]
+    assert (attn.dtype, tuple(attn.shape)) == (torch.bfloat16, (2, t, d))
+    assert seen["_ATTN_HEADS"][4:] == (2, t, heads, 1000)
+    assert seen["_OPROJ"][0] is attn and seen["_OPROJ"][6] is y and seen["_OPROJ"][7] is h
+    assert seen["_OPROJ"][8:10] == (2 * t, d)
+    assert fake_card == ["_ATTN_HEADS", "_OPROJ"]
+    assert fe.LAUNCHES == {"ln_qkv": 0, "attn_oproj_ln": 1}
+    assert fe.PASS_LAUNCHES == {"attn_heads": 0, "oproj_ln": 0}
+    fe.attn_heads(*qkv, t)
+    fe.oproj_ln(attn, *oproj_args(d))
+    assert fe.PASS_LAUNCHES == {"attn_heads": 1, "oproj_ln": 1}
+    assert fe.LAUNCHES["attn_oproj_ln"] == 1

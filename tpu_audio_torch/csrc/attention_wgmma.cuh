@@ -1,5 +1,6 @@
 // The TMA + wgmma attention main loop of one (head, 128 query rows) block,
-// shared by encoder_attention.cu (which stores O / l in bf16) and
+// shared by encoder_attention.cu (which stores O / l in bf16),
+// fused_encoder.cu's attn_heads (which stores it in bf16, token-major) and
 // fused_encoder_int8.cu's pair_codes (which codes O / l in int8 per head
 // pair). The design and its bound are described in encoder_attention.cu.
 //

@@ -31,7 +31,8 @@
 // bf16 in registers and is the register A operand of wgmma m64n64k16
 // against V in its natural (keys x hd) layout, read transposed. O stays in
 // registers to the end (the loop is attention_wgmma.cuh's `attend`, which
-// fused_encoder_int8.cu's pair_codes shares). A warpgroup waits for each
+// fused_encoder.cu's attn_heads and fused_encoder_int8.cu's pair_codes
+// share). A warpgroup waits for each
 // product before it goes on; the four warpgroups of an SM overlap each
 // other's softmax and products. 256 threads at 112 registers let two
 // blocks share an SM (83 KB of shared memory each); a separate producer

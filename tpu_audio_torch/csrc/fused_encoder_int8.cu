@@ -119,10 +119,12 @@
 #include "attention_wgmma.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
+#include "oproj_ln.cuh"
 
 using bf16 = __nv_bfloat16;
 namespace hp = tpa::hopper;
 namespace aw = tpa::attn_wgmma;
+namespace op = tpa::oproj;
 
 namespace {
 
@@ -759,12 +761,13 @@ pair_codes_kernel(__grid_constant__ const CUtensorMap map_q,  // head-major (B*H
 // oproj_ln: a cluster of ceil(D / 256) blocks (rank r: output columns
 // [256 r, 256 r + 256), the last block 128 where D is an odd multiple of
 // 128) takes a 128-row tile; the grid holds as many clusters as the card
-// runs at once, and cluster i walks row tiles i, i + gridDim.y, ... .
+// runs at once, and cluster i walks row tiles i, i + gridDim.y, ...
+// (oproj_ln.cuh, shared with the bf16 o-projection).
 namespace ol {
-constexpr int BM = 128, BN = 256, BH = 128, BK = 128, kStages = 3;
+constexpr int BM = op::BM, BN = op::BN, BH = 128, BK = 128, kStages = 3;
 constexpr int kConsumers = 2;               // warpgroups of 64 rows
 constexpr int kThreads = kConsumers * 128;  // thread 0 also issues the loads
-constexpr int kMaxCluster = 8;              // D <= 2048, a portable cluster
+constexpr int kMaxCluster = op::kMaxCluster;
 constexpr int kABytes = BM * BK;            // 16 KB: the codes of one pair
 constexpr int kHBytes = BH * BK;            // 16 KB: wo's 128 columns of it, a half
 constexpr int kStageBytes = kABytes + 2 * kHBytes;
@@ -859,47 +862,13 @@ oproj_ln_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, D) int8
   const int r0 = wg * 64 + (tid / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
   float acc[2][BH / 2];
 
-  // The row sums of lo and hi over all D columns, every block and lane of
-  // the cluster adding the same terms in the same order: the four lanes of
-  // a row, then every rank's partial through its shared memory, taken by
-  // the four lanes in turn.
+  // the row sums of lo and hi over all D columns through the cluster
   const auto exchange = [&](float* buf, float& lo, float& hi) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      lo += __shfl_xor_sync(0xffffffffu, lo, o);
-      hi += __shfl_xor_sync(0xffffffffu, hi, o);
-    }
-    for (uint32_t q = lane % 4; q < n_ranks; q += 4) {
-      hp::st_peer(buf + rank * BM + r0, q, lo);
-      hp::st_peer(buf + rank * BM + r0 + 8, q, hi);
-    }
-    hp::cluster_arrive();
-    hp::cluster_wait();
-    lo = 0.f;
-    hi = 0.f;
-    for (uint32_t q = lane % 4; q < n_ranks; q += 4) {
-      lo += buf[q * BM + r0];
-      hi += buf[q * BM + r0 + 8];
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      lo += __shfl_xor_sync(0xffffffffu, lo, o);
-      hi += __shfl_xor_sync(0xffffffffu, hi, o);
-    }
+    op::cluster_row_sums(buf, lo, hi, rank, n_ranks, r0);
   };
-  // the staged half h of this warpgroup's 64 rows out to dst (M, D) with
-  // 16-byte stores: a thread keeps one 8-column chunk and walks every
-  // eighth row
+  // the staged half h of this warpgroup's 64 rows out to dst (M, D)
   const auto store_rows = [&](bf16* dst, int m0, int h) {
-    hp::named_barrier(1 + wg, 128);
-    constexpr int kChunks = BH / 8;
-    const int c = (tid % kChunks) * 8;
-    for (int r = wg * 64 + tid / kChunks; r < wg * 64 + 64; r += 128 / kChunks) {
-      if (m0 + r >= M) break;
-      *reinterpret_cast<uint4*>(dst + static_cast<long long>(m0 + r) * D + n0 + BH * h + c) =
-          *reinterpret_cast<const uint4*>(cst + r * LDC + c);
-    }
-    hp::named_barrier(1 + wg, 128);  // the rows are read before they are staged again
+    op::store_staged_rows<BH>(cst, LDC, dst, m0, n0 + BH * h, M, D);
   };
 
   int step = 0;
@@ -1017,15 +986,12 @@ oproj_ln_kernel(__grid_constant__ const CUtensorMap map_a,  // codes (M, D) int8
         const int c = c0 + 8 * jn;
         const float2 gg = *reinterpret_cast<const float2*>(g2_s + BH * h + c);
         const float2 bb = *reinterpret_cast<const float2*>(b2_s + BH * h + c);
-        const auto ln = [&](float v, float mu, float rstd, float w, float bias) {
-          return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mu), rstd), w), bias);
-        };
         *reinterpret_cast<uint32_t*>(cst + r0 * LDC + c) =
-            hp::pack_bf16(ln(acc[h][4 * jn], mu_lo, rstd_lo, gg.x, bb.x),
-                          ln(acc[h][4 * jn + 1], mu_lo, rstd_lo, gg.y, bb.y));
+            hp::pack_bf16(op::ln_value(acc[h][4 * jn], mu_lo, rstd_lo, gg.x, bb.x),
+                          op::ln_value(acc[h][4 * jn + 1], mu_lo, rstd_lo, gg.y, bb.y));
         *reinterpret_cast<uint32_t*>(cst + (r0 + 8) * LDC + c) =
-            hp::pack_bf16(ln(acc[h][4 * jn + 2], mu_hi, rstd_hi, gg.x, bb.x),
-                          ln(acc[h][4 * jn + 3], mu_hi, rstd_hi, gg.y, bb.y));
+            hp::pack_bf16(op::ln_value(acc[h][4 * jn + 2], mu_hi, rstd_hi, gg.x, bb.x),
+                          op::ln_value(acc[h][4 * jn + 3], mu_hi, rstd_hi, gg.y, bb.y));
       }
       store_rows(hout, m0, h);
     }
@@ -1061,23 +1027,7 @@ cudaError_t s8_gemm(const int8_t* a, const int8_t* w, const float* sa, const flo
   return cudaGetLastError();
 }
 
-// A launch of `grid` blocks of `threads` in clusters of `cluster` blocks;
-// attr holds its one attribute.
-cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, dim3 grid, dim3 cluster,
-                                  int threads, int smem, cudaStream_t stream) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster.x;
-  attr->val.clusterDim.y = cluster.y;
-  attr->val.clusterDim.z = cluster.z;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
+using op::cluster_config;
 
 cudaError_t pair_codes(const bf16* q, const bf16* k, const bf16* v, int8_t* codes, float* scales,
                        int batch, int T, int H, int t_valid, cudaStream_t stream) {
@@ -1099,36 +1049,19 @@ cudaError_t pair_codes(const bf16* q, const bf16* k, const bf16* v, int8_t* code
 cudaError_t oproj_ln(const int8_t* codes, const int8_t* wo, const float* scales, const bf16* x,
                      const float* cso, const float* bo, const float* g2, const float* b2, bf16* y,
                      bf16* h, int M, int D, float eps, cudaStream_t stream, int* clusters) {
-  const unsigned n_ranks = (D + ol::BN - 1) / ol::BN;
-  cudaError_t err = tpa::allow_smem(oproj_ln_kernel, ol::kSmem);
-  if (err != cudaSuccess) return err;
-  const int tiles = (M + ol::BM - 1) / ol::BM;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(&attr, dim3(n_ranks, tiles), dim3(n_ranks, 1, 1),
-                                          ol::kThreads, ol::kSmem, stream);
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, oproj_ln_kernel, &cfg);
-  if (err != cudaSuccess || clusters != nullptr) {
-    if (clusters != nullptr) *clusters = active;
-    return err;
+  CUtensorMap map_a = {}, map_b = {};
+  if (clusters == nullptr) {
+    const uint64_t dims_a[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(M)};
+    const uint64_t dims_b[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(D)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(D)};
+    const uint32_t box[2] = {ol::BK, ol::BM};
+    cudaError_t err = hp::encode_map(&map_a, hp::kS8, codes, 2, dims_a, strides, box);
+    if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kS8, wo, 2, dims_b, strides, box);
+    if (err != cudaSuccess) return err;
   }
-  if (active < 1) return cudaErrorLaunchOutOfResources;
-  cfg.gridDim.y = tiles < active ? tiles : active;
-  CUtensorMap map_a, map_b;
-  const uint64_t dims_a[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(M)};
-  const uint64_t dims_b[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(D)};
-  const uint64_t strides[1] = {static_cast<uint64_t>(D)};
-  const uint32_t box[2] = {ol::BK, ol::BM};
-  err = hp::encode_map(&map_a, hp::kS8, codes, 2, dims_a, strides, box);
-  if (err == cudaSuccess) err = hp::encode_map(&map_b, hp::kS8, wo, 2, dims_b, strides, box);
-  if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, oproj_ln_kernel, map_a, map_b, scales, x, cso, bo, g2, b2, y, h,
-                            M, D, eps);
-}
-
-// D = 64 H in clusters of ceil(D / 256) blocks: H even, D at most 2048.
-bool oproj_width(int H) {
-  return H > 0 && H % 2 == 0 && H * aw::HD <= ol::kMaxCluster * ol::BN;
+  return op::launch_row_clusters(oproj_ln_kernel, ol::kThreads, ol::kSmem, M, D, stream,
+                                 clusters, map_a, map_b, scales, x, cso, bo, g2, b2, y, h, M, D,
+                                 eps);
 }
 
 }  // namespace
@@ -1158,7 +1091,7 @@ extern "C" int tpa_qkv_gemm_int8(const int8_t* xq, const float* sx, const int8_t
 extern "C" int tpa_pair_codes(const bf16* q, const bf16* k, const bf16* v, int8_t* codes,
                               float* scales, int batch, int T, int H, int t_valid,
                               cudaStream_t stream) {
-  if (!oproj_width(H) || t_valid < 1 || t_valid > T) return static_cast<int>(cudaErrorInvalidValue);
+  if (!op::heads_fit(H) || t_valid < 1 || t_valid > T) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(pair_codes(q, k, v, codes, scales, batch, T, H, t_valid, stream));
 }
 
@@ -1166,14 +1099,14 @@ extern "C" int tpa_oproj_ln(const int8_t* codes, const float* scales, const bf16
                             const int8_t* wo, const float* cso, const float* bo, const float* g2,
                             const float* b2, bf16* y, bf16* h, int M, int D, float eps,
                             cudaStream_t stream) {
-  if (D % aw::HD || !oproj_width(D / aw::HD)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % aw::HD || !op::heads_fit(D / aw::HD)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       oproj_ln(codes, wo, scales, x, cso, bo, g2, b2, y, h, M, D, eps, stream, nullptr));
 }
 
 // How many of oproj_ln's clusters (ceil(D / 256) blocks each) fit the card at once.
 extern "C" int tpa_oproj_ln_clusters(int* clusters, int H, cudaStream_t stream) {
-  if (!oproj_width(H)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!op::heads_fit(H)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(oproj_ln(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                    nullptr, nullptr, nullptr, ol::BM, H * aw::HD, 0.f, stream,
                                    clusters));

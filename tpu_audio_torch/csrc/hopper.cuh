@@ -1,6 +1,6 @@
 // Hopper (sm_90a) machinery shared by the TMA + wgmma kernels of
 // tpu_audio_torch (ln_qkv.cu, encoder_attention.cu, attention_wgmma.cuh,
-// fused_encoder_int8.cu):
+// fused_encoder.cu, fused_encoder_int8.cu, oproj_ln.cuh):
 //
 //   host:   a 2-D or 4-D tensor map (bf16 or int8 elements) with a 128-byte
 //           swizzle, encoded by cuTensorMapEncodeTiled, looked up at run

@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_audio_torch.ops.kernels import _build
-from tpu_audio_torch.ops.kernels.fused_encoder import HEAD_DIM, attention_plain
+from tpu_audio_torch.ops.kernels.fused_encoder import (HEAD_DIM, OPROJ_CLUSTER_MAX,
+                                                      attention_plain, oproj_split)
 from tpu_audio_torch.ops.kernels.int8_matmul import quantize_rows
 
 LAUNCHES = {"ln_qkv_int8": 0, "attn_oproj_ln_int8": 0, "fc1_gelu_int8": 0,
@@ -62,7 +63,6 @@ PASS_LAUNCHES = {"ln_quant_rows": 0, "qkv_from_codes": 0, "pair_codes": 0,
                  "oproj_ln_int8": 0}
 PAIR = 2 * HEAD_DIM     # the channels of one head pair
 CLUSTER_MAX = 16        # blocks a thread-block cluster (non-portable past 8)
-OPROJ_CLUSTER_MAX = 8   # the o-projection's clusters, portable: D ≤ 2048
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LN_QUANT = _build.Kernel("tpa_ln_quant_rows", _P, _P, _P, _P, _P, _I, _I, _F)
@@ -277,17 +277,6 @@ def attn_oproj_ln_int8_plain(q, k, v, x, wo_i8, cso, bo, ln2_w, ln2_b,
     """Plain PyTorch version of `attn_oproj_ln_int8`."""
     codes, scales = pair_codes_plain(q, k, v, t_valid)
     return oproj_ln_int8_plain(codes, scales, x, wo_i8, cso, bo, ln2_w, ln2_b, eps)
-
-
-def oproj_split(d: int) -> int | None:
-    """Blocks a cluster of `attn_oproj_ln_int8`'s o-projection for width D:
-    a block takes 256 of a row tile's D output columns (the last one 128
-    where D is an odd multiple of 128), and the blocks of one cluster cover
-    all D, so that LayerNorm2's statistics stay on the chip; None where D is
-    not a multiple of 128 or needs more than OPROJ_CLUSTER_MAX blocks."""
-    if d % PAIR or d > OPROJ_CLUSTER_MAX * 2 * PAIR:
-        return None
-    return -(-d // (2 * PAIR))
 
 
 def oproj_active_clusters(n_heads: int, device) -> int:
