@@ -12,11 +12,18 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel against its plain PyTorch version at the shapes of
      Whisper large-v3-turbo (batch-16 transcription for the mel, encoder
      and cross-attention kernels; the int8 decoder's and lm head's shapes
-     at 1 and 16 rows for the int8 matmuls; the B=1 step at pos 200 for the
+     at 1 and 16 rows for the int8 matmuls; the B=1 step for the
      whole-decoder step), and time both with CUDA events; hold
      attn_oproj_ln and the decoder step once more on inputs where every
      term is as large as the residual, and show that each of a set of
      planted faults (applied to the plain version) lands outside the limit;
+     the cross-attention at batch 16 and B=1 and t_valid 1, 1000 and 1500
+     (rel 2e-2 and cosine 0.999 beside its atol 2e-2) with five faults
+     (the last key tile, t_valid, the V scale, the layer, a cluster rank's
+     partial), the decoder step in both trees at pos 0, 1, 200 and 447 and
+     t_valid 1, 750 and 1500 with up to twelve (a chunk's sum dropped from
+     a head's merge, a head's last chunk dropped, fc1 of the next layer
+     among them);
   4. transcribe 4 two-minute clips (16 windows, one batch of 16) with
      `transcribe_windows` on random bf16 weights and the int8 cross-K/V
      state, check the launch counters, tokens and log-probs, print the wall
@@ -86,12 +93,18 @@ bit for bit; fc1's codes and row scales judged themselves; planted faults
 of the cluster exchanges, tile edges, k stages, scales and head layout),
 each launch timed apart beside SDPA or `torch._int_mm`, the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
-and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down),
-with planted faults on inputs where every term matters. Each kernel is
+and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down;
+the two stacked ones also timed at each of a layer's qkv, o, gateup and
+down shapes), with planted faults on inputs where every term matters. Each
+kernel is
 timed beside its bound (the larger of its operations over the H100's dense
 peak for their type and its bytes over 3.35 TB/s) and, where one PyTorch
 call computes the same function or its product, that call's time.
 
+`python3 chip_smoke.py --decode-only` runs phases 1, 2, the two decode
+kernels' part of phase 3 (the cross-attention and the decoder step with
+their planted faults), and phases 4 and 5: a short check of
+`csrc/cross_kv_attention.cu` and `csrc/fused_whisper_step.cu`.
 `python3 chip_smoke.py --funasr-only` runs phases 1, 2, Fun-ASR's part of
 phase 3, and phase 8: a short check of the Fun-ASR kernels.
 `python3 chip_smoke.py --q4-only` runs phases 1, 2, encoder attention's
@@ -1178,6 +1191,67 @@ def check_encoder_attention(cfg, randn, rows: list) -> None:
                                err, ms, pms, roofs[BATCH], sdpa[BATCH]))
 
 
+def check_cross_attention(cfg, randn, rows: list) -> None:
+    """Phase 3, `cross_attention_decode` over int8 K/V of 4 layers at batch
+    16 and B=1 and t_valid 1, 1000 and 1500 (of 1536 padded rows), the rows
+    at and after t_valid filled with large codes, against its plain version
+    (atol 2e-2, and rel 2e-2 with cosine > 0.999), with planted faults that
+    must land outside: the last key tile of the last rank dropped, t_valid
+    ignored, the V scale dropped, the wrong layer, one cluster rank's
+    partial dropped; timed at batch 16 and t_valid 1500."""
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+
+    t_audio, lyr = cfg.n_audio_ctx, cfg.n_text_layer
+    h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+    layer = lyr - 1
+    err = 0.0
+    for b in (BATCH, 1):
+        shape = (lyr, b, t_audio, h, hd)
+        k8, ks, v8, vs = ckv.quantize_cross_kv(randn(*shape, scale=0.3), randn(*shape, scale=0.5))
+        t_pad = k8.shape[2]
+        q = randn(b, h, hd)
+        for t_valid in (1, 1000, t_audio):
+            kp, vp = k8.clone(), v8.clone()
+            kp[:, :, t_valid:] = 127
+            vp[:, :, t_valid:] = (randn(lyr, b, t_pad - t_valid, h * hd) * 60).clamp(
+                -127, 127).to(torch.int8)
+            args = (q, kp, vp, ks[layer], vs[layer], layer)
+
+            def plain(t=t_valid, v_scale=vs[layer], at=layer, args=args):
+                if t == 0:  # no key left: the kernel's 0 / 0
+                    return torch.full_like(q, math.nan)
+                return ckv.cross_attention_decode_plain(*args[:4], v_scale, at, t_valid=t,
+                                                        n_heads=h)
+
+            tag = f"cross_attention_decode ({b}, {h}, {hd}) f32, t_valid {t_valid}"
+            got = ckv.cross_attention_decode(*args, t_valid=t_valid, n_heads=h)
+            err = max(err, compare(tag, got, plain(), atol=2e-2, rel=2e-2))
+            ranks = [(a, e) for a, e in ckv.chunk_bounds(t_valid, ckv.RANKS) if e > a]
+            first, end = ranks[-1]  # the last rank's keys; its last trip's first key:
+            tail = first + (end - first - 1) // ckv.KEYS_PER_TRIP * ckv.KEYS_PER_TRIP
+            planted_faults(tag, (got,), [
+                ("the last key tile dropped", lambda: (plain(t=tail),)),
+                ("t_valid ignored over padded rows", lambda: (plain(t=t_pad),)),
+                ("the V scale dropped", lambda: (plain(v_scale=torch.ones_like(vs[layer])),)),
+                ("the wrong layer", lambda: (plain(at=layer - 1),)),
+                ("one cluster rank's partial dropped", lambda: (ckv.cross_attention_chunks_plain(
+                    *args, t_valid=t_valid, n_heads=h, drop_chunk=len(ranks) - 1),)),
+            ], rel=2e-2)
+            del kp, vp
+        if b == BATCH:
+            cross_args = (q, k8, v8, ks[layer], vs[layer], layer)
+            kw = dict(t_valid=t_audio, n_heads=h)
+            ms, pms = timed_pair(lambda: ckv.cross_attention_decode(*cross_args, **kw),
+                                 lambda: ckv.cross_attention_decode_plain(*cross_args, **kw), 50)
+            read = (q, k8[layer, :, :t_audio], v8[layer, :, :t_audio], ks[layer], vs[layer])
+            roof = bound({"f32": 4 * b * h * t_audio * hd}, nbytes(*read, q))
+        del k8, v8
+    rows.append(kernel_row("cross_attention_decode", "tpu_audio_torch/csrc/cross_kv_attention.cu",
+                           "tpu_audio/ops/pallas/cross_kv_attention.py:112", err, ms, pms, roof,
+                           None, "no one PyTorch call attends over int8 keys and values with "
+                           "their scales"))
+
+
 def history_only(q, k, v, k_hist, v_hist, rnd):
     """Self-attention of the decoder step with the current token's own
     term dropped (a planted fault)."""
@@ -1186,28 +1260,51 @@ def history_only(q, k, v, k_hist, v_hist, rnd):
 
 
 def check_decoder_step(models: dict, cfg, dev, randn, rows: list) -> None:
-    """Phase 3, the whole-decoder step at B=1 for int8 and bf16 weights,
-    bf16 cache filled to POS. With init_params weights the attention terms
-    would be ~1 % of the residual and hide a wrong attention, so the inputs make each
+    """Phase 3, the whole-decoder step at B=1 for int8 and bf16 weights, a
+    bf16 cache, at pos 0, 1, POS and n_text_ctx - 1 and t_valid 1, 750 and
+    n_audio_ctx. With init_params weights the attention terms would be ~1 %
+    of the residual and hide a wrong attention, so the inputs make each
     term as large as it: the q, k and cross-q weights ×4 (peaked scores),
     a cache history whose scores have std ~3, random LayerNorm parameters,
-    a residual of std 0.5, and padded cross-K/V rows (t ≥ t_valid) filled
-    with large codes."""
+    a residual of std 0.5, and the cross-K/V rows at and after t_valid
+    filled with large codes. Planted faults (the plain version with one
+    fault) must land outside at each position and t_valid where they change
+    the step: the history ignored, the fresh term dropped, cross-attention
+    dropped, t_valid ignored, the MLP dropped, the final LN dropped, the
+    wrong layer's cache, fc1 of the next layer (weights staged for the wrong
+    layer), and, where the keys fill many of the kernel's chunks, a chunk's
+    sum dropped from its head's merge and a head's last chunk dropped, in
+    the self- and the cross-attention."""
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
 
     lyr, s_max, d, h = cfg.n_text_layer, cfg.n_text_ctx, cfg.n_text_state, cfg.n_text_head
-    t_valid = cfg.n_audio_ctx
-    shape = (lyr, 1, t_valid, h, d // h)
+    t_audio = cfg.n_audio_ctx
+    shape = (lyr, 1, t_audio, h, d // h)
     k8, ks, v8, vs = ckv.quantize_cross_kv(randn(*shape), randn(*shape))
     t_pad = k8.shape[2]
-    k8[:, :, t_valid:] = 127
-    v8[:, :, t_valid:] = (randn(lyr, 1, t_pad - t_valid, d) * 60).clamp(-127, 127).to(torch.int8)
+    k8[:, :, t_audio:] = 127
+    v8[:, :, t_audio:] = (randn(lyr, 1, t_pad - t_audio, d) * 60).clamp(-127, 127).to(torch.int8)
     kc = torch.zeros(lyr, s_max, d, dtype=torch.bfloat16, device=dev)
     vc = torch.zeros_like(kc)
     kc[:, :POS] = randn(lyr, POS, d, dtype=torch.bfloat16, scale=0.5)
     vc[:, :POS] = randn(lyr, POS, d, dtype=torch.bfloat16)
+    # the other positions and t_valid from a second generator, so that the
+    # main one draws what it drew when pos POS and t_valid n_audio_ctx were
+    # the only ones checked
+    more = randn_on(dev, SEED + 1)
+    kc[:, POS:s_max - 1] = more(lyr, s_max - 1 - POS, d, dtype=torch.bfloat16, scale=0.5)
+    vc[:, POS:s_max - 1] = more(lyr, s_max - 1 - POS, d, dtype=torch.bfloat16)
+    cross = {}
+    for t_valid in (1, 750):
+        kp, vp = k8.clone(), v8.clone()
+        kp[:, :, t_valid:] = 127
+        vp[:, :, t_valid:t_audio] = (more(lyr, 1, t_audio - t_valid, d) * 60).clamp(
+            -127, 127).to(torch.int8)
+        cross[t_valid] = (kp, vp)
+    cross[t_audio] = (k8, v8)
     pos = torch.tensor(POS, device=dev)
+    attend = fws._self_attention
 
     for label, model in models.items():
         sw = model.step_weights()
@@ -1225,59 +1322,203 @@ def check_decoder_step(models: dict, cfg, dev, randn, rows: list) -> None:
         # activations: f32 beside the int8 token table, bf16 in the bf16 tree
         x = randn(1, d, dtype=torch.float32 if sw.scale is not None else torch.bfloat16,
                   scale=0.5)
+        rb = x.dtype == torch.bfloat16
+        plan = fws.launch_plan(
+            dev, int8=sw.scale is not None, cache_f32=False, n_layers=lyr, d=d,
+            hidden=sw.w["fc1"].shape[1], n_heads=h, s_max=s_max, t_pad=t_pad)
+        log(f"fused_whisper_decode_step {label} launch: {plan}")
+        split = plan["split"]
+        next_fc1 = fws.StepWeights({**sw.w, "fc1": sw.w["fc1"].roll(-1, 0)}, sw.scale, sw.vec)
+        err = 0.0
+        for p in (0, 1, POS, s_max - 1):
+            at = torch.tensor(p, device=dev)
+            for t_valid, (kp, vp) in cross.items():
+                def kernel(kp=kp, vp=vp, at=at, p=p, t_valid=t_valid):
+                    kc_, vc_ = kc.clone(), vc.clone()
+                    out = fws.fused_whisper_decode_step(sw, x, at, kc_, vc_, kp, ks, vp, vs,
+                                                        n_heads=h, t_valid=t_valid)
+                    return out, kc_[:, p], vc_[:, p]
 
-        def kernel(kc_=kc, vc_=vc):
-            kc_, vc_ = kc_.clone(), vc_.clone()
-            out = fws.fused_whisper_decode_step(sw, x, pos, kc_, vc_, k8, ks, v8, vs,
-                                                n_heads=h, t_valid=t_valid)
-            return out, kc_[:, POS], vc_[:, POS]
+                def plain(kc_=kc, vc_=vc, v8_=vp, t=t_valid, sw_=sw, kp=kp, at=at, p=p):
+                    kc_, vc_ = kc_.clone(), vc_.clone()
+                    out = fws.fused_whisper_decode_step_plain(sw_, x, at, kc_, vc_, kp, ks, v8_,
+                                                              vs, n_heads=h, t_valid=t)
+                    return out, kc_[:, p], vc_[:, p]
 
-        def plain(kc_=kc, vc_=vc, v8_=v8, t=t_valid):
-            kc_, vc_ = kc_.clone(), vc_.clone()
-            out = fws.fused_whisper_decode_step_plain(sw, x, pos, kc_, vc_, k8, ks, v8_, vs,
-                                                      n_heads=h, t_valid=t)
-            return out, kc_[:, POS], vc_[:, POS]
+                def with_patch(name, fn, plain=plain):
+                    def run():
+                        with patched(fws, name, fn):
+                            return plain()
+                    return run
 
-        def with_patch(name, fn):
-            def run():
-                with patched(fws, name, fn):
-                    return plain()
-            return run
+                def chunks(fn, n, **fault):
+                    """fn with the kernel's chunks and one fault in their merge; a
+                    fault of the last chunk takes the last chunk that holds keys."""
+                    if "drop_chunk" in fault:
+                        fault = {"drop_chunk": sum(b > a for a, b in fws.chunk_bounds(n, split))
+                                 - 1}
+                    return functools.partial(fn, split=split, rb=rb, **fault)
 
-        attend = fws._self_attention
-        got = kernel()
-        err = max(compare(f"fused_whisper_decode_step {label} {n}, pos {POS}", g, r, rel=2e-2)
-                  for n, g, r in zip(("h", "k slot", "v slot"), got, plain()))
-        planted_faults(f"fused_whisper_decode_step {label}", got, [
-            ("history ignored", with_patch(
-                "_self_attention", lambda q, k, v, kh, vh, rnd: attend(
-                    q, k, v, kh[:0], vh[:0], rnd))),
-            ("the fresh term dropped", with_patch("_self_attention", history_only)),
-            ("cross-attention dropped", lambda: plain(v8_=torch.zeros_like(v8))),
-            ("t_valid ignored", lambda: plain(t=t_pad)),
-            ("the MLP dropped", with_patch("_mlp", lambda hn, *a: torch.zeros_like(hn))),
-            ("the final LN dropped", with_patch("_final_norm", lambda xs, wb: xs)),
-            ("the wrong layer's cache", lambda: plain(kc_=kc.roll(1, 0), vc_=vc.roll(1, 0))),
-        ], rel=2e-2)
+                tag = f"fused_whisper_decode_step {label}, pos {p}, t_valid {t_valid}"
+                got = kernel()
+                err = max(err, max(compare(f"{tag} {n}", g, r, rel=2e-2)
+                                   for n, g, r in zip(("h", "k slot", "v slot"), got, plain())))
+                faults = [
+                    ("cross-attention dropped", lambda: plain(v8_=torch.zeros_like(vp))),
+                    ("t_valid ignored", lambda: plain(t=t_pad)),
+                    ("the MLP dropped", with_patch("_mlp", lambda hn, *a: torch.zeros_like(hn))),
+                    ("the final LN dropped", with_patch("_final_norm", lambda xs, wb: xs)),
+                    ("fc1 of the next layer", lambda: plain(sw_=next_fc1)),
+                ]
+                if p > 0:
+                    faults += [
+                        ("history ignored", with_patch(
+                            "_self_attention", lambda q, k, v, kh, vh, rnd: attend(
+                                q, k, v, kh[:0], vh[:0], rnd))),
+                        ("the wrong layer's cache",
+                         lambda: plain(kc_=kc.roll(1, 0), vc_=vc.roll(1, 0))),
+                    ]
+                if 0 < p <= POS:  # at the last position the token is one key of 448
+                    faults.append(("the fresh term dropped",
+                                   with_patch("_self_attention", history_only)))
+                if p >= POS and t_valid > 1:
+                    faults += [
+                        ("a chunk's sum dropped from a self-attention head's merge",
+                         with_patch("_self_attention", chunks(fws.self_attention_chunks, p,
+                                                              drop_sum=0))),
+                        ("a self-attention head's last chunk dropped",
+                         with_patch("_self_attention", chunks(fws.self_attention_chunks, p,
+                                                              drop_chunk=True))),
+                        ("a chunk's sum dropped from a cross-attention head's merge",
+                         with_patch("_cross_attention", chunks(fws.cross_attention_chunks,
+                                                               t_valid, drop_sum=0))),
+                        ("a cross-attention head's last chunk dropped",
+                         with_patch("_cross_attention", chunks(fws.cross_attention_chunks,
+                                                               t_valid, drop_chunk=True))),
+                    ]
+                planted_faults(tag, got, faults, rel=2e-2)
         kc_k, vc_k, kc_p, vc_p = kc.clone(), vc.clone(), kc.clone(), vc.clone()
         ms, pms = timed_pair(
             lambda: fws.fused_whisper_decode_step(sw, x, pos, kc_k, vc_k, k8, ks, v8, vs,
-                                                  n_heads=h, t_valid=t_valid),
+                                                  n_heads=h, t_valid=t_audio),
             lambda: fws.fused_whisper_decode_step_plain(sw, x, pos, kc_p, vc_p, k8, ks, v8,
-                                                        vs, n_heads=h, t_valid=t_valid), 20)
-        log(f"time fused_whisper_decode_step {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                                                        vs, n_heads=h, t_valid=t_audio), 20)
+        log(f"time fused_whisper_decode_step {label}, pos {POS}, t_valid {t_audio}: kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms")
         if label == "int8":  # the weights of the slice: every weight, scale and
             # vector once, the cache history to POS, the valid cross rows, the
             # new slots and h
             read = [*sw.w.values(), *sw.scale.values(), *sw.vec.values(), kc[:, :POS],
-                    vc[:, :POS], k8[:, :, :t_valid], v8[:, :, :t_valid], ks, vs, x]
+                    vc[:, :POS], k8[:, :, :t_audio], v8[:, :, :t_audio], ks, vs, x]
             ops = {"int8": 2 * sum(w.numel() for w in sw.w.values()),
-                   "f32": 4 * lyr * (POS + 1 + t_valid) * d}
+                   "f32": 4 * lyr * (POS + 1 + t_audio) * d}
             rows.append(kernel_row(
                 "fused_whisper_decode_step", "tpu_audio_torch/csrc/fused_whisper_step.cu",
                 "tpu_audio/ops/pallas/fused_whisper_step.py:303", err, ms, pms,
                 bound(ops, nbytes(*read) + 4 * d + 2 * nbytes(kc[:, POS])), None,
                 "no one PyTorch call runs a decoder step"))
+
+
+def batch_slice(model, tok, clips, dev, card: str):
+    """Phase 4: `transcribe_windows` of the clips at batch 16 (bf16 weights,
+    int8 cross-K/V), launches checked, then the kernel path against the f32
+    plain path on 2 windows with faults planted in `attn_oproj_ln`; returns
+    (launch counts, wall seconds, the 2 windows' mel)."""
+    from tpu_audio_torch.models.whisper import batch as wbatch
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+    from tpu_audio_torch.ops.kernels import fused_mel
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    kernel_mods = (fused_mel, fe, ckv)
+    reset(*kernel_mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts, results = wbatch.transcribe_windows(model, tok, clips, batch_size=BATCH,
+                                               kv_int8=True, return_results=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(*kernel_mods)
+    log(f"slice launches: {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if len(texts) != N_CLIPS or len(results) != BATCH:
+        raise AssertionError(f"expected {N_CLIPS} texts and {BATCH} windows, "
+                             f"got {len(texts)} and {len(results)}")
+    n_tokens = sum(len(r.tokens) for r in results)
+    for r in results:
+        if not all(0 <= t < cfg.n_vocab for t in r.tokens):
+            raise AssertionError("token outside the vocabulary")
+        if not math.isfinite(r.avg_logprob) or not math.isfinite(r.no_speech_prob):
+            raise AssertionError("non-finite log-prob")
+    audio_s = N_CLIPS * CLIP_SECONDS
+    log(f"slice: transcribe_windows, {N_CLIPS} clips x {CLIP_SECONDS} s = {BATCH} windows, "
+        f"batch {BATCH}, bf16 weights, int8 cross-KV: {wall:.3f} s wall, "
+        f"{audio_s / wall:.1f}x real time, {n_tokens} tokens generated, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    # The kernel path end to end on 2 windows: encoder features and the
+    # logits of the first decode step. The reference is the plain path in
+    # f32 on the same bf16-rounded weights and mel; the plain bf16 path's
+    # distance from it is the scale of bf16 rounding over 32 blocks. The
+    # kernel path must be no more than SLICE_RATIO times as far, with
+    # cosine > 0.999 against the reference.
+    mel = torch.stack([wbatch.MelExtractor(cfg.n_mels, dev)(c[:30 * 16000])[:3000]
+                       for c in clips[:2]]).to(torch.bfloat16)
+    init = torch.tensor([tok.sot_sequence()] * 2, device=dev)
+
+    def run_path(m, dtype):
+        with torch.inference_mode():
+            feats = m.encode(mel.to(dtype))
+            state = m.init_state(feats, batch=2, dtype=dtype, kv_int8=True)
+            _, state = m.decode_step(init, state)
+            logits, _ = m.decode_step(init[:, -1:], state)
+        return feats, logits
+
+    ref_model = copy.deepcopy(model).float()
+    with plain_kernels(*kernel_mods):
+        exact = run_path(ref_model, torch.float32)
+        plain_out = run_path(model, torch.bfloat16)
+    del ref_model
+    kernel_out = run_path(model, torch.bfloat16)
+    outputs = ("encoder features (2, 1500, 1280)", "decode-step logits (2, 1, 51866)")
+    for name, k, p, r in zip(outputs, kernel_out, plain_out, exact):
+        _, e_k, cos_k = measure(k, r)
+        _, e_p, cos_p = measure(p, r)
+        _, e_kp, cos_kp = measure(k, p)
+        msg = (f"slice {name} against f32: kernels rel {e_k:.3e} cosine {cos_k:.6f}, "
+               f"plain bf16 rel {e_p:.3e} cosine {cos_p:.6f}, ratio {e_k / e_p:.3f}; "
+               f"kernels against plain bf16 rel {e_kp:.3e} cosine {cos_kp:.6f}")
+        if not (e_k <= SLICE_RATIO * e_p and cos_k > 0.999):
+            raise AssertionError(f"{msg}: outside ratio {SLICE_RATIO} / cosine 0.999")
+        log(msg)
+
+    # the same with a fault planted in every encoder block's attn_oproj_ln:
+    # each must land outside the limit, or the check above is blind to it
+    kernel = fe.attn_oproj_ln
+    slice_faults = {
+        "wo untransposed": lambda q, k, v, x, w, *a, **kw: kernel(
+            q, k, v, x, w.T.contiguous(), *a, **kw),
+        "the o-projection bias dropped": lambda q, k, v, x, w, b, *a, **kw: kernel(
+            q, k, v, x, w, torch.zeros_like(b), *a, **kw),
+        "LN2 dropped (h = y)": lambda *a, **kw: (kernel(*a, **kw)[0],) * 2,
+    }
+    for label, fault in slice_faults.items():
+        with patched(fe, "attn_oproj_ln", fault):
+            faulty = run_path(model, torch.bfloat16)
+        readings = []
+        for k, p, r in zip(faulty, plain_out, exact):
+            _, e_k, cos_k = measure(k, r)
+            readings.append((e_k / measure(p, r)[1], cos_k))
+        text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
+                         for name, (q, c) in zip(outputs, readings))
+        if all(q <= SLICE_RATIO and c > 0.999 for q, c in readings):
+            raise AssertionError(f"slice: the check cannot see {label} ({text})")
+        log(f"control slice, {label}: {text}: outside the limit")
+    log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f} s")
+
+    return launches, wall, mel
 
 
 def single_stream(model_i8, tok, clips, mel, dev, card: str) -> dict:
@@ -2292,6 +2533,21 @@ def check_w4a8(trees: dict, randn, rows: list) -> None:
         rows.append(kernel_row(name, "tpu_audio_torch/csrc/w4a8_matmul.cu", replaces, errs[name],
                                ms, pms, bound({"int8": 2 * i * o}, nbytes(x, w, *args[1:]) + 4 * o),
                                lib_ms))
+    # the stacked kernels at each of a layer's four shapes (a forward runs
+    # each once a layer), for the launches x (time - bound) of each shape
+    for name, tree, key in (("w4a8_matmul_stacked", pair, "weight_q4p"),
+                            ("w4a8_sg_matmul_stacked", sg, "weight_q4s")):
+        kernel = getattr(w4mm, name)
+        for part, label in (("attn", "qkv"), ("attn", "o"), ("mlp", "gateup"), ("mlp", "down")):
+            leaf = tree["layers"][part][label]
+            w = leaf[key][last]
+            scales = [v[last] for k, v in leaf.items() if k != key]
+            o, i = w.shape[0], 2 * w.shape[1]
+            x = randn(1, i)
+            ms = time_ms(lambda: kernel(x, leaf[key], *scales, last), 20)
+            roof = bound({"int8": 2 * i * o}, nbytes(x, w, *scales) + 4 * o)
+            log(f"time {name} {label} layer {last} (1, {i}) x ({o}, {i}): kernel {ms:.4f} ms, "
+                f"bound {roof[0]:.4f} ms ({roof[1]}), {roof[0] / ms:.3f} of it")
 
 
 def funasr_slice(trees: dict, dev, card: str) -> dict:
@@ -2708,12 +2964,16 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
 
 
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
-# them, and whether each issues wgmma
+# them, the two decode kernels and the functions the whole-decoder step
+# calls, and whether each issues wgmma
 HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "encoder_attention_kernel": True, "attn_heads_kernel": True,
                   "oproj_ln_bf16_kernel": True, "quant_rows_kernel": False,
                   "ln_quant_rows_kernel": False, "fc1_gemm_kernel": True,
-                  "s8_gemm_kernel": True, "pair_codes_kernel": True, "oproj_ln_kernel": True}
+                  "s8_gemm_kernel": True, "pair_codes_kernel": True, "oproj_ln_kernel": True,
+                  "fused_whisper_step_kernel": False, "step_product": False,
+                  "step_layer_norm": False, "chunk_attention": False,
+                  "cross_attention_decode_kernel": False}
 
 
 def hopper_report(lib_path: Path) -> None:
@@ -2762,9 +3022,9 @@ def hopper_report(lib_path: Path) -> None:
                 raise AssertionError(f"{name} holds no wgmma instruction")
 
 
-def randn_on(dev):
-    """randn(*shape, dtype, scale) on `dev` from a generator seeded with SEED."""
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+def randn_on(dev, seed: int = SEED):
+    """randn(*shape, dtype, scale) on `dev` from a generator seeded with `seed`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -2789,15 +3049,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from tpu_audio_torch.models.whisper import batch as wbatch
     from tpu_audio_torch.models.whisper import load as wload
     from tpu_audio_torch.models.whisper import model as wmodel
     from tpu_audio_torch.models.whisper.config import PRESETS
     from tpu_audio_torch.models.whisper.tokenizer import BPE, WhisperTokenizer
     from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import _build
-    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
-    from tpu_audio_torch.ops.kernels import fused_encoder as fe
     from tpu_audio_torch.ops.kernels import fused_mel
 
     # ---------------------------------------------------------------- 1. card
@@ -2839,6 +3096,19 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     clips = [(rng.standard_normal(CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
              for _ in range(N_CLIPS)]
+    if "--decode-only" in sys.argv[1:]:  # phases 1, 2, the decode kernels' part of 3, 4 and 5
+        model_i8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params, encoder=False))
+        del params
+        rows, randn = [], randn_on(dev)
+        check_cross_attention(cfg, randn, rows)
+        check_decoder_step({"int8": model_i8, "bf16": model}, cfg, dev, randn, rows)
+        launches, _, mel = batch_slice(model, tok, clips, dev, card)
+        t_phase = time.perf_counter()
+        single = single_stream(model_i8, tok, clips, mel, dev, card)
+        launches["fused_whisper_decode_step"] = single["fused_whisper_decode_step"]
+        log(f"phase 5 wall: {time.perf_counter() - t_phase:.1f} s")
+        print_result(rows, launches)
+        return
     if "--encoder-only" in sys.argv[1:]:  # phases 1, 2, the encoder kernels' part of 3, 9's A/B
         del params
         rows, randn = [], randn_on(dev)
@@ -2895,28 +3165,7 @@ def main() -> None:
     check_encoder_kernels(model, cfg, randn, rows)
     check_encoder_attention(cfg, randn, rows)
 
-    # cross-attention decode over int8 K/V of 4 layers at batch 16
-    t_audio = cfg.n_audio_ctx
-    h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
-    shape = (cfg.n_text_layer, BATCH, t_audio, h, hd)
-    k8, ks, v8, vs = ckv.quantize_cross_kv(randn(*shape, scale=0.3), randn(*shape, scale=0.5))
-    q = randn(BATCH, h, hd)
-    layer = cfg.n_text_layer - 1
-    cross_args = (q, k8, v8, ks[layer], vs[layer], layer)
-    kw = dict(t_valid=t_audio, n_heads=h)
-    err = compare("cross_attention_decode (16, 20, 64) f32",
-                  ckv.cross_attention_decode(*cross_args, **kw),
-                  ckv.cross_attention_decode_plain(*cross_args, **kw), atol=2e-2)
-    ms, pms = timed_pair(lambda: ckv.cross_attention_decode(*cross_args, **kw),
-                         lambda: ckv.cross_attention_decode_plain(*cross_args, **kw), 50)
-    read = (q, k8[layer, :, :t_audio], v8[layer, :, :t_audio], ks[layer], vs[layer])
-    rows.append(kernel_row("cross_attention_decode", "tpu_audio_torch/csrc/cross_kv_attention.cu",
-                           "tpu_audio/ops/pallas/cross_kv_attention.py:112", err, ms, pms,
-                           bound({"f32": 4 * BATCH * h * t_audio * hd}, nbytes(*read, q)), None,
-                           "no one PyTorch call attends over int8 keys and values with "
-                           "their scales"))
-    del k8, v8, ks, vs, cross_args
-
+    check_cross_attention(cfg, randn, rows)
     check_int8_matmul(model_i8, randn, rows)
     check_decoder_step({"int8": model_i8, "bf16": model}, cfg, dev, randn, rows)
     check_int8_encoder(model_w8a8, randn, rows)
@@ -2940,93 +3189,7 @@ def main() -> None:
     log(f"phase 3 wall: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------------------- 4. the slice
-    t_phase = time.perf_counter()
-    kernel_mods = (fused_mel, fe, ckv)
-    reset(*kernel_mods)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    texts, results = wbatch.transcribe_windows(model, tok, clips, batch_size=BATCH,
-                                               kv_int8=True, return_results=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts(*kernel_mods)
-    log(f"slice launches: {launches}")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if len(texts) != N_CLIPS or len(results) != BATCH:
-        raise AssertionError(f"expected {N_CLIPS} texts and {BATCH} windows, "
-                             f"got {len(texts)} and {len(results)}")
-    n_tokens = sum(len(r.tokens) for r in results)
-    for r in results:
-        if not all(0 <= t < cfg.n_vocab for t in r.tokens):
-            raise AssertionError("token outside the vocabulary")
-        if not math.isfinite(r.avg_logprob) or not math.isfinite(r.no_speech_prob):
-            raise AssertionError("non-finite log-prob")
-    audio_s = N_CLIPS * CLIP_SECONDS
-    log(f"slice: transcribe_windows, {N_CLIPS} clips x {CLIP_SECONDS} s = {BATCH} windows, "
-        f"batch {BATCH}, bf16 weights, int8 cross-KV: {wall:.3f} s wall, "
-        f"{audio_s / wall:.1f}x real time, {n_tokens} tokens generated, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
-
-    # The kernel path end to end on 2 windows: encoder features and the
-    # logits of the first decode step. The reference is the plain path in
-    # f32 on the same bf16-rounded weights and mel; the plain bf16 path's
-    # distance from it is the scale of bf16 rounding over 32 blocks. The
-    # kernel path must be no more than SLICE_RATIO times as far, with
-    # cosine > 0.999 against the reference.
-    mel = torch.stack([wbatch.MelExtractor(cfg.n_mels, dev)(c[:30 * 16000])[:3000]
-                       for c in clips[:2]]).to(torch.bfloat16)
-    init = torch.tensor([tok.sot_sequence()] * 2, device=dev)
-
-    def run_path(m, dtype):
-        with torch.inference_mode():
-            feats = m.encode(mel.to(dtype))
-            state = m.init_state(feats, batch=2, dtype=dtype, kv_int8=True)
-            _, state = m.decode_step(init, state)
-            logits, _ = m.decode_step(init[:, -1:], state)
-        return feats, logits
-
-    ref_model = copy.deepcopy(model).float()
-    with plain_kernels(*kernel_mods):
-        exact = run_path(ref_model, torch.float32)
-        plain_out = run_path(model, torch.bfloat16)
-    del ref_model
-    kernel_out = run_path(model, torch.bfloat16)
-    outputs = ("encoder features (2, 1500, 1280)", "decode-step logits (2, 1, 51866)")
-    for name, k, p, r in zip(outputs, kernel_out, plain_out, exact):
-        _, e_k, cos_k = measure(k, r)
-        _, e_p, cos_p = measure(p, r)
-        _, e_kp, cos_kp = measure(k, p)
-        msg = (f"slice {name} against f32: kernels rel {e_k:.3e} cosine {cos_k:.6f}, "
-               f"plain bf16 rel {e_p:.3e} cosine {cos_p:.6f}, ratio {e_k / e_p:.3f}; "
-               f"kernels against plain bf16 rel {e_kp:.3e} cosine {cos_kp:.6f}")
-        if not (e_k <= SLICE_RATIO * e_p and cos_k > 0.999):
-            raise AssertionError(f"{msg}: outside ratio {SLICE_RATIO} / cosine 0.999")
-        log(msg)
-
-    # the same with a fault planted in every encoder block's attn_oproj_ln:
-    # each must land outside the limit, or the check above is blind to it
-    kernel = fe.attn_oproj_ln
-    slice_faults = {
-        "wo untransposed": lambda q, k, v, x, w, *a, **kw: kernel(
-            q, k, v, x, w.T.contiguous(), *a, **kw),
-        "the o-projection bias dropped": lambda q, k, v, x, w, b, *a, **kw: kernel(
-            q, k, v, x, w, torch.zeros_like(b), *a, **kw),
-        "LN2 dropped (h = y)": lambda *a, **kw: (kernel(*a, **kw)[0],) * 2,
-    }
-    for label, fault in slice_faults.items():
-        with patched(fe, "attn_oproj_ln", fault):
-            faulty = run_path(model, torch.bfloat16)
-        readings = []
-        for k, p, r in zip(faulty, plain_out, exact):
-            _, e_k, cos_k = measure(k, r)
-            readings.append((e_k / measure(p, r)[1], cos_k))
-        text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
-                         for name, (q, c) in zip(outputs, readings))
-        if all(q <= SLICE_RATIO and c > 0.999 for q, c in readings):
-            raise AssertionError(f"slice: the check cannot see {label} ({text})")
-        log(f"control slice, {label}: {text}: outside the limit")
-    log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f} s")
+    launches, wall, mel = batch_slice(model, tok, clips, dev, card)
 
     # ------------------------------------------- 5. single stream, 6. mixed
     t_phase = time.perf_counter()

@@ -5,6 +5,12 @@ against the JAX package (its Pallas kernel in interpret mode).
 The TPU kernel feeds bf16 dots while the port computes in f32, hence
 atol 2e-2 and cosine > 0.999 against it; against the f32 numpy reference
 of tests/test_cross_kv_attention.py the port is held to 1e-5.
+
+The kernel's partition on the CPU: `cross_attention_chunks_plain` (each
+(batch, head)'s keys in chunks, one a cluster rank, their (max, sum, P·V)
+merged) against the unsplit plain version at 1, 2, 4, 13 and 32 chunks and
+t_valid 1, 100 and 1500, empty chunks among them; one rank's partial
+dropped moves it outside.
 """
 
 import jax.numpy as jnp
@@ -106,3 +112,41 @@ def test_wrapper_launches_nothing_on_cpu_and_refuses_other_devices(rng):
     with pytest.raises(ValueError, match="CUDA"):
         ckv.cross_attention_decode(q.to("meta"), k8, v8, ks[1], vs[1], 1, t_valid=50,
                                    n_heads=2)
+
+
+@pytest.mark.parametrize("t_valid", [1, 100, 1500])
+@pytest.mark.parametrize("split", [1, 2, ckv.RANKS, 13, 32])
+def test_chunked_plain_matches_unsplit(rng, split, t_valid):
+    """One pass a chunk, rescaled in the merge: equal up to the order of
+    the f32 sums. The padded rows hold large codes that must not be read."""
+    lyr, b, h, hd = 2, 2, 2, 64
+    ck, cv = quantized(rng, lyr, b, 1500, h, hd)
+    k8, ks, v8, vs = ckv.quantize_cross_kv(torch.from_numpy(ck), torch.from_numpy(cv))
+    k8[:, :, t_valid:], v8[:, :, t_valid:] = 127, 127
+    q = torch.from_numpy((rng.standard_normal((b, h, hd)) * 0.2).astype(np.float32))
+    args = (q, k8, v8, ks[1], vs[1], 1)
+    got = ckv.cross_attention_chunks_plain(*args, t_valid=t_valid, n_heads=h, ranks=split)
+    ref = ckv.cross_attention_decode_plain(*args, t_valid=t_valid, n_heads=h)
+    assert got.shape == ref.shape == (b, h, hd)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+def test_chunk_bounds_cover_the_keys():
+    for n, split in ((1, ckv.RANKS), (1000, ckv.RANKS), (1500, ckv.RANKS), (9, 13)):
+        bounds = ckv.chunk_bounds(n, split)
+        assert len(bounds) == split and bounds[0][0] == 0 and bounds[-1][1] == n
+        assert sum(b - a for a, b in bounds) == n
+
+
+@pytest.mark.parametrize("t_valid", [1000, 1500])
+def test_a_dropped_rank_is_visible(rng, t_valid):
+    """The fault chip_smoke plants (one cluster rank's partial left out of
+    the merge) lands far outside the tolerances the kernel is held to."""
+    ck, cv = quantized(rng, 1, 2, t_valid, 2, 64)
+    k8, ks, v8, vs = ckv.quantize_cross_kv(torch.from_numpy(ck), torch.from_numpy(cv))
+    q = torch.from_numpy((rng.standard_normal((2, 2, 64)) * 0.2).astype(np.float32))
+    args = (q, k8, v8, ks[0], vs[0], 0)
+    ref = ckv.cross_attention_decode_plain(*args, t_valid=t_valid, n_heads=2)
+    got = ckv.cross_attention_chunks_plain(*args, t_valid=t_valid, n_heads=2,
+                                           drop_chunk=ckv.RANKS - 1)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() > 5e-2

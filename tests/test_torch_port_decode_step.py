@@ -9,6 +9,14 @@ every term of the step matter: a random history in the cache, random
 LayerNorm parameters and a unit-scale residual. h and the new K/V slot are
 held at 1e-4 of max|ref| with an f32 cache and f32 or int8 weights, and at
 2e-2 with a bf16 cache or bf16 weights.
+
+The kernel's algebra on the CPU: `self_attention_chunks` and
+`cross_attention_chunks` (the keys split as the kernel splits them, each
+chunk's (max, sum, P·V) merged as its last chunk merges them: one pass a
+chunk at f32, two with bf16 rounding) against the unsplit plain attentions
+at 1, 2, 13 and 32 chunks, empty chunks among them; the planted faults of
+that merge change the result; `tools/step_split.py`'s cuts apply to the
+kernel's sources.
 """
 
 import jax
@@ -27,6 +35,7 @@ from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.whisper import model as tmodel
 from tpu_audio_torch.models.whisper.config import WhisperConfig
 from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+from tpu_audio_torch.tools import step_split
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -141,3 +150,97 @@ def test_wrapper_refuses_other_devices(rng):
         fws.fused_whisper_decode_step(sw, torch.zeros(1, d, device="meta"),
                                       torch.tensor(0, device="meta"), kc, kc, k8, sc, k8, sc,
                                       n_heads=4, t_valid=64)
+
+
+def bf16_round(a):
+    return a.to(torch.bfloat16).float()
+
+
+def attention_inputs(rng, n: int, h: int = 4, hd: int = 64):
+    """q, k, v (H, hd) of the current token and a history of n rows
+    (n, H, hd), f32, with scores of std ~2 so that no key dominates."""
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+    return (f(h, hd, scale=0.25), f(h, hd, scale=0.25), f(h, hd), f(n, h, hd), f(n, h, hd))
+
+
+@pytest.mark.parametrize("rb", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos", [0, 1, 9])
+@pytest.mark.parametrize("split", [1, 2, 13, 32])
+def test_self_attention_chunks_match_unsplit(rng, split, pos, rb):
+    """At pos 9 and 13 or 32 chunks most chunks are empty; at pos 0 all are
+    and only the fresh term is left. f32: one pass a chunk, equal up to the
+    order of the sums (1e-5). bf16 (`rb`): two passes, each probability
+    rounded against the head's max and sum, which the split sums in another
+    order, so a probability may round one bf16 step apart (1e-2)."""
+    q, k, v, kh, vh = attention_inputs(rng, pos)
+    rnd = bf16_round if rb else (lambda a: a)
+    if rb:
+        vh = bf16_round(vh)
+    got = fws.self_attention_chunks(q, k, v, kh, vh, rnd, split=split, rb=rb)
+    ref = fws._self_attention(q, k, v, kh, vh, rnd)
+    assert got.shape == ref.shape == (4, 64)
+    assert rel_err(got, ref) <= (1e-2 if rb else 1e-5)
+
+
+@pytest.mark.parametrize("rb", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t_valid", [1, 100, 1500])
+@pytest.mark.parametrize("split", [1, 2, 13, 32])
+def test_cross_attention_chunks_match_unsplit(rng, split, t_valid, rb):
+    """int8 keys and values over t_valid of 1536 padded rows (the padding
+    large codes that must not be read); at t_valid 1 every chunk but the
+    first is empty."""
+    h, hd, t_pad = 4, 64, 1536
+    k8 = torch.from_numpy(rng.integers(-127, 128, (t_pad, h, hd), dtype=np.int8))
+    v8 = torch.from_numpy(rng.integers(-127, 128, (t_pad, h, hd), dtype=np.int8))
+    k8[t_valid:], v8[t_valid:] = 127, 127
+    qs = torch.from_numpy((rng.standard_normal((h, hd)) * 0.02).astype(np.float32))
+    vsc = torch.from_numpy((rng.random((h, hd)) * 0.01 + 1e-3).astype(np.float32))
+    rnd = bf16_round if rb else (lambda a: a)
+    got = fws.cross_attention_chunks(qs, k8, v8, vsc, t_valid, rnd, split=split, rb=rb)
+    ref = fws._cross_attention(qs, k8, v8, vsc, t_valid, rnd)
+    assert rel_err(got, ref) <= (1e-2 if rb else 1e-5)
+
+
+@pytest.mark.parametrize("fault", ["drop_sum", "drop_chunk"])
+@pytest.mark.parametrize("rb", [False, True], ids=["f32", "bf16"])
+def test_chunk_merge_faults_are_visible(rng, rb, fault):
+    """The faults chip_smoke plants in the step's merge (a chunk's sum left
+    out of the head's sum; a head's last chunk left out) move the self- and
+    the cross-attention far outside the tolerances above."""
+    q, k, v, kh, vh = attention_inputs(rng, 200)
+    rnd = bf16_round if rb else (lambda a: a)
+    split = 13  # the kernel's on an H100: 2 blocks an SM x 132 SMs / 20 heads
+    last = len([b for a, b in fws.chunk_bounds(200, split) if b > a]) - 1
+    kw = {fault: 0 if fault == "drop_sum" else last}
+    ref = fws._self_attention(q, k, v, kh, vh, rnd)
+    got = fws.self_attention_chunks(q, k, v, kh, vh, rnd, split=split, rb=rb, **kw)
+    assert rel_err(got, ref) > 5e-2
+    k8 = torch.from_numpy(rng.integers(-127, 128, (1536, 4, 64), dtype=np.int8))
+    vsc = torch.ones(4, 64)
+    qs = q * 0.01
+    ref = fws._cross_attention(qs, k8, k8, vsc, 1500, rnd)
+    got = fws.cross_attention_chunks(qs, k8, k8, vsc, 1500, rnd, split=split, rb=rb, **kw)
+    assert rel_err(got, ref) > 5e-2
+
+
+def test_chunk_bounds_partition_the_keys():
+    """The partition covers [0, n) in order, with empty chunks at the end."""
+    for n, split in ((0, 13), (1, 2), (9, 13), (447, 13), (1500, 13), (1500, 32)):
+        bounds = fws.chunk_bounds(n, split)
+        assert len(bounds) == split and bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(a <= b and b == c for (a, b), (c, _) in zip(bounds, bounds[1:]))
+
+
+def test_step_split_cuts_apply_to_the_sources():
+    """tools/step_split.py recognises the repository's sources, and each of
+    its cuts changes them (its marks all match, or it would refuse)."""
+    sources = step_split.read_sources(step_split.CSRC)
+    name = step_split.layout(sources)
+    versions = step_split.variants(sources)
+    assert list(versions) == ["kernel", *step_split.LAYOUTS[name], "all cut"]
+    assert versions["kernel"] == sources
+    for variant, files in versions.items():
+        changed = {f for f in files if files[f] != sources[f]}
+        assert bool(changed) == (variant != "kernel"), variant
+        assert changed <= {step_split.STEP, "decode_step.cuh"}

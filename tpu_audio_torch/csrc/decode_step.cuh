@@ -1,6 +1,6 @@
-// Device functions shared by the whole-step decode kernels (fused_whisper_step.cu,
-// fused_step.cu): weight-streaming products over all warps of a cooperative
-// grid, and two-pass attention over a head's cache rows split across blocks.
+// Device functions of the whole-stack decode kernel (fused_step.cu):
+// weight-streaming products over all warps of a cooperative grid, and
+// two-pass attention over a head's cache rows split across blocks.
 // Every function is called by a whole block of kThreads threads.
 #pragma once
 

@@ -19,11 +19,15 @@ bytes of a step at large-v3-turbo (91.8 MB of int8 decoder weights, 15.4 MB
 of cross-K/V, ≤ 9.2 MB of bf16 self cache) need ~35 µs at 3.35 TB/s.
 Design: one cooperative launch of co-resident blocks; grid-wide barriers
 separate the dependent phases (q/k/v, self-attention, o-projection,
-cross-q, cross-attention, cross-o, fc1, fc2); every block recomputes a
-LayerNorm itself, the products split their output channels over all warps,
-and each attention splits a head's keys over several blocks in two passes
-(chunk scores and their softmax sums, then the normalised probabilities,
-rounded like the reference's, times the values).
+cross-q, cross-attention, cross-o, fc1, fc2). Each block computes a
+contiguous share of every product's rows, copied into shared memory during
+the product and the barrier before it; each attention splits a head's
+keys over several blocks (`chunk_bounds`), and the block whose chunk
+finishes last merges the head's (max, sum, P·V) partials
+(`self_attention_chunks`, `cross_attention_chunks` are that partition and
+merge in PyTorch): one pass a chunk with f32 activations, two with bf16
+ones, whose probabilities are rounded against the head's max and sum like
+the reference's.
 
 The plain version is the same step layer by layer in PyTorch, with the
 TPU kernel's rounding. It returns the final-LN h and writes the slot.
@@ -38,9 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from tpu_audio_torch.ops.kernels import _build
+from tpu_audio_torch.ops.kernels.cross_kv_attention import attend_chunks, chunk_bounds
 
 HEAD_DIM = 64      # the kernel is compiled for hd = 64
 MAX_SPLIT = 32     # key chunks per head, at most (the .cu's kMaxSplit)
+MAX_D = 2048       # the widest residual a block's LayerNorm holds (the .cu's 8 x 256)
 NAMES = ("q", "k", "v", "o", "qc", "oc", "fc1", "fc2")
 _LEAVES = {"q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"),
            "o": ("attn", "o"), "qc": ("cross_attn", "q"),
@@ -54,6 +60,7 @@ _KERNEL = _build.Kernel("tpa_fused_whisper_step", _P, _I, _P,
                         *(_P,) * 8, *(_P,) * 8, *(_P,) * 8, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I)
+_PLAN = _build.Kernel("tpa_fused_whisper_step_plan", *(_I,) * 8, _P)
 
 
 def step_vectors(dec) -> dict:
@@ -132,6 +139,25 @@ def _cross_attention(qs, k8, v8, vsc, t_valid: int, rnd):
     return torch.einsum("ht,thd->hd", rnd(p), v8[:t_valid].float()) * vsc
 
 
+def self_attention_chunks(q, k, v, k_hist, v_hist, rnd, *, split: int, rb: bool,
+                          drop_sum: int | None = None, drop_chunk: int | None = None):
+    """`_self_attention` as the kernel computes it: the history's positions
+    in `split` chunks, merged with the fresh term by `attend_chunks`, one
+    pass a chunk unless `rb` (bf16 activations: `rnd` rounds)."""
+    s = torch.einsum("thd,hd->ht", k_hist, q)
+    return attend_chunks(s, v_hist, split, s_fresh=(q * k).sum(-1), v_fresh=v,
+                         rnd=rnd if rb else None, drop_sum=drop_sum, drop_chunk=drop_chunk)
+
+
+def cross_attention_chunks(qs, k8, v8, vsc, t_valid: int, rnd, *, split: int, rb: bool,
+                           drop_sum: int | None = None, drop_chunk: int | None = None):
+    """`_cross_attention` as the kernel computes it: the t_valid keys in
+    `split` chunks merged by `attend_chunks`, one pass a chunk unless `rb`."""
+    s = torch.einsum("thd,hd->ht", k8[:t_valid].float(), qs)
+    return attend_chunks(s, v8[:t_valid].float(), split, rnd=rnd if rb else None,
+                         drop_sum=drop_sum, drop_chunk=drop_chunk) * vsc
+
+
 def _mlp(hn, proj, rnd, layer: int):
     return proj("fc2", layer, rnd(F.gelu(proj("fc1", layer, hn))))
 
@@ -179,10 +205,21 @@ def fused_whisper_decode_step_plain(sw: StepWeights, x, pos, k_cache, v_cache,
 
 # --------------------------------------------------------------- kernel
 
+def launch_plan(device: torch.device, *, int8: bool, cache_f32: bool, n_layers: int, d: int,
+                hidden: int, n_heads: int, s_max: int, t_pad: int) -> dict:
+    """The kernel's launch on `device` for these sizes, without launching:
+    its blocks (two an SM where they fit), key chunks a head ("split"),
+    weight buffers in shared memory and a block's shared-memory bytes."""
+    out = torch.zeros(4, dtype=torch.int32)
+    _PLAN(device, int(int8), int(cache_f32), n_layers, d, hidden, n_heads, s_max, t_pad, out)
+    return dict(zip(("blocks", "split", "buffers", "smem_bytes"), out.tolist()))
+
+
 def workspace_floats(d: int, hidden: int, n_heads: int) -> int:
-    """f32 workspace of one step: residual, q, k, v, cross-q (D each), the
-    fc1 activation, and per-head partial softmax sums (checked by the .cu)."""
-    return 5 * d + hidden + n_heads * MAX_SPLIT * (HEAD_DIM + 2)
+    """f32 workspace of one step: residual, q, k, v, cross-q, the merged
+    attention output (D each), the fc1 activation, every chunk's (max, sum,
+    P·V) and four arrival counters a head (checked by the .cu)."""
+    return 6 * d + hidden + n_heads * MAX_SPLIT * (HEAD_DIM + 2) + 4 * n_heads
 
 
 def fused_whisper_decode_step(sw: StepWeights, x: torch.Tensor, pos: torch.Tensor,
@@ -215,7 +252,7 @@ def fused_whisper_decode_step(sw: StepWeights, x: torch.Tensor, pos: torch.Tenso
     lyr, s_max, d = k_cache.shape
     hidden = ws[NAMES.index("fc1")].shape[1]
     t_pad = k8.shape[2]
-    if d != n_heads * HEAD_DIM or d % 16 or hidden % 16:
+    if d != n_heads * HEAD_DIM or d % 16 or hidden % 16 or d > MAX_D:
         raise ValueError(f"fused_whisper_decode_step: unsupported D={d}, "
                          f"heads={n_heads}, hidden={hidden}")
     if not 1 <= t_valid <= t_pad or x.dtype not in (torch.float32, torch.bfloat16):
