@@ -93,9 +93,12 @@ bit for bit; fc1's codes and row scales judged themselves; planted faults
 of the cluster exchanges, tile edges, k stages, scales and head layout),
 each launch timed apart beside SDPA or `torch._int_mm`, the q4/q8
 dequant-matmul and the whole-stack Qwen3 step at Fun-ASR-Nano's shapes,
-and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down;
-the two stacked ones also timed at each of a layer's qkv, o, gateup and
-down shapes), with planted faults on inputs where every term matters. Each
+and the four W4A8 kernels at Llama-3.2-3B's (the heads, gateup and down
+at 1, 8 and 32 rows, with faults of the kernel's design at 1 and 8: a row
+scale from part of the row, a warp's share dropped, scales one group pair
+off; the two stacked ones also timed at each of a layer's qkv, o, gateup and
+down shapes at 1 and 8 rows, on one layer and on the layers in turn), with
+planted faults on inputs where every term matters. Each
 kernel is
 timed beside its bound (the larger of its operations over the H100's dense
 peak for their type and its bytes over 3.35 TB/s) and, where one PyTorch
@@ -127,6 +130,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import json
 import math
 import os
@@ -2415,17 +2419,103 @@ def sg_terms(x, wp, scales_sg):
     return dlo, dhi, scales_sg.float().T, sx, lo_fix
 
 
+def w4a8_design_faults(x, wp, scales, biases=None) -> list:
+    """Faults of the W4A8 kernel's own design, on the CPU model of its order
+    of summation (`w4a8_order.mma_partials`) or on the plain version: the
+    row scale taken from part of the row (the pairs of warps 1-7; the caller
+    puts the row's |max| in pair 0), one warp's share of the pairs dropped,
+    the scales read one group pair (pair layout) or one super-group off."""
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.ops.kernels.int8_matmul import true_div
+    from tpu_audio_torch.tools import w4a8_order
+
+    sg = biases is None
+    b, i = x.shape
+    xq, sx = w4mm.quantize_rows(x)
+    xsum = None if sg else x.float().reshape(b, -1, w4mm.GROUP).sum(-1)
+
+    def total(parts):
+        return functools.reduce(torch.add, parts.unbind(1))
+
+    part = (torch.arange(i, device=x.device) // w4mm.PAIR) % w4a8_order.WARPS != 0
+    s_part = torch.clamp(true_div(x.float()[:, part].abs().amax(-1, keepdim=True), 127.0),
+                         min=1e-10)
+    xq_part = torch.clamp(torch.round(x.float() / s_part), -127, 127).to(torch.int8)
+    rolled = scales.roll(-1 if sg else -2, dims=1).contiguous()
+    plain = (lambda: w4mm.w4a8_sg_matmul_plain(x, wp, rolled)) if sg else (
+        lambda: w4mm.w4a8_matmul_plain(x, wp, rolled, biases))
+    return [
+        ("the row scale taken from the pairs of warps 1-7 only",
+         lambda: (total(w4a8_order.mma_partials(xq_part, s_part, xsum, wp, scales, biases)),)),
+        ("the share of the last pair's warp dropped",
+         lambda: (lambda parts: (total(parts) - parts[:, (i // w4mm.PAIR - 1) % w4a8_order.WARPS],))(
+             w4a8_order.mma_partials(xq, sx, xsum, wp, scales, biases))),
+        ("the scales read one " + ("super-group" if sg else "group pair") + " off",
+         lambda: (plain(),)),
+    ]
+
+
+def w4a8_edge_shapes(randn, errs: dict) -> None:
+    """The stacked W4A8 entries, both formats, on random codes, scales and
+    biases of 2 layers at shapes Llama-3.2-3B's layers do not reach, against
+    the plain versions at rel 1e-5: I = 28672 and 14336, where a tile over all
+    I does not fit in shared memory (its pairs in chunks; at 28672 fewer
+    rows a pass), at 1, 8 and 32 rows; and scales and biases that start 4
+    bytes past a 16-byte boundary (as a layer's view of stacked ones may),
+    at 1 and 8 rows, O = 7."""
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+
+    dev = randn(1).device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def off4(t):  # t's values at 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 4, device=dev)[1:1 + t.numel()]
+        return buf.copy_(t.reshape(-1)).view(t.shape)
+
+    for i, o, ns, shift in ((28672, 40, (1, 8, 32), False), (14336, 72, (1, 8, 32), False),
+                            (768, 7, (1, 8), True)):
+        w_st = torch.randint(-128, 128, (2, o, i // 2), generator=gen, device=dev,
+                             dtype=torch.int8)
+        for sg in (False, True):
+            n_groups = i // (w4mm.SUPER if sg else w4mm.GROUP)
+            sc = torch.rand((o, n_groups), generator=gen, device=dev) * 1e-2 + 1e-3
+            bi = None if sg else torch.randn((o, n_groups), generator=gen, device=dev) * 1e-2
+            if shift:
+                sc, bi = off4(sc), None if sg else off4(bi)
+                assert sc.data_ptr() % 16 == 4
+            name = "w4a8_sg_matmul_stacked" if sg else "w4a8_matmul_stacked"
+            for n in ns:
+                x = randn(n, i)
+                x[:, 0] = 8.0
+                if sg:
+                    got = w4mm.w4a8_sg_matmul_stacked(x, w_st, sc, 1)
+                    ref = w4mm.w4a8_sg_matmul_stacked_plain(x, w_st, sc, 1)
+                else:
+                    got = w4mm.w4a8_matmul_stacked(x, w_st, sc, bi, 1)
+                    ref = w4mm.w4a8_matmul_stacked_plain(x, w_st, sc, bi, 1)
+                errs[name] = max(errs[name], compare(
+                    f"{name} random ({n}, {i}) x (2, {o}, {i // 2}) layer 1"
+                    + (", scales at 4 mod 16 bytes" if shift else ""), got, ref, rel=1e-5))
+
+
 def check_w4a8(trees: dict, randn, rows: list) -> None:
     """Phase 3, the four W4A8 kernels at Llama-3.2-3B's shapes, on the trees'
     own leaves: the pair layout's tied head (156940, 3072) and the
     super-group's untied head (128266, 3072) unstacked, each tree's gateup
     (16384, 3072) and down (3072, 8192) stacked on the last layer, at 1, 8
-    and 32 rows (the heads at 1 and 8), against the plain versions at rel
-    1e-5 (the integer dots are exact on both sides; only the f32 epilogue
-    rounds in another order). Planted faults, applied to the plain pieces,
-    must land outside: the high nibble's −8 bias uncorrected, the even and
-    odd group scales swapped, the group biases dropped, the row scale
-    ignored, the wrong layer, the super-group low plane's −8 dropped."""
+    and 32 rows, against the plain versions at rel 1e-5 (the integer dots
+    are exact on both sides; only the f32 epilogue rounds in another order).
+    Planted faults, applied to the plain pieces, must land outside: the high
+    nibble's −8 bias uncorrected, the even and odd group scales swapped, the
+    group biases dropped, the row scale ignored, the wrong layer, the
+    super-group low plane's −8 dropped; and, on the stacked ones at 1 row
+    (one launch) and 8 (the rows kernel and its dependents), the faults of
+    `w4a8_design_faults`. Then the stacked ones on random codes at shapes
+    the layers do not reach (`w4a8_edge_shapes`). Then each kernel timed at
+    the main path's shape (the stacked ones at gateup on the layers in
+    turn, their weights from device memory as in a forward), and the
+    stacked ones at each of a layer's four shapes at 1 and 8 rows, on one
+    layer and on the layers in turn."""
     from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
 
@@ -2434,7 +2524,7 @@ def check_w4a8(trees: dict, randn, rows: list) -> None:
     head_p, head_s = pair["embed"], sg["lm_head"]
     errs = {n: 0.0 for n in w4mm.LAUNCHES}
     dim = 2 * head_p["weight_q4p"].shape[1]
-    for n in (1, 8):
+    for n in (1, 8, 32):
         x = randn(n, dim)
         got = w4mm.w4a8_matmul(x, head_p["weight_q4p"], head_p["scales"], head_p["biases"])
         ref = w4mm.w4a8_matmul_plain(x, head_p["weight_q4p"], head_p["scales"], head_p["biases"])
@@ -2471,6 +2561,7 @@ def check_w4a8(trees: dict, randn, rows: list) -> None:
             leaf = pair["layers"]["mlp"][label]
             w_st, sc, bi = leaf["weight_q4p"], leaf["scales"][last], leaf["biases"][last]
             x = randn(n, w_st.shape[2] * 2)
+            x[:, 0] = 8.0  # the row's |max| in pair 0, one of warp 0's pairs
             got = w4mm.w4a8_matmul_stacked(x, w_st, sc, bi, last)
             errs["w4a8_matmul_stacked"] = max(errs["w4a8_matmul_stacked"], compare(
                 f"w4a8_matmul_stacked {label} layer {last} ({n}, {x.shape[1]}) x "
@@ -2480,6 +2571,9 @@ def check_w4a8(trees: dict, randn, rows: list) -> None:
                 planted_faults(f"w4a8_matmul_stacked {label}", (got,), [
                     (f"layer 0 read instead of layer {last}",
                      lambda: (w4mm.w4a8_matmul_stacked_plain(x, w_st, sc, bi, 0),))], rel=1e-5)
+            if n < 32:
+                planted_faults(f"w4a8_matmul_stacked {label} {n} rows", (got,),
+                               w4a8_design_faults(x, w_st[last], sc, bi), rel=1e-5)
             leaf = sg["layers"]["mlp"][label]
             w_st, sc = leaf["weight_q4s"], leaf["scales_sg"][last]
             got = w4mm.w4a8_sg_matmul_stacked(x, w_st, sc, last)
@@ -2494,60 +2588,87 @@ def check_w4a8(trees: dict, randn, rows: list) -> None:
                      lambda: (w4mm.w4a8_sg_matmul_stacked_plain(x, w_st, sc, 0),)),
                     ("the low plane's -8 dropped", lambda: (((dlo + dhi) * s).sum(1) * sx,))],
                     rel=1e-5)
+            if n < 32:
+                planted_faults(f"w4a8_sg_matmul_stacked {label} {n} rows", (got,),
+                               w4a8_design_faults(x, w_st[last], sc), rel=1e-5)
 
-    # timed at the main path's shapes: the heads and gateup at 1 row
+    w4a8_edge_shapes(randn, errs)
+
+    # timed at the main path's shapes: the heads and gateup at 1 row, the
+    # stacked ones on the layers in turn (layer li's own scales and biases)
     gp, gs = pair["layers"]["mlp"]["gateup"], sg["layers"]["mlp"]["gateup"]
     x = randn(1, dim)
+    turn = itertools.cycle(range(last + 1))
     cases = {
         "w4a8_matmul": ("tpu_audio/ops/pallas/w4a8_matmul.py:121", "tied head",
-                        (head_p["weight_q4p"], head_p["scales"], head_p["biases"]),
+                        lambda: (head_p["weight_q4p"], head_p["scales"], head_p["biases"]),
                         lambda w, s, b: w4mm.w4a8_matmul(x, w, s, b),
                         lambda w, s, b: w4mm.w4a8_matmul_plain(x, w, s, b),
                         lambda: quant.dequantize(head_p)),
         "w4a8_matmul_stacked": ("tpu_audio/ops/pallas/w4a8_matmul.py:256",
-                                f"gateup layer {last}",
-                                (gp["weight_q4p"], gp["scales"][last], gp["biases"][last]),
-                                lambda w, s, b: w4mm.w4a8_matmul_stacked(x, w, s, b, last),
-                                lambda w, s, b: w4mm.w4a8_matmul_stacked_plain(x, w, s, b, last),
+                                "gateup, the layers in turn",
+                                lambda: (gp["weight_q4p"], *(lambda li: (
+                                    gp["scales"][li], gp["biases"][li], li))(next(turn))),
+                                lambda w, s, b, li: w4mm.w4a8_matmul_stacked(x, w, s, b, li),
+                                lambda w, s, b, li: w4mm.w4a8_matmul_stacked_plain(x, w, s, b, li),
                                 lambda: quant.dequantize({k: v[last] for k, v in gp.items()})),
         "w4a8_sg_matmul": ("tpu_audio/ops/pallas/w4a8_matmul.py:422", "untied head",
-                           (head_s["weight_q4s"], head_s["scales_sg"]),
+                           lambda: (head_s["weight_q4s"], head_s["scales_sg"]),
                            lambda w, s: w4mm.w4a8_sg_matmul(x, w, s),
                            lambda w, s: w4mm.w4a8_sg_matmul_plain(x, w, s),
                            lambda: quant.dequantize(head_s)),
         "w4a8_sg_matmul_stacked": ("tpu_audio/ops/pallas/w4a8_matmul.py:513",
-                                   f"gateup layer {last}", (gs["weight_q4s"], gs["scales_sg"][last]),
-                                   lambda w, s: w4mm.w4a8_sg_matmul_stacked(x, w, s, last),
-                                   lambda w, s: w4mm.w4a8_sg_matmul_stacked_plain(x, w, s, last),
+                                   "gateup, the layers in turn",
+                                   lambda: (gs["weight_q4s"], *(lambda li: (
+                                       gs["scales_sg"][li], li))(next(turn))),
+                                   lambda w, s, li: w4mm.w4a8_sg_matmul_stacked(x, w, s, li),
+                                   lambda w, s, li: w4mm.w4a8_sg_matmul_stacked_plain(x, w, s, li),
                                    lambda: quant.dequantize({k: v[last] for k, v in gs.items()})),
     }
     for name, (replaces, label, args, kernel, plain, dense) in cases.items():
-        ms, pms = timed_pair(lambda: kernel(*args), lambda: plain(*args), 10)
+        iters = 2 * (last + 1) if name.endswith("stacked") else 10
+        ms, pms = timed_pair(lambda: kernel(*args()), lambda: plain(*args()), iters)
         w_bf16, xb = dense().to(torch.bfloat16), x.to(torch.bfloat16)
         lib_ms = time_ms(lambda: torch.nn.functional.linear(xb, w_bf16), 20)
         del w_bf16
-        w = args[0][last] if name.endswith("stacked") else args[0]
+        a = args()
+        w = a[0][last] if name.endswith("stacked") else a[0]
         o, i = w.shape[0], 2 * w.shape[1]
         log(f"time {name} {label} (1, {i}) x ({o}, {i}): kernel {ms:.4f} ms, plain {pms:.4f} ms; "
             f"library: F.linear of the bf16 dequantised weight at 1 row {lib_ms:.4f} ms")
+        rest = [t for t in a[1:] if isinstance(t, torch.Tensor)]
         rows.append(kernel_row(name, "tpu_audio_torch/csrc/w4a8_matmul.cu", replaces, errs[name],
-                               ms, pms, bound({"int8": 2 * i * o}, nbytes(x, w, *args[1:]) + 4 * o),
+                               ms, pms, bound({"int8": 2 * i * o}, nbytes(x, w, *rest) + 4 * o),
                                lib_ms))
     # the stacked kernels at each of a layer's four shapes (a forward runs
-    # each once a layer), for the launches x (time - bound) of each shape
+    # each once a layer), at 1 and 8 rows (generate, generate_batch), for the
+    # launches x (time - bound) of each shape: on one layer (the weights warm
+    # in L2 where they fit, as timed before) and on the layers in turn (from
+    # device memory, as in a forward)
     for name, tree, key in (("w4a8_matmul_stacked", pair, "weight_q4p"),
                             ("w4a8_sg_matmul_stacked", sg, "weight_q4s")):
         kernel = getattr(w4mm, name)
         for part, label in (("attn", "qkv"), ("attn", "o"), ("mlp", "gateup"), ("mlp", "down")):
             leaf = tree["layers"][part][label]
-            w = leaf[key][last]
-            scales = [v[last] for k, v in leaf.items() if k != key]
-            o, i = w.shape[0], 2 * w.shape[1]
-            x = randn(1, i)
-            ms = time_ms(lambda: kernel(x, leaf[key], *scales, last), 20)
-            roof = bound({"int8": 2 * i * o}, nbytes(x, w, *scales) + 4 * o)
-            log(f"time {name} {label} layer {last} (1, {i}) x ({o}, {i}): kernel {ms:.4f} ms, "
-                f"bound {roof[0]:.4f} ms ({roof[1]}), {roof[0] / ms:.3f} of it")
+            w_st = leaf[key]
+            per_layer = [[v[li] for k, v in leaf.items() if k != key]
+                         for li in range(w_st.shape[0])]
+            o, i = w_st.shape[1], 2 * w_st.shape[2]
+            for n in (1, 8):
+                x = randn(n, i)
+                ms = time_ms(lambda: kernel(x, w_st, *per_layer[last], last), 20)
+                turn = itertools.cycle(range(w_st.shape[0]))
+
+                def in_turn():
+                    li = next(turn)
+                    return kernel(x, w_st, *per_layer[li], li)
+                ms_cold = time_ms(in_turn, 2 * w_st.shape[0])
+                roof = bound({"int8": 2 * n * i * o},
+                             nbytes(x, w_st[last], *per_layer[last]) + 4 * n * o)
+                log(f"time {name} {label} layer {last} ({n}, {i}) x ({o}, {i}): kernel "
+                    f"{ms:.4f} ms one layer, {ms_cold:.4f} ms layers in turn; bound "
+                    f"{roof[0]:.4f} ms ({roof[1]}), {roof[0] / ms:.3f} and "
+                    f"{roof[0] / ms_cold:.3f} of it")
 
 
 def funasr_slice(trees: dict, dev, card: str) -> dict:
@@ -2897,6 +3018,9 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     if not all(0 <= t < sg_cfg.vocab_size for row in out + out2 for t in row):
         raise AssertionError("orpheus sg: a token outside the vocabulary")
     lm_ms(gen, prompts[:1], greedy, "sg")
+    log("orpheus sg LM, prefill + 32 steps profiled: " + kernels_per_step(
+        lambda: gen.generate(prompts[0], sampler=greedy, eos_ids=(om.END_TOKEN,), max_new=33),
+        33))
     lm_ms(gen, prompts, greedy, "sg")
     del gen
 
@@ -2965,7 +3089,8 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
 
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
 # them, the two decode kernels and the functions the whole-decoder step
-# calls, and whether each issues wgmma
+# calls, the W4A8 rows kernel and products (every instantiation), and
+# whether each issues wgmma
 HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "encoder_attention_kernel": True, "attn_heads_kernel": True,
                   "oproj_ln_bf16_kernel": True, "quant_rows_kernel": False,
@@ -2973,7 +3098,8 @@ HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "s8_gemm_kernel": True, "pair_codes_kernel": True, "oproj_ln_kernel": True,
                   "fused_whisper_step_kernel": False, "step_product": False,
                   "step_layer_norm": False, "chunk_attention": False,
-                  "cross_attention_decode_kernel": False}
+                  "cross_attention_decode_kernel": False, "w4a8_rows_kernel": False,
+                  "w4a8_kernel": False}
 
 
 def hopper_report(lib_path: Path) -> None:

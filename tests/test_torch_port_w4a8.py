@@ -2,7 +2,10 @@
 CPU: `pack_w4a8` and `requantize_w4a8_sg` byte for byte, the dequantisers
 and the row lookup, the plain versions of the four W4A8 kernels against
 the Pallas kernels in interpret mode, the tree repacks and fusions, the
-linears' routing at ≤ 32 and > 32 rows, and the conversion of W4A8 trees.
+linears' routing at ≤ 32 and > 32 rows, and the conversion of W4A8 trees;
+the CUDA kernel's planes, k order and order of summation
+(`tools/w4a8_order.py`) against the plain versions, and
+`tools/w4a8_split.py`'s cuts.
 
 The JAX W4A8 gates are off away from the TPU, and the JAX CPU path takes
 the dequantised product without the int8 activation rounding: the
@@ -28,6 +31,7 @@ from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+from tpu_audio_torch.tools import w4a8_order, w4a8_split
 
 ENTRIES = ("w4a8_matmul", "w4a8_matmul_stacked", "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")
 
@@ -199,3 +203,71 @@ def test_wrappers_launch_nothing_on_cpu_and_refuse_other_devices(rng):
     assert w4mm.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         w4mm._launch("w4a8_matmul", x, tp["weight_q4p"][None], tp["scales"], tp["biases"], 0)
+
+
+def test_mma_k_order_gives_each_lane_its_16_bytes():
+    """The 64 k-slots of the kernel's two m16n8k32 steps take each byte of
+    a 64-byte span once, lane t's slots (4t.., 16 + 4t.. of each step) its
+    own 16 contiguous bytes."""
+    order = w4a8_order.mma_k_order()
+    assert sorted(order.tolist()) == list(range(64))
+    for t in range(4):
+        slots = [32 * step + 16 * half + 4 * t + i for step in (0, 1) for half in (0, 1)
+                 for i in range(4)]
+        assert sorted(order[slots].tolist()) == list(range(16 * t, 16 * t + 16))
+
+
+@pytest.mark.parametrize("sg", [False, True])
+@pytest.mark.parametrize("rows,i,o", [(1, 1024, 512), (5, 1536, 208), (8, 1024, 130),
+                                      (32, 1536, 96)])
+def test_kernel_order_matches_plain(rng, sg, rows, i, o):
+    """The kernel's arithmetic modelled on the CPU: its planes (masks, no −8
+    fold) give the plain version's integer dots exactly, per 64-column
+    group (pair) or 256-column super-group, and its order of summation (8
+    warps over interleaved pairs, scales per pair in f32, the warps' shares
+    added in order) stays within 1e-5 of max|plain|, at any O."""
+    leaf = q4_leaf(rng, o, i)
+    jp = jquant.requantize_w4a8_sg(leaf) if sg else jquant.repack_w4a8(leaf)
+    tp = to_torch(jp)
+    wp = tp["weight_q4s" if sg else "weight_q4p"]
+    x = torch.from_numpy((rng.standard_normal((rows, i)) * 2).astype(np.float32))
+    x[:, :64] += 3.0
+    xq, sx = w4mm.quantize_rows(x)
+    x_lo, x_hi = w4mm.split_activations(xq)
+    d_lo, d_hi = w4a8_order.mma_dots(xq, wp, sg)
+    if sg:  # the plain version's exact super-group dot: low plane less its +8, high / 16
+        ref = (w4mm._plane_dots(x_lo, wp & 15, w4mm.PAIR)
+               - 8 * x_lo.float().reshape(rows, -1, w4mm.PAIR).sum(-1)[..., None]
+               + w4mm._plane_dots(x_hi, wp & -16, w4mm.PAIR) / 16)
+        got = ((d_lo + d_hi) / 16).reshape(rows, -1, 2, o).sum(2)
+        assert torch.equal(got, ref.double())
+        plain = w4mm.w4a8_sg_matmul_plain(x, wp, tp["scales_sg"])
+        parts = w4a8_order.mma_partials(xq, sx, None, wp, tp["scales_sg"])
+    else:  # the plain version's high plane: 16 (h − 8), less its −8 correction
+        assert torch.equal(d_lo, w4mm._plane_dots(x_lo, wp & 15, w4mm.GROUP).double())
+        ref_hi = (w4mm._plane_dots(x_hi, wp & -16, w4mm.GROUP) / 16
+                  + 8 * x_hi.float().reshape(rows, -1, w4mm.GROUP).sum(-1)[..., None])
+        assert torch.equal(d_hi, ref_hi.double())
+        plain = w4mm.w4a8_matmul_plain(x, wp, tp["scales"], tp["biases"])
+        xsum = x.reshape(rows, -1, w4mm.GROUP).sum(-1)
+        parts = w4a8_order.mma_partials(xq, sx, xsum, wp, tp["scales"], tp["biases"])
+    assert parts.shape == (rows, w4a8_order.WARPS, o)
+    y = parts[:, 0]
+    for w in range(1, w4a8_order.WARPS):
+        y = y + parts[:, w]
+    close(y, plain)
+    # and a dropped warp's share does not pass
+    assert (y - parts[:, 3] - plain).abs().max() > 1e-5 * plain.abs().max()
+
+
+def test_w4a8_split_cuts_apply_to_the_sources():
+    """tools/w4a8_split.py recognises the repository's sources, and each of
+    its cuts changes them (its marks all match, or it would refuse)."""
+    sources = w4a8_split.read_sources(w4a8_split.CSRC)
+    name = w4a8_split.layout(sources)
+    versions = w4a8_split.variants(sources)
+    assert list(versions) == ["kernel", *w4a8_split.LAYOUTS[name]["cuts"], "all cut"]
+    assert versions["kernel"] == sources
+    for variant, files in versions.items():
+        changed = {f for f in files if files[f] != sources[f]}
+        assert changed == (set() if variant == "kernel" else {w4a8_split.SRC}), variant

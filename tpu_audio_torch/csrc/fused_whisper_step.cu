@@ -118,16 +118,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// `bytes` (a multiple of 16) from global src to shared dst; completion is
-// reported to `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(hp::smem_addr(dst)), "l"(src), "r"(bytes), "r"(hp::smem_addr(bar))
-      : "memory");
-}
-
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
@@ -445,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) fused_whisper_step_ker
     segments(g, [&](const W* src, int off, int cnt) {
       for (long o = 0; o < cnt * row_bytes; o += kPieceBytes) {
         const long left = cnt * row_bytes - o;
-        bulk_load(dst + off * row_bytes + o, reinterpret_cast<const char*>(src) + o,
+        hp::bulk_load(dst + off * row_bytes + o, reinterpret_cast<const char*>(src) + o,
                   static_cast<uint32_t>(left < kPieceBytes ? left : kPieceBytes), br);
       }
     });

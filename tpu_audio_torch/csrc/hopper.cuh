@@ -1,6 +1,7 @@
 // Hopper (sm_90a) machinery shared by the TMA + wgmma kernels of
 // tpu_audio_torch (ln_qkv.cu, encoder_attention.cu, attention_wgmma.cuh,
-// fused_encoder.cu, fused_encoder_int8.cu, oproj_ln.cuh):
+// fused_encoder.cu, fused_encoder_int8.cu, oproj_ln.cuh; the bulk copy and
+// mbarriers also fused_whisper_step.cu and w4a8_matmul.cu):
 //
 //   host:   a 2-D or 4-D tensor map (bf16 or int8 elements) with a 128-byte
 //           swizzle, encoded by cuTensorMapEncodeTiled, looked up at run
@@ -8,7 +9,8 @@
 //           -lcuda); a kernel takes the map as a
 //           `__grid_constant__ const CUtensorMap`.
 //   device: mbarrier init / arrive / arrive-expect-tx / try-wait-parity; the
-//           TMA tile load (cp.async.bulk.tensor, completion on an mbarrier);
+//           TMA tile load (cp.async.bulk.tensor, completion on an mbarrier)
+//           and the plain bulk copy (cp.async.bulk, no tensor map);
 //           the wgmma shared-memory descriptor of a 128-byte-swizzled tile;
 //           wgmma fence / commit_group / wait_group; named barriers; the
 //           wgmma shapes the kernels issue (bf16: m64n256k16 and m64n64k16
@@ -156,6 +158,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, without a tensor map; completion is reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -30,12 +30,14 @@ used at most 32 times, far below the ~295 op/byte ridge. Llama-3.2-3B's
 tied head (156,940 × 3,072) streams 241 MB of codes and 61.6 MB of group
 scales and biases: 302 MB, 0.090 ms at 3.35 TB/s; a layer's gateup
 (16,384 × 3,072) 31.5 MB, 0.0094 ms; its super-group gateup 26.0 MB. Design
-(in the .cu): a first kernel quantises the rows and writes each group's
-f32 sum of x and int sum of codes; the main kernel stages the codes in
-shared memory (rows in passes of 8), one warp per output channels, each
-lane a whole group pair (64 packed bytes, four 16-byte loads), nibble
-planes split with two AND masks and dotted with `__dp4a`; the two lanes of
-a super-group add their integer dots by one shuffle.
+(in the .cu): at one row one launch; each block issues its first weight tiles
+(16 channels over all I, or over a chunk of I where that does not fit) as
+bulk copies into a shared-memory ring before it quantises the row itself. Above one row a rows kernel writes the codes and
+the products run as its programmatic dependents, streaming their weights
+before they wait on it. `mma.sync` s8 products of the nibble planes (made
+valid s8 operands by masks), the 8 warps splitting a tile's 128-column
+pairs, scales applied per warp in f32, the warps' sums added in a fixed
+order (`tools/w4a8_order.py` models it on the CPU).
 
 One routing difference from the TPU: there the super-group head at a
 vocabulary no `block_o` divides (128,266) fails `sg_supported` and takes
@@ -52,6 +54,7 @@ interpret mode. The format helpers run in torch on the tensor's device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -67,8 +70,7 @@ LAUNCHES = {"w4a8_matmul": 0, "w4a8_matmul_stacked": 0, "w4a8_sg_matmul": 0,
             "w4a8_sg_matmul_stacked": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_KERNEL = _build.Kernel("tpa_w4a8_matmul", _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I)
+_KERNEL = _build.Kernel("tpa_w4a8_matmul", _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I)
 
 
 # ------------------------------------------------------------ the formats
@@ -217,6 +219,15 @@ def supported(x: torch.Tensor, wp: torch.Tensor, sg: bool = False) -> bool:
             and wp.shape[-1] * 2 == i)
 
 
+@functools.lru_cache(maxsize=None)
+def _work_bytes(rows: int, in_features: int) -> int:
+    """Scratch of a call (the codes, scales and group sums its rows kernel
+    writes; none at one row, where the products quantise the row)."""
+    fn = _build.library().tpa_w4a8_work_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_long
+    return fn(rows, in_features)
+
+
 def _launch(name: str, x: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
             biases: torch.Tensor | None, layer: int) -> torch.Tensor:
     sg = biases is None
@@ -235,17 +246,13 @@ def _launch(name: str, x: torch.Tensor, wp: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
     _build.check(f"{name} x", x, x.dtype, (b, i))
     _build.check(f"{name} packed", wp, torch.int8, (lyr, o, i // 2))
-    g = i // GROUP
     _build.check(f"{name} scales", scales, torch.float32, (o, i // (SUPER if sg else GROUP)))
     if not sg:
-        _build.check(f"{name} biases", biases, torch.float32, (o, g))
-    xq = torch.empty((b, i), dtype=torch.int8, device=device)
-    sx = torch.empty((b,), dtype=torch.float32, device=device)
-    xsum = torch.empty((b, g), dtype=torch.float32, device=device)
-    xqs = torch.empty((b, g), dtype=torch.int32, device=device)
+        _build.check(f"{name} biases", biases, torch.float32, (o, i // GROUP))
+    n_work = _work_bytes(b, i)
+    work = torch.empty(n_work, dtype=torch.uint8, device=device) if n_work else None
     out = torch.empty((b, o), dtype=torch.float32, device=device)
-    _KERNEL(device, x, int(x.dtype == torch.bfloat16), wp, scales,
-            biases, int(sg), xq, sx, xsum, xqs, out,
+    _KERNEL(device, x, int(x.dtype == torch.bfloat16), wp, scales, biases, int(sg), work, out,
             b, i, o, int(layer))
     LAUNCHES[name] += 1
     return out
