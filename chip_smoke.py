@@ -156,6 +156,13 @@ SLICE_RATIO = 1.5
 SINGLE_CLIP_SECONDS = 4      # phase 5's transcribe clip (one window)
 POS = 200                    # the decoder step's position in phase 3
 STEP_POS, STEP_START = 300, 40  # the Qwen3 step's position and first valid slot in phase 3
+# the Llama-3.2-3B step's in phase 3: a 32-slot prompt bucket, 100 tokens on
+LLAMA_STEP_POS, LLAMA_STEP_START, LLAMA_STEP_SLOTS = 132, 4, 256
+COLD_BYTES = 160 << 20       # stacked copies enough that a timed call finds its weights out of L2
+# the hd-64 instantiations of the whole-stack step, held on two layers at
+# Llama-3.2-1B's width
+HD64_STACK = dict(dim=2048, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=64, hidden_dim=8192,
+                  vocab_size=128256)
 FUNASR_CLIP_SECONDS = 10     # phase 8's clip
 FUNASR_MAX_NEW = 48          # tokens per transcribe (random weights rarely stop early)
 FUNASR_CACHE = 1024          # prompt (~370 slots for 10 s) + new tokens
@@ -2195,6 +2202,30 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
             lambda: qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits), 20)
         log(f"time quant_matmul q{bits} {label} (1, {i}) x ({o}, {i}): kernel "
             f"{timing[(bits, label)][0]:.4f} ms, plain {timing[(bits, label)][1]:.4f} ms")
+    # each linear of the q4 decoders at 1 row (Whisper large-v3-turbo; Qwen3-0.6B as
+    # the per-layer path runs it, 7 launches a layer), its weights from device memory:
+    # enough stacked copies that the calls, made on the copies in turn, miss L2
+    shapes = {"whisper q, k, v, o, cross q, o": (1280, 1280), "whisper fc1": (5120, 1280),
+              "whisper fc2": (1280, 5120), "qwen3 q": (2048, 1024), "qwen3 k, v": (1024, 1024),
+              "qwen3 o": (1024, 2048), "qwen3 gate, up": (3072, 1024), "qwen3 down": (1024, 3072)}
+    for label, (o, i) in shapes.items():
+        layers = max(2, -(-COLD_BYTES // (o * i // 2 + o * i // qmm.GROUP * 8)))
+        leaf = quant.quantize_array(randn(layers, o, i, scale=i ** -0.5), 4)
+        packed, sc, bi = leaf["weight_q4"], leaf["scales"], leaf["biases"]
+        x = randn(1, i)
+        compare(f"quant_matmul q4 {label} (1, {i}) x ({o}, {i})",
+                qmm.quant_matmul(x, packed[1], sc[1], bi[1], bits=4),
+                qmm.quant_matmul_plain(x, packed[1], sc[1], bi[1], bits=4), rel=1e-4)
+        cycle = itertools.cycle(range(layers))
+
+        def call(x=x, packed=packed, sc=sc, bi=bi, cycle=cycle):
+            li = next(cycle)
+            return qmm.quant_matmul(x, packed[li], sc[li], bi[li], bits=4)
+        ms = time_ms(call, 40)
+        roof_ms, by = bound({"f32": 2 * i * o}, nbytes(x, packed[0], sc[0], bi[0]) + 4 * o)
+        log(f"time quant_matmul q4 {label} (1, {i}) x ({o}, {i}), the {layers} copies in turn: "
+            f"kernel {ms:.4f} ms, bound {roof_ms:.4f} ms ({by}), gap {ms - roof_ms:.4f} ms")
+        del leaf, packed, sc, bi
     head = leaves[(4, "lm head")]
     o, i = head["weight_q4"].shape[0], head["scales"].shape[1] * qmm.GROUP
     x = randn(1, i)
@@ -2223,34 +2254,145 @@ def fresh_dropped(q, k, v, k_hist, v_hist, rnd):
     return torch.einsum("ht,htd->hd", rnd(w), rnd(v_hist))
 
 
+def step_cache(cfg, dev, randn, slots: int, start: int, pos: int):
+    """A bf16 cache (L, KVH, slots, hd) filled before `pos`: the slots
+    before `start` with keys and values of std 10 (they would dominate if
+    read), the history [start, pos) with keys of std 3 (peaked scores) and
+    values of std 2."""
+    lyr, kvh, hd = cfg.n_layers, cfg.kv_heads, cfg.hd
+    kc = torch.zeros(lyr, kvh, slots, hd, dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :start] = randn(lyr, kvh, start, hd, dtype=torch.bfloat16, scale=10.0)
+    vc[:, :, :start] = randn(lyr, kvh, start, hd, dtype=torch.bfloat16, scale=10.0)
+    kc[:, :, start:pos] = randn(lyr, kvh, pos - start, hd, dtype=torch.bfloat16, scale=3.0)
+    vc[:, :, start:pos] = randn(lyr, kvh, pos - start, hd, dtype=torch.bfloat16, scale=2.0)
+    return kc, vc
+
+
+def step_plan(cfg, dev, int8: bool, slots: int) -> dict:
+    """The whole-stack step's launch on the card at this width, logged."""
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    plan = fs.launch_plan(dev, int8=int8, d=cfg.dim, hidden=cfg.hidden_dim,
+                          n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads, hd=cfg.hd, s_max=slots)
+    log(f"fused_decode_step launch, D {cfg.dim}, {'int8' if int8 else 'bf16'} weights: {plan}")
+    return plan
+
+
+def hold_step(tag: str, stack: dict, cfg, n_layers: int, dtype, kc, vc, start: int, pos: int,
+              dev, randn, int8: bool, faults: bool = True) -> float:
+    """The whole-stack step against its plain version at `pos` and at start
+    + 1 (the fresh term one of two), within rel 2e-2 / cosine 0.999, on h
+    and the new k and v slots. With all of the model's layers, planted
+    faults (in the plain version) must land outside: q/k-norm dropped
+    (Qwen3), RoPE on the wrong half, KV head j % KVH, start ignored, the
+    final norm dropped, a chunk merged twice (the last one holding keys, at
+    the launch's split), the int8 scales not applied (int8); at start + 1
+    the fresh term dropped (`faults` False: none). Returns the largest max
+    abs error."""
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    hd = cfg.hd
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads, hd=hd, eps=cfg.norm_eps)
+    start_t = torch.tensor(start, device=dev)
+    x = randn(1, cfg.dim, dtype=dtype, scale=0.5)
+
+    def run(step, p, st=stack, s0=start_t):
+        pos_t = torch.tensor(p, device=dev)
+        cos, sin = fs.make_cos_sin(pos_t, cfg.inv_freq())
+        kc_, vc_ = kc[:n_layers].clone(), vc[:n_layers].clone()
+        h = step(st, x, pos_t, s0, cos, sin, kc_, vc_, **kw)
+        return h, kc_[:, :, p], vc_[:, :, p]
+
+    def plain(p=pos, **over):
+        return run(fs.fused_decode_step_plain, p, **over)
+
+    names = ("h", "k slot", "v slot")
+    got = run(fs.fused_decode_step, pos)
+    err = max(compare(f"{tag}: {n}, pos {pos}, start {start}", g, r, rel=2e-2)
+              for n, g, r in zip(names, got, plain()))
+    if n_layers < cfg.n_layers or not faults:
+        return err
+    split = step_plan(cfg, dev, int8, kc.shape[2])["split"]
+    last = len([b for a, b in fs.chunk_bounds(pos - start, split) if b > a]) - 1
+    faults = [
+        ("RoPE on the wrong half", faulty(fs, "_rope", lambda v, c, s: v * c + torch.cat(
+            [v[..., hd // 2:], -v[..., :hd // 2]], -1) * s, plain)),
+        ("KV head j % KVH in place of j // G", faulty(
+            fs, "_kv_heads", lambda t, n: t.repeat(n // t.shape[0], *[1] * (t.dim() - 1)),
+            plain)),
+        ("start ignored", lambda: plain(s0=torch.zeros_like(start_t))),
+        ("the final norm dropped", faulty(fs, "_final_norm", lambda v, w, eps: v, plain)),
+        (f"chunk {last} of {split} merged twice", faulty(
+            fs, "_attention", lambda q, k, v, kh, vh, rnd: fs.attention_chunks(
+                q, k, v, kh, vh, rnd, split=split, rb=False, twice=last), plain)),
+    ]
+    if "qknorm" in stack:
+        faults.insert(0, ("qk-norm dropped", lambda: plain(
+            st={k: v for k, v in stack.items() if k != "qknorm"})))
+    if int8:
+        faults.append(("int8 scales not applied", lambda: plain(st={
+            k: (torch.ones_like(v) if k in ("sqkv", "so", "sgateup", "sdown") else v)
+            for k, v in stack.items()})))
+    planted_faults(tag, got, faults, rel=2e-2)
+    p1 = start + 1
+    got = run(fs.fused_decode_step, p1)
+    err = max(err, *(compare(f"{tag}: {n}, pos {p1} (one history slot)", g, r, rel=2e-2)
+                     for n, g, r in zip(names, got, plain(p1))))
+    planted_faults(f"{tag}, pos {p1}", got, [
+        ("the fresh term dropped", faulty(fs, "_attention", fresh_dropped,
+                                          lambda: plain(p1)))], rel=2e-2)
+    return err
+
+
+def time_step(label: str, stack: dict, cfg, kc, vc, start: int, pos: int, dtype, dev,
+              randn) -> tuple:
+    """The whole stack timed (kernel and plain, the cache's slot `pos`
+    rewritten in place) with the main path's activations: (ms, plain ms,
+    bound). The bound: the weights, the vectors and the history's cache
+    rows read once, the slot and h written once; f32 operations of the
+    products and attention."""
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads, hd=cfg.hd, eps=cfg.norm_eps)
+    x = randn(1, cfg.dim, dtype=dtype, scale=0.5)
+    pos_t, start_t = torch.tensor(pos, device=dev), torch.tensor(start, device=dev)
+    cos, sin = fs.make_cos_sin(pos_t, cfg.inv_freq())
+    args = (stack, x, pos_t, start_t, cos, sin, kc, vc)
+    ms, pms = timed_pair(lambda: fs.fused_decode_step(*args, **kw),
+                         lambda: fs.fused_decode_step_plain(*args, **kw), 20)
+    weights = [stack[f"w{n}"] for n in ("qkv", "o", "gateup", "down")]
+    vectors = [v for k, v in stack.items() if not k.startswith("w")]
+    read = [*weights, *vectors, kc[:, :, start:pos], vc[:, :, start:pos], x]
+    ops = {"f32": 2 * sum(w.numel() for w in weights)
+           + 4 * cfg.n_layers * cfg.n_heads * (pos - start + 1) * cfg.hd}
+    roof = bound(ops, nbytes(*read) + 4 * cfg.dim + 2 * nbytes(kc[:, :, pos]))
+    log(f"time fused_decode_step {label} (pos {pos}, start {start}): kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {roof[0]:.4f} ms ({roof[1]}), {roof[0] / ms:.3f} of it")
+    return ms, pms, roof
+
+
 def check_fused_step(trees: dict, dev, randn, rows: list) -> None:
     """Phase 3, the whole-stack Qwen3 step at Fun-ASR-Nano's shapes on the
     bf16 and int8 trees (bf16 and f32 activations, as the main path gives
-    them), bf16 cache filled to STEP_POS, first valid slot STEP_START. The
-    inputs make every term matter: random norm and q/k-norm weights, a
-    history whose scores have std ~3 (peaked), slots before `start` with
-    keys std 10 (they would dominate if read), a residual of std 0.5. A
-    second check at pos = start + 1 makes the fresh term one of two. Planted
-    faults (in the plain version) must land outside rel 2e-2 / cosine 0.999.
-    The bf16-activation case has no planted faults: one f32 sum that
-    rounds across a bf16 boundary can read up to 1.5e-3 at two layers, and
+    them), bf16 cache filled to STEP_POS, first valid slot STEP_START
+    (`step_cache`). The inputs make every term matter: random norm and
+    q/k-norm weights, peaked scores, a residual of std 0.5. `hold_step`
+    holds it against the plain version with planted faults. The
+    bf16-activation case has no planted faults: one f32 sum that rounds
+    across a bf16 boundary can read up to 1.5e-3 at two layers, and
     leaving the probabilities' bf16 rounding out reads 4.6e-3, too close
-    to tell apart (on the card). The err of the JSON row is the largest
-    over both trees' checks."""
+    to tell apart (on the card). The hd-64 instantiations, which no
+    model of the main paths runs, are held at Llama-3.2-1B's width on two
+    layers. The JSON row is the bf16 tree's timing; its err the largest of
+    every check (`check_fused_step_llama` adds the 3B stack's)."""
     from tpu_audio_torch.models.funasr.model import QWEN3_06B as cfg
     from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.nn.transformer import TransformerConfig
     from tpu_audio_torch.ops.kernels import fused_step as fs
 
-    lyr, kvh, hd, s_max = cfg.n_layers, cfg.kv_heads, cfg.hd, 512
-    kc = torch.zeros(lyr, kvh, s_max, hd, dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
-    kc[:, :, :STEP_START] = randn(lyr, kvh, STEP_START, hd, dtype=torch.bfloat16, scale=10.0)
-    vc[:, :, :STEP_START] = randn(lyr, kvh, STEP_START, hd, dtype=torch.bfloat16, scale=10.0)
-    n_hist = STEP_POS - STEP_START
-    kc[:, :, STEP_START:STEP_POS] = randn(lyr, kvh, n_hist, hd, dtype=torch.bfloat16, scale=3.0)
-    vc[:, :, STEP_START:STEP_POS] = randn(lyr, kvh, n_hist, hd, dtype=torch.bfloat16, scale=2.0)
-    start = torch.tensor(STEP_START, device=dev)
-    kw = dict(n_heads=cfg.n_heads, n_kv_heads=kvh, hd=hd, eps=cfg.norm_eps)
+    lyr, hd, s_max = cfg.n_layers, cfg.hd, 512
+    kc, vc = step_cache(cfg, dev, randn, s_max, STEP_START, STEP_POS)
     err, row = 0.0, None
     for label in ("bf16", "int8"):
         full = dict(fs.prepare_stack(transformer.fuse_fp_tree(trees[label]["llm"])))
@@ -2268,69 +2410,64 @@ def check_fused_step(trees: dict, dev, randn, rows: list) -> None:
                              {k: v if k == "norm" else v[:2] for k, v in full.items()},
                              torch.bfloat16, 2))
         for desc, stack, dtype, n_layers in cases:
-            x = randn(1, cfg.dim, dtype=dtype, scale=0.5)
-
-            def run(step, p, st=stack, s0=start, x=x, n_layers=n_layers):
-                pos = torch.tensor(p, device=dev)
-                cos, sin = fs.make_cos_sin(pos, cfg.inv_freq())
-                kc_, vc_ = kc[:n_layers].clone(), vc[:n_layers].clone()
-                h = step(st, x, pos, s0, cos, sin, kc_, vc_, **kw)
-                return h, kc_[:, :, p], vc_[:, :, p]
-
-            def plain(p=STEP_POS, run=run, **over):
-                return run(fs.fused_decode_step_plain, p, **over)
-
-            names = ("h", "k slot", "v slot")
-            tag = f"fused_decode_step {label} weights, {desc}"
-            got = run(fs.fused_decode_step, STEP_POS)
-            err = max(err, *(compare(f"{tag}: {n}, pos {STEP_POS}, start {STEP_START}", g, r,
-                                     rel=2e-2) for n, g, r in zip(names, got, plain())))
-            if n_layers < lyr:
-                continue
-            faults = [
-                ("qk-norm dropped", lambda: plain(st={k: v for k, v in stack.items()
-                                                      if k != "qknorm"})),
-                ("RoPE on the wrong half", faulty(fs, "_rope", lambda v, c, s: v * c + torch.cat(
-                    [v[..., hd // 2:], -v[..., :hd // 2]], -1) * s, plain)),
-                ("KV head j % KVH in place of j // G", faulty(
-                    fs, "_kv_heads", lambda t, n: t.repeat(n // t.shape[0], *[1] * (t.dim() - 1)),
-                    plain)),
-                ("start ignored", lambda: plain(s0=torch.zeros_like(start))),
-                ("the final norm dropped", faulty(fs, "_final_norm", lambda v, w, eps: v, plain)),
-            ]
-            if label == "int8":
-                faults.append(("int8 scales not applied", lambda: plain(st={
-                    k: (torch.ones_like(v) if k in ("sqkv", "so", "sgateup", "sdown") else v)
-                    for k, v in stack.items()})))
-            planted_faults(tag, got, faults, rel=2e-2)
-            p1 = STEP_START + 1
-            got = run(fs.fused_decode_step, p1)
-            err = max(err, *(compare(f"{tag}: {n}, pos {p1} (one history slot)", g, r, rel=2e-2)
-                             for n, g, r in zip(names, got, plain(p1))))
-            planted_faults(f"{tag}, pos {p1}", got, [
-                ("the fresh term dropped", faulty(fs, "_attention", fresh_dropped,
-                                                  lambda: plain(p1)))], rel=2e-2)
-        # timed on the whole stack with the main path's activations
-        stack = full
-        x = randn(1, cfg.dim, dtype=torch.bfloat16 if label == "bf16" else torch.float32,
-                  scale=0.5)
-        pos = torch.tensor(STEP_POS, device=dev)
-        cos, sin = fs.make_cos_sin(pos, cfg.inv_freq())
-        args = (stack, x, pos, start, cos, sin, kc, vc)  # rewrites slot STEP_POS in place
-        ms, pms = timed_pair(lambda: fs.fused_decode_step(*args, **kw),
-                             lambda: fs.fused_decode_step_plain(*args, **kw), 20)
-        log(f"time fused_decode_step {label} (Qwen3-0.6B, pos {STEP_POS}, start {STEP_START}): "
-            f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            err = max(err, hold_step(f"fused_decode_step Qwen3-0.6B {label} weights, {desc}",
+                                     stack, cfg, n_layers, dtype, kc, vc, STEP_START, STEP_POS,
+                                     dev, randn, label == "int8"))
+        dtype = torch.bfloat16 if label == "bf16" else torch.float32
+        timing = time_step(f"Qwen3-0.6B {label}", full, cfg, kc, vc, STEP_START, STEP_POS,
+                           dtype, dev, randn)
         if label == "bf16":
-            weights = [stack[f"w{n}"] for n in ("qkv", "o", "gateup", "down")]
-            vectors = [v for k, v in stack.items() if not k.startswith("w")]
-            read = [*weights, *vectors, kc[:, :, STEP_START:STEP_POS],
-                    vc[:, :, STEP_START:STEP_POS], x]
-            ops = {"f32": 2 * sum(w.numel() for w in weights)
-                   + 4 * lyr * cfg.n_heads * (n_hist + 1) * hd}
-            row = (ms, pms, bound(ops, nbytes(*read) + 4 * cfg.dim
-                                  + 2 * nbytes(kc[:, :, STEP_POS])))
+            row = timing
+    # hd 64: Llama-3.2-1B's width, two layers, random stacks of both weight types
+    small = TransformerConfig(**HD64_STACK)
+    d, hidden = small.dim, small.hidden_dim
+    kc1, vc1 = step_cache(small, dev, randn, 256, 4, 100)
+    qo = (small.n_heads + 2 * small.kv_heads) * small.hd
+    for label in ("bf16", "int8"):
+        stack = {"ln1": 1 + 0.3 * randn(2, d), "ln2": 1 + 0.3 * randn(2, d),
+                 "norm": 1 + 0.3 * randn(d)}
+        for n, (o, i) in {"qkv": (qo, d), "o": (d, small.n_heads * small.hd),
+                          "gateup": (2 * hidden, d), "down": (d, hidden)}.items():
+            w = randn(2, o, i, scale=i ** -0.5)
+            if label == "int8":
+                stack[f"s{n}"] = w.abs().amax(-1) / 127
+                stack[f"w{n}"] = torch.round(w / stack[f"s{n}"][..., None]).to(torch.int8)
+            else:
+                stack[f"w{n}"], stack[f"s{n}"] = w.to(torch.bfloat16), torch.ones(2, o, device=dev)
+        err = max(err, hold_step(f"fused_decode_step hd 64 (Llama-3.2-1B width) {label} weights",
+                                 stack, small, 2, torch.float32, kc1, vc1, 4, 100, dev, randn,
+                                 label == "int8", faults=False))
     ms, pms, roof = row
+    rows.append(kernel_row("fused_decode_step", "tpu_audio_torch/csrc/fused_step.cu",
+                           "tpu_audio/ops/pallas/fused_step.py:239", err, ms, pms, roof, None,
+                           "no one PyTorch call runs a decoder-stack step"))
+
+
+def check_fused_step_llama(o_trees: dict, dev, randn, rows: list) -> None:
+    """Phase 3, the whole-stack step at Orpheus's Llama-3.2-3B width on its
+    default w8a8 tree (int8 weights, f32 activations: the dequantised rows
+    of the int8 embedding), all 28 layers, cache filled to LLAMA_STEP_POS
+    from LLAMA_STEP_START: `hold_step` with its planted faults, then timed
+    with its bound. Raises the fused_decode_step row's err to this check's
+    where it is larger; adds the row (with this timing) where phase 3's
+    Qwen3 check did not run."""
+    from tpu_audio_torch.models.orpheus.model import LLAMA_3B as cfg
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+
+    lyr = cfg.n_layers
+    stack = dict(fs.prepare_stack(o_trees["w8a8"]))
+    stack.update(ln1=1 + 0.3 * randn(lyr, cfg.dim), ln2=1 + 0.3 * randn(lyr, cfg.dim),
+                 norm=1 + 0.3 * randn(cfg.dim))
+    kc, vc = step_cache(cfg, dev, randn, LLAMA_STEP_SLOTS, LLAMA_STEP_START, LLAMA_STEP_POS)
+    err = hold_step(f"fused_decode_step Llama-3.2-3B int8 weights, {lyr} layers, f32 activations",
+                    stack, cfg, lyr, torch.float32, kc, vc, LLAMA_STEP_START, LLAMA_STEP_POS,
+                    dev, randn, True)
+    ms, pms, roof = time_step("Llama-3.2-3B int8", stack, cfg, kc, vc, LLAMA_STEP_START,
+                              LLAMA_STEP_POS, torch.float32, dev, randn)
+    for r in rows:
+        if r["name"] == "fused_decode_step":
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            return
     rows.append(kernel_row("fused_decode_step", "tpu_audio_torch/csrc/fused_step.cu",
                            "tpu_audio/ops/pallas/fused_step.py:239", err, ms, pms, roof, None,
                            "no one PyTorch call runs a decoder-stack step"))
@@ -3001,7 +3138,12 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
                     lambda: eng8.generate(text, max_new_tokens=ORPHEUS_MAX_NEW), absent=w4)
     if not np.isfinite(res.samples).all():
         raise AssertionError("orpheus w8a8 generate: non-finite audio")
+    before = fs.LAUNCHES["fused_decode_step"]
     lm_ms(eng8.lm, prompts[:1], sampler, "w8a8")
+    timed_steps = fs.LAUNCHES["fused_decode_step"] - before
+    log(f"orpheus w8a8 fused_decode_step launches: generate {before}, the LM timing runs "
+        f"{timed_steps}")
+    total["fused_decode_step"] += timed_steps
     del eng8
 
     # ------------------------------------------------ the super-group tree
@@ -3089,8 +3231,9 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
 
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
 # them, the two decode kernels and the functions the whole-decoder step
-# calls, the W4A8 rows kernel and products (every instantiation), and
-# whether each issues wgmma
+# calls, the W4A8 rows kernel and products, the whole-stack Llama/Qwen
+# step and its functions (every instantiation), and whether each issues
+# wgmma
 HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "encoder_attention_kernel": True, "attn_heads_kernel": True,
                   "oproj_ln_bf16_kernel": True, "quant_rows_kernel": False,
@@ -3099,7 +3242,8 @@ HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "fused_whisper_step_kernel": False, "step_product": False,
                   "step_layer_norm": False, "chunk_attention": False,
                   "cross_attention_decode_kernel": False, "w4a8_rows_kernel": False,
-                  "w4a8_kernel": False}
+                  "w4a8_kernel": False, "fused_step_kernel": False, "make_terms_k": False,
+                  "slot_mma": False, "final_norm": False}
 
 
 def hopper_report(lib_path: Path) -> None:
@@ -3202,7 +3346,9 @@ def main() -> None:
     if "--orpheus-only" in sys.argv[1:]:  # phases 1, 2, B6's part of 3, and 10
         rows = []
         o_trees = orpheus_trees(dev)
-        check_w4a8(o_trees, randn_on(dev), rows)
+        randn = randn_on(dev)
+        check_w4a8(o_trees, randn, rows)
+        check_fused_step_llama(o_trees, dev, randn, rows)
         print_result(rows, orpheus_slice(o_trees, dev, card))
         return
     if "--funasr-only" in sys.argv[1:]:  # phases 1, 2, Fun-ASR's part of 3, and 8
@@ -3308,6 +3454,7 @@ def main() -> None:
     log(f"models: Orpheus's Llama-3.2-3B random weights (seed {SEED}), its W4A8 and w8a8 trees "
         f"and the super-group 3b tree in {time.perf_counter() - t0:.1f} s")
     check_w4a8(o_trees, randn, rows)
+    check_fused_step_llama(o_trees, dev, randn, rows)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -3353,6 +3500,9 @@ def main() -> None:
     # ------------------------------------------------------- 10. Orpheus
     t_phase = time.perf_counter()
     orph = orpheus_slice(o_trees, dev, card)
+    log(f"fused_decode_step launches: phase 8 {fun['fused_decode_step']}, phase 10 "
+        f"{orph['fused_decode_step']}")
+    launches["fused_decode_step"] += orph["fused_decode_step"]
     launches.update({name: orph[name] for name in ("w4a8_matmul", "w4a8_matmul_stacked",
                                                    "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")})
     log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f} s")

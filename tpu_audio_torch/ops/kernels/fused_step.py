@@ -17,13 +17,16 @@ normed input, the probabilities, the attention output and the SwiGLU
 activation are rounded to bf16 before their products, as the TPU kernel
 rounds to its compute dtype; the sums are f32.
 
-Bound on the H100: bytes, once the per-layer path's ~20 launches a layer
-are one launch a step: Qwen3-0.6B's layer weights are 880.8 MB in bf16,
-440.4 MB in int8. Design (in the .cu): one cooperative launch of
-co-resident blocks, grid barriers between the dependent phases (qkv,
-attention pass 1, pass 2, o-projection, gate/up, down), every block
-recomputing the RMSNorm itself, the products splitting output channels
-over all warps, and a head's keys split over several blocks in two passes.
+Bound on the H100: bytes. A step reads every layer's weights once:
+Qwen3-0.6B's are 880.8 MB in bf16, 440.4 MB in int8; Llama-3.2-3B's 2.82
+GB in int8. Design (in the .cu): one cooperative launch, a block an SM; a
+producer warp streams the block's contiguous share of every product's rows
+(`row_share`; of gate/up the gate and the up rows of the same channels)
+through a ring of bulk copies, past the grid barriers that end each of a
+layer's five phases; the products run on the tensor cores (mma.sync)
+against the input vector split into exact int8 or bf16 terms, so no weight
+is converted; the chunks of a head's keys are merged by the chunk that
+arrives last (`attention_chunks` is that partition and merge in PyTorch).
 The TPU kernel's plain/grouped layouts, 8-row padding and VMEM budget are
 Mosaic devices and have no counterpart.
 
@@ -41,6 +44,7 @@ import torch
 
 from tpu_audio_torch.nn import rope
 from tpu_audio_torch.ops.kernels import _build
+from tpu_audio_torch.ops.kernels.cross_kv_attention import chunk_bounds
 
 HEAD_DIMS = (64, 128)   # the kernel is compiled for these head sizes
 MAX_SPLIT = 32          # key chunks per head, at most (the .cu's kMaxSplit)
@@ -51,6 +55,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL = _build.Kernel("tpa_fused_step", _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float,
                         _I, _I, _I, _I, _I, _I, _I, _I)
+_PLAN = _build.Kernel("tpa_fused_step_plan", _I, _I, _I, _I, _I, _I, _I, _P)
 
 # the small derived tensors of prepare_stack, per stack, by id of the fused
 # qkv weight tensor; an entry goes when that tensor does (the values hold no
@@ -140,6 +145,72 @@ def _attention(q, k, v, k_hist, v_hist, rnd):
     return out + (e_fresh / den)[:, None] * v
 
 
+def attention_chunks(q, k, v, k_hist, v_hist, rnd, *, split: int, rb: bool, kv_head=None,
+                     drop_fresh: bool = False, twice: int | None = None):
+    """`_attention` as the kernel computes it: query head j's history (of
+    KV head `kv_head(j)`, j // (H / KVH) unless given) split into `split`
+    chunks (`chunk_bounds`), each leaving its max m_c, sum l_c of exp(s −
+    m_c) and P·V, merged with the current token's own term by the chunk
+    that arrives last. f32 (`rb` False): one pass a chunk, P·V = Σ exp(s −
+    m_c) v, weighed in the merge by exp(m_c − M) / L. bf16 (`rb`): the
+    chunks publish m_c and l_c first, then each probability is rnd(exp(s −
+    M) / L), as the unsplit attention rounds it, P·V = Σ p rnd(v), and the
+    merge sums them. An empty chunk has sum 0 and is left out. Planted
+    faults: `drop_fresh` leaves the current token's term out of the max,
+    the sum and the output; `twice` merges chunk `twice` a second time."""
+    h, hd = q.shape
+    group = h // k.shape[0]
+    kv = torch.tensor([j // group if kv_head is None else kv_head(j) for j in range(h)],
+                      device=q.device)
+    k, v, k_hist, v_hist = k[kv], v[kv], k_hist[kv], v_hist[kv]
+    s = torch.einsum("htd,hd->ht", k_hist, q)
+    s_fresh = (q * k).sum(-1)
+    chunks = []
+    for a, b in chunk_bounds(s.shape[1], split):
+        if b > a:
+            m = s[:, a:b].amax(-1)
+            chunks.append((a, b, m, torch.exp(s[:, a:b] - m[:, None]).sum(-1)))
+    big_m = torch.full((h,), -torch.inf, device=q.device) if drop_fresh else s_fresh
+    for *_, m, _ in chunks:
+        big_m = torch.maximum(big_m, m)
+    big_l = torch.zeros(h, device=q.device) if drop_fresh else torch.exp(s_fresh - big_m)
+    for *_, m, l in chunks:
+        big_l = big_l + l * torch.exp(m - big_m)
+    parts = []
+    for a, b, m, _ in chunks:
+        if rb:
+            p = rnd(torch.exp(s[:, a:b] - big_m[:, None]) / big_l[:, None])
+            parts.append(torch.einsum("ht,htd->hd", p, rnd(v_hist[:, a:b])))
+        else:
+            e = torch.exp(s[:, a:b] - m[:, None])
+            parts.append(torch.einsum("ht,htd->hd", e, v_hist[:, a:b])
+                         * (torch.exp(m - big_m) / big_l)[:, None])
+    if twice is not None:
+        parts.append(parts[twice])
+    out = torch.zeros(h, hd, device=q.device)
+    for part in parts:
+        out = out + part
+    if not drop_fresh:
+        out = out + (torch.exp(s_fresh - big_m) / big_l)[:, None] * v
+    return out
+
+
+def row_share(channels: int, blocks: int, b: int) -> tuple[int, int]:
+    """Block b's output channels [lo, hi) of a product with `channels` of
+    them over `blocks` blocks (the .cu's `share`)."""
+    return channels * b // blocks, channels * (b + 1) // blocks
+
+
+def block_rows(product: str, d: int, hidden: int, qo: int, blocks: int, b: int) -> list[range]:
+    """The stacked weight rows block b streams for `product` ("qkv", "o",
+    "gateup", "down"), one contiguous range a unit: of gate/up the gate rows
+    of its channels, then the up rows (`hidden` further) of the same ones."""
+    channels = {"qkv": qo, "o": d, "gateup": hidden, "down": d}[product]
+    lo, hi = row_share(channels, blocks, b)
+    units = 2 if product == "gateup" else 1
+    return [range(u * channels + lo, u * channels + hi) for u in range(units)]
+
+
 def _final_norm(x, w, eps):
     return _rms(x, w, eps)
 
@@ -186,10 +257,21 @@ def fused_decode_step_plain(stack: dict, x, pos, start, cos, sin, k_cache, v_cac
 # --------------------------------------------------------------- kernel
 
 def workspace_floats(d: int, hidden: int, n_heads: int, n_kv_heads: int, hd: int) -> int:
-    """f32 workspace of one step: the residual, raw qkv, raw gate/up, the
-    heads' fresh-term weights and partial softmax sums (checked by the .cu)."""
-    return (d + (n_heads + 2 * n_kv_heads) * hd + 2 * hidden + n_heads
-            + n_heads * MAX_SPLIT * (hd + 2))
+    """f32 workspace of one step: the residual, raw qkv, the merged
+    attention output, the SwiGLU activation, the chunks' partials and the
+    arrival counters (checked by the .cu)."""
+    return (d + (n_heads + 2 * n_kv_heads) * hd + n_heads * hd + hidden
+            + n_heads * MAX_SPLIT * (hd + 2) + 1 + 2 * n_heads)
+
+
+def launch_plan(device: torch.device, *, int8: bool, d: int, hidden: int, n_heads: int,
+                n_kv_heads: int, hd: int, s_max: int) -> dict:
+    """The step's launch on `device` for these sizes, without launching:
+    blocks, key chunks a head, weight-ring slots, bytes a slot and shared
+    memory bytes of a block."""
+    out = torch.zeros(5, dtype=torch.int32)
+    _PLAN(device, int(int8), d, hidden, n_heads, n_kv_heads, hd, s_max, out)
+    return dict(zip(("blocks", "split", "stages", "stage_bytes", "smem"), out.tolist()))
 
 
 def fused_decode_step(stack: dict, x: torch.Tensor, pos: torch.Tensor, start: torch.Tensor,
@@ -204,8 +286,9 @@ def fused_decode_step(stack: dict, x: torch.Tensor, pos: torch.Tensor, start: to
     v_cache (L, KVH, S_max, hd), whose slot `pos` is written IN PLACE.
 
     On CUDA: x f32 or bf16; weights all int8 (with scales) or all bf16; the
-    cache bf16; hd 64 or 128; all contiguous. A cooperative launch that the
-    card refuses raises."""
+    cache bf16; hd 64 or 128; D, H·hd and hidden at most 8192 (int8: each a
+    multiple of 32); all contiguous. A launch that the card or the kernel
+    refuses raises."""
     if x.device.type == "cpu":
         return fused_decode_step_plain(stack, x, pos, start, cos, sin, k_cache, v_cache,
                                        n_heads=n_heads, n_kv_heads=n_kv_heads, hd=hd, eps=eps)
