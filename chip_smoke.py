@@ -159,6 +159,15 @@ STEP_POS, STEP_START = 300, 40  # the Qwen3 step's position and first valid slot
 # the Llama-3.2-3B step's in phase 3: a 32-slot prompt bucket, 100 tokens on
 LLAMA_STEP_POS, LLAMA_STEP_START, LLAMA_STEP_SLOTS = 132, 4, 256
 COLD_BYTES = 160 << 20       # stacked copies enough that a timed call finds its weights out of L2
+# quant_matmul's shapes in phase 3, (O, I): each linear of the q4 decoders
+# (Whisper large-v3-turbo; Qwen3-0.6B as the per-layer path runs it) and
+# both heads, at these rows
+QMM_SHAPES = {"whisper q, k, v, o, cross q, o": (1280, 1280), "whisper fc1": (5120, 1280),
+              "whisper fc2": (1280, 5120), "qwen3 q": (2048, 1024), "qwen3 k, v": (1024, 1024),
+              "qwen3 o": (1024, 2048), "qwen3 gate, up": (3072, 1024),
+              "qwen3 down": (1024, 3072), "whisper head": (51866, 1280),
+              "qwen3 head": (151936, 1024)}
+QMM_ROWS = (1, 2, 16, 32)
 # the hd-64 instantiations of the whole-stack step, held on two layers at
 # Llama-3.2-1B's width
 HD64_STACK = dict(dim=2048, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=64, hidden_dim=8192,
@@ -2157,76 +2166,114 @@ def funasr_trees(dev) -> dict:
 
 
 def check_quant_matmul(trees: dict, randn, rows: list) -> None:
-    """Phase 3, the q4/q8 dequant-matmul: the tied lm head (151936, 1024)
-    and layer 0's gate (3072, 1024) at 1 and 16 rows, bits 4 (the q4
-    tree's own words) and 8 (the bf16 weights quantised to q8), against the
-    plain version at rel 1e-4 (both f32; the kernel folds each group's
-    affine in as s·Σxq + b·Σx, so the sums differ in order only), with two
-    planted faults that must land outside."""
+    """Phase 3, the q4/q8 dequant-matmul at every linear shape of the q4
+    decoders and both heads (`QMM_SHAPES`; Qwen3's tied head the q4 tree's
+    own words and, for q8, its bf16 weights quantised), at 1, 2, 16 and 32
+    rows, q4 and q8, f32 and bf16 x, against the plain version at rel 1e-4
+    (both f32; the kernel's terms of x sum to x up to ~2^-24 |x| and it
+    folds each group's affine in as s·Σx(q − c) + (b + c s)·Σx, so the sums
+    differ in order and in the last bits only). Planted faults that must
+    land outside: the nibble order reversed, the group bias dropped (Qwen3's
+    head, 1 row), and, where the launch splits the columns over a cluster
+    (32 rows of f32 x), one slice's partial dropped or merged twice. Then
+    each shape timed at 1 row (f32 and bf16 x) and 16 (bf16), the weights
+    from device memory."""
     from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import quant_matmul as qmm
 
     llm_q4, llm_bf16 = trees["q4"]["llm"], trees["bf16"]["llm"]
-    gate = {k: v[0] for k, v in llm_q4["layers"]["mlp"]["gate"].items()}
-    leaves = {(4, "lm head"): llm_q4["embed"], (4, "gate layer 0"): gate,
-              (8, "lm head"): quant.quantize_array(llm_bf16["embed"]["weight"], 8),
-              (8, "gate layer 0"): quant.quantize_array(
-                  llm_bf16["layers"]["mlp"]["gate"]["weight"][0], 8)}
     unpack = qmm.unpack_words
+    dev = llm_q4["embed"]["weight_q4"].device
 
     def reversed_order(packed, bits):
         q = unpack(packed, bits)
         return q.reshape(*q.shape[:-1], -1, 32 // bits).flip(-1).reshape(q.shape)
 
-    err, timing = 0.0, {}
-    for (bits, label), leaf in leaves.items():
-        packed, sc, bi = leaf[f"weight_q{bits}"], leaf["scales"], leaf["biases"]
-        o, i = packed.shape[0], sc.shape[1] * qmm.GROUP
-        for n in (1, 16):
-            x = randn(n, i)
-            got = qmm.quant_matmul(x, packed, sc, bi, bits=bits)
-            err = max(err, compare(f"quant_matmul q{bits} {label} ({n}, {i}) x ({o}, {i})", got,
-                                   qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits),
-                                   rel=1e-4))
-            if n == 1 and label == "lm head":
-                planted_faults(f"quant_matmul q{bits} {label}", (got,), [
-                    ("nibble order reversed", faulty(
-                        qmm, "unpack_words", reversed_order,
-                        lambda: (qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits),))),
-                    ("group bias dropped", lambda: (qmm.quant_matmul_plain(
-                        x, packed, sc, torch.zeros_like(bi), bits=bits),)),
-                ], rel=1e-4)
-        x = randn(1, i)
-        timing[(bits, label)] = timed_pair(
-            lambda: qmm.quant_matmul(x, packed, sc, bi, bits=bits),
-            lambda: qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits), 20)
-        log(f"time quant_matmul q{bits} {label} (1, {i}) x ({o}, {i}): kernel "
-            f"{timing[(bits, label)][0]:.4f} ms, plain {timing[(bits, label)][1]:.4f} ms")
-    # each linear of the q4 decoders at 1 row (Whisper large-v3-turbo; Qwen3-0.6B as
-    # the per-layer path runs it, 7 launches a layer), its weights from device memory:
-    # enough stacked copies that the calls, made on the copies in turn, miss L2
-    shapes = {"whisper q, k, v, o, cross q, o": (1280, 1280), "whisper fc1": (5120, 1280),
-              "whisper fc2": (1280, 5120), "qwen3 q": (2048, 1024), "qwen3 k, v": (1024, 1024),
-              "qwen3 o": (1024, 2048), "qwen3 gate, up": (3072, 1024), "qwen3 down": (1024, 3072)}
-    for label, (o, i) in shapes.items():
+    def sliced(x, groups, slices, s, factor):
+        """x with slice s's columns times factor: 0 drops its partial, 2
+        merges it twice (every term of the slice's partial is linear in its
+        columns of x)."""
+        cols = qmm.slice_groups(groups, slices, s)
+        y = x.float().clone()
+        y[:, cols.start * qmm.GROUP:cols.stop * qmm.GROUP] *= factor
+        return y
+
+    err, merge_seen, timing = 0.0, set(), {}
+    for label, (o, i) in QMM_SHAPES.items():
+        for bits in (4, 8):
+            if label == "qwen3 head":
+                leaf = (llm_q4["embed"] if bits == 4
+                        else quant.quantize_array(llm_bf16["embed"]["weight"], 8))
+            else:
+                leaf = quant.quantize_array(randn(o, i, scale=i ** -0.5), bits)
+            packed, sc, bi = leaf[f"weight_q{bits}"], leaf["scales"], leaf["biases"]
+            o, i = packed.shape[0], sc.shape[1] * qmm.GROUP
+            worst, plans = (0.0, ""), set()
+            for n, dt in itertools.product(QMM_ROWS, (torch.float32, torch.bfloat16)):
+                name = f"quant_matmul q{bits} {label} ({n}, {i}) {str(dt)[6:]} x ({o}, {i})"
+                x = randn(n, i, dtype=dt)
+                got = qmm.quant_matmul(x, packed, sc, bi, bits=bits)
+                ref = qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits)
+                e, rel_e, cos = measure(got, ref)
+                if not (rel_e <= 1e-4 and cos > 0.999):
+                    raise AssertionError(f"{name}: rel {rel_e:.3e}, cosine {cos:.6f}: outside "
+                                         "rel 1e-4 / cosine 0.999")
+                err, worst = max(err, e), max(worst, (rel_e, name))
+                plan = qmm.launch_plan(dev, n, i, o, bits=bits, x_dtype=dt)
+                plans.add(f"{n} {str(dt)[6:]}: {plan['tiles_a_span']}/{plan['slices']}/"
+                          f"{plan['per_sm']}/{plan['stages']}/{plan['smem']}")
+                if n == 1 and dt == torch.float32 and label == "qwen3 head":
+                    planted_faults(f"quant_matmul q{bits} {label}", (got,), [
+                        ("nibble order reversed", faulty(
+                            qmm, "unpack_words", reversed_order,
+                            lambda: (qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits),))),
+                        ("group bias dropped", lambda: (qmm.quant_matmul_plain(
+                            x, packed, sc, torch.zeros_like(bi), bits=bits),)),
+                    ], rel=1e-4)
+                if plan["slices"] > 1 and bits not in merge_seen:
+                    merge_seen.add(bits)
+                    groups, slices = i // qmm.GROUP, plan["slices"]
+                    planted_faults(f"quant_matmul q{bits} {label} {n} rows, {slices} slices",
+                                   (got,), [
+                        (f"slice {s}'s partial {what}", lambda s=s, f=f: (
+                            qmm.quant_matmul_plain(sliced(x, groups, slices, s, f), packed,
+                                                   sc, bi, bits=bits),))
+                        for s in (0, slices - 1) for what, f in (("dropped", 0.0),
+                                                                 ("merged twice", 2.0))],
+                        rel=1e-4)
+            log(f"quant_matmul q{bits} {label} ({o}, {i}) at rows {QMM_ROWS}, f32 and bf16 x: "
+                f"within rel 1e-4 and cosine 0.999 (worst rel {worst[0]:.3e}: {worst[1]}); "
+                "launch (rows dtype: tiles a span/slices/blocks an SM/stages/smem) "
+                f"{sorted(plans)}")
+            if label == "qwen3 head" and bits == 4:
+                x = randn(1, i)
+                timing["head"] = timed_pair(
+                    lambda: qmm.quant_matmul(x, packed, sc, bi, bits=bits),
+                    lambda: qmm.quant_matmul_plain(x, packed, sc, bi, bits=bits), 20)
+            del leaf, packed, sc, bi
+    if merge_seen != {4, 8}:
+        raise AssertionError(f"quant_matmul: no launch split the columns (bits {merge_seen})")
+    # each shape at 1 row (f32 and bf16 x) and 16 rows (bf16: Whisper's
+    # batch-16 q4 decode), its weights from device memory: enough stacked
+    # copies that the calls, made on the copies in turn, miss L2
+    for label, (o, i) in QMM_SHAPES.items():
         layers = max(2, -(-COLD_BYTES // (o * i // 2 + o * i // qmm.GROUP * 8)))
         leaf = quant.quantize_array(randn(layers, o, i, scale=i ** -0.5), 4)
         packed, sc, bi = leaf["weight_q4"], leaf["scales"], leaf["biases"]
-        x = randn(1, i)
-        compare(f"quant_matmul q4 {label} (1, {i}) x ({o}, {i})",
-                qmm.quant_matmul(x, packed[1], sc[1], bi[1], bits=4),
-                qmm.quant_matmul_plain(x, packed[1], sc[1], bi[1], bits=4), rel=1e-4)
-        cycle = itertools.cycle(range(layers))
+        for n, dt in ((1, torch.float32), (1, torch.bfloat16), (16, torch.bfloat16)):
+            x = randn(n, i, dtype=dt)
+            cycle = itertools.cycle(range(layers))
 
-        def call(x=x, packed=packed, sc=sc, bi=bi, cycle=cycle):
-            li = next(cycle)
-            return qmm.quant_matmul(x, packed[li], sc[li], bi[li], bits=4)
-        ms = time_ms(call, 40)
-        roof_ms, by = bound({"f32": 2 * i * o}, nbytes(x, packed[0], sc[0], bi[0]) + 4 * o)
-        log(f"time quant_matmul q4 {label} (1, {i}) x ({o}, {i}), the {layers} copies in turn: "
-            f"kernel {ms:.4f} ms, bound {roof_ms:.4f} ms ({by}), gap {ms - roof_ms:.4f} ms")
+            def call(x=x, packed=packed, sc=sc, bi=bi, cycle=cycle):
+                li = next(cycle)
+                return qmm.quant_matmul(x, packed[li], sc[li], bi[li], bits=4)
+            ms = time_ms(call, 40)
+            roof_ms, by = bound(qmm_ops(x, o), nbytes(x, packed[0], sc[0], bi[0]) + 4 * n * o)
+            log(f"time quant_matmul q4 {label} ({n}, {i}) {str(dt)[6:]} x ({o}, {i}), the "
+                f"{layers} copies in turn: kernel {ms:.4f} ms, bound {roof_ms:.4f} ms ({by}), "
+                f"gap {ms - roof_ms:.4f} ms, {roof_ms / ms:.3f} of the bound")
         del leaf, packed, sc, bi
-    head = leaves[(4, "lm head")]
+    head = llm_q4["embed"]
     o, i = head["weight_q4"].shape[0], head["scales"].shape[1] * qmm.GROUP
     x = randn(1, i)
     w_bf16 = quant.dequantize(head).to(torch.bfloat16)
@@ -2234,13 +2281,23 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
     lib_ms = time_ms(lambda: torch.nn.functional.linear(xb, w_bf16), 20)
     log(f"library quant_matmul: F.linear of the bf16 dequantised lm head ({o}, {i}) at 1 row, "
         f"the product alone")
-    ms, pms = timing[(4, "lm head")]
+    ms, pms = timing["head"]
+    log(f"time quant_matmul q4 qwen3 head (1, {i}) x ({o}, {i}): kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms")
     rows.append(kernel_row("quant_matmul", "tpu_audio_torch/csrc/quant_matmul.cu",
                            "tpu_audio/ops/pallas/quant_matmul.py:72", err, ms, pms,
-                           bound({"f32": 2 * i * o},
+                           bound(qmm_ops(x, o),
                                  nbytes(x, head["weight_q4"], head["scales"], head["biases"])
                                  + 4 * o), lib_ms))
     del w_bf16
+
+
+def qmm_ops(x: torch.Tensor, o: int) -> dict:
+    """quant_matmul's operations at their tensor-core type: the product of x
+    (B, I) with O exact bf16 codes a column, once for bf16 x and once for
+    each of the three exact bf16 terms of f32 x (f32 sums)."""
+    terms = 1 if x.dtype == torch.bfloat16 else 3
+    return {"bf16": terms * 2 * x.numel() * o}
 
 
 def fresh_dropped(q, k, v, k_hist, v_hist, rnd):

@@ -8,7 +8,16 @@ conversion to the int8 serving format (`requantize_tree_int8`,
 Codes, scales and biases must equal the JAX package's exactly (the same
 f32 arithmetic). Products are held at 1e-5 of max|ref|: both sides sum the
 same f32 terms in another order.
+
+Also the CUDA kernel's host-side rules on the CPU: its map of blocks to
+spans of 16-channel tiles and column slices covers each (channel, column)
+once at the shapes of `tools/quant_split.py` (the rows do not change it),
+whose cuts apply to the repository's sources and to those of the previous
+design (its `quant_matmul.cu` kept under `tests/data/`), as the stamps of
+`tools/quant_timeline.py` apply to the repository's.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +31,9 @@ from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+from tpu_audio_torch.tools import quant_split, quant_timeline
+
+PARENT = Path(__file__).resolve().parent / "data" / "quant_matmul_parent"
 
 
 @pytest.fixture
@@ -92,9 +104,11 @@ def test_dequantize_rows_matches(rng, bits):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("b,i,o", [(1, 256, 300), (5, 128, 1000), (32, 192, 77)])
+@pytest.mark.parametrize("b,i,o", [(1, 256, 300), (5, 128, 1000), (16, 320, 130),
+                                   (32, 192, 77)])
 def test_quant_matmul_plain_matches_pallas(rng, interpret_pallas, bits, b, i, o):
-    """Any O (the TPU kernel pads a ragged O to its block), 1 to 32 rows."""
+    """Any O (the TPU kernel pads a ragged O to its block), 1 to 32 rows
+    (16: Whisper's batch-16 q4 decode)."""
     w = (rng.standard_normal((o, i)) * 0.05).astype(np.float32)
     q = jquant.quantize_array(w, bits)
     x = rng.standard_normal((b, i)).astype(np.float32)
@@ -190,3 +204,74 @@ def test_wrapper_launches_nothing_on_cpu_and_refuses_other_devices(rng):
     assert qmm.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         qmm.quant_matmul(x.to("meta"), q["weight_q4"], q["scales"], q["biases"])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_bf16_rows_equal_their_f32_widening(rng, bits):
+    """The wrapper reads bf16 x as it is and widens it exactly: the same
+    product as on x.float(), bit for bit (the plain path; the kernel's
+    terms of a bf16 x are x itself)."""
+    q = to_torch(jquant.quantize_array((rng.standard_normal((96, 192)) * 0.05)
+                                       .astype(np.float32), bits))
+    x = torch.from_numpy(rng.standard_normal((16, 192)).astype(np.float32)).to(torch.bfloat16)
+    args = (q[f"weight_q{bits}"], q["scales"], q["biases"])
+    got = qmm.quant_matmul(x, *args, bits=bits)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, qmm.quant_matmul(x.float(), *args, bits=bits))
+
+
+@pytest.mark.parametrize("rows", [1, 16, 32])
+@pytest.mark.parametrize("label", list(quant_split.SHAPES))
+def test_block_map_covers_each_channel_and_column_once(label, rows):
+    """Every (channel, group of 64 columns) of the split tool's shapes in
+    exactly one block's (span, slice), for each span width (1, 2, 4, 8
+    tiles) and slice count (1, 2, 4, 8) the launch can take, and grids of
+    whole clusters up to the span count, on an H100 SXM (132 SMs) and a
+    PCIe card (114)."""
+    o, i = quant_split.SHAPES[label]
+    groups, tiles = i // qmm.GROUP, -(-o // qmm.TILE)
+    for slices in (1, 2, 4, 8):
+        cols = [qmm.slice_groups(groups, slices, s) for s in range(slices)]
+        assert sorted(g for r in cols for g in r) == list(range(groups))
+        assert all(len(r) > 0 for r in cols)
+    for tps, slices in [(8, 1), (4, 1), (2, 1), (1, 1), (1, 2), (1, 4), (1, 8)]:
+        spans = -(-tiles // tps)
+        chans = [qmm.span_channels(sp, tps, o) for sp in range(spans)]
+        assert sorted(c for r in chans for c in r) == list(range(o))
+        for clusters in {1, 7, 114 // slices, 132 * 2 // slices, 132 // slices, spans}:
+            clusters = min(clusters, spans)
+            grid = clusters * slices
+            seen = np.zeros((spans, slices), np.int64)
+            for block in range(grid):
+                for span, s in qmm.block_work(block, grid, slices, spans):
+                    seen[span, s] += 1
+            assert (seen == 1).all(), (tps, slices, grid)
+            # a cluster's blocks walk the same spans
+            for block in range(0, grid, slices):
+                walks = {tuple(sp for sp, _ in qmm.block_work(block + r, grid, slices, spans))
+                         for r in range(slices)}
+                assert len(walks) == 1
+
+
+@pytest.mark.parametrize("csrc", [quant_split.CSRC, PARENT], ids=["repository", "parent"])
+def test_quant_split_cuts_apply_to_the_sources(csrc):
+    """tools/quant_split.py recognises both versions' sources, and each of
+    its cuts changes them (its marks all match, or it would refuse)."""
+    sources = quant_split.read_sources(csrc)
+    name = quant_split.layout(sources)
+    versions = quant_split.variants(sources)
+    assert list(versions) == ["kernel", *quant_split.LAYOUTS[name]["cuts"], "all cut"]
+    assert versions["kernel"] == sources
+    for variant, files in versions.items():
+        changed = {f for f in files if files[f] != sources[f]}
+        assert changed == (set() if variant == "kernel" else {quant_split.SRC}), variant
+    assert len(set(quant_split.LAYOUTS) - {name}) == 1
+
+
+def test_quant_timeline_stamps_apply_to_the_sources():
+    """tools/quant_timeline.py finds each of its marks once in the
+    repository's kernel and writes every stamp in."""
+    text = quant_timeline.SRC.read_text()
+    got = quant_timeline.stamped(text)
+    assert all(f"stamp({k});" in got for k in range(quant_timeline.STAMPS))
+    assert "tpa_quant_stamps" in got and got.startswith(text[:100])
