@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel against its plain PyTorch version at the shapes of
      Whisper large-v3-turbo (batch-16 transcription for the mel, encoder
      and cross-attention kernels; the int8 decoder's and lm head's shapes
-     at 1 and 16 rows for the int8 matmuls; the B=1 step for the
+     every int8 decoder linear and the heads at 1, 4, 16 and 32 rows, bit
+     for bit, for the int8 matmuls; the B=1 step for the
      whole-decoder step), and time both with CUDA events; hold
      attn_oproj_ln and the decoder step once more on inputs where every
      term is as large as the residual, and show that each of a set of
@@ -39,7 +40,9 @@ Phases (any failure raises and the script exits non-zero):
      against the f32 plain path on prefill and three teacher-forced steps,
      with faults planted in the decoder step;
   6. the mixed batch-16 row: `transcribe_windows` of phase 4's clips on
-     the int8 decoder tree, wall time beside phase 4's;
+     the int8 decoder tree, wall time beside phase 4's; then its decode step
+     alone (`tpu_audio_torch/tools/batch_step.py`): ms a step and device
+     kernels a step (the profiler);
   7. the full-w8a8 rows (`serve_tree_int8`: int8 encoder, decoder and lm
      head, int8 cross-K/V): the int8 encoder's time at batch 16 against the
      bf16 encoder's, their features' cosine, `transcribe_windows` of phase
@@ -117,6 +120,9 @@ W4A8 kernels' part of phase 3, and phase 10. `python3 chip_smoke.py
 --encoder-only` runs phases 1, 2, the bf16 encoder kernels' part of phase 3
 (`ln_qkv`, `attn_oproj_ln`, encoder attention) and phase 9's fused against
 per-op encoder at batch 16: a short check of the TMA + wgmma kernels.
+`python3 chip_smoke.py --int8-only` runs phases 1, 2, the W8A8
+weight-streaming matmuls' part of phase 3 (`check_int8_matmul`) and phase
+6: a short check of `csrc/int8_matmul.cu`.
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -168,6 +174,11 @@ QMM_SHAPES = {"whisper q, k, v, o, cross q, o": (1280, 1280), "whisper fc1": (51
               "qwen3 down": (1024, 3072), "whisper head": (51866, 1280),
               "qwen3 head": (151936, 1024)}
 QMM_ROWS = (1, 2, 16, 32)
+# the int8 matmuls' rows in phase 3, and their shapes beyond the Whisper
+# decoder's own, (O, I), on random codes: Qwen3-0.6B's int8 head and
+# Llama-3.2-3B's down projection (stacked)
+I8_ROWS = (1, 4, 16, 32)
+I8_SHAPES = {"qwen3 head": (151936, 1024), "llama-3.2-3b down": (3072, 8192)}
 # the hd-64 instantiations of the whole-stack step, held on two layers at
 # Llama-3.2-1B's width
 HD64_STACK = dict(dim=2048, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=64, hidden_dim=8192,
@@ -411,64 +422,228 @@ def plain_kernels(*modules):
             setattr(mod, name, fn)
 
 
-def check_int8_matmul(model_i8, randn, rows: list) -> None:
-    """Phase 3, int8 matmuls: the lm head and the block shapes at 1 and 16
-    rows, on the int8 tree's own codes; the int32 sums are exact, so the
-    limit is rel 1e-5. The stacked entry reads the last layer (3), and a
-    plain version that reads layer 0 must land outside the limit."""
+def held_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """got equal to ref bit for bit (max |diff| 0), or raise."""
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
+        diff = ((got.float() - ref.float()).abs().max().item()
+                if got.shape == ref.shape else float("nan"))
+        raise AssertionError(f"{name}: not bit for bit: max|diff| {diff:.3e}")
+
+
+def exact_faults(name: str, got: torch.Tensor, faults) -> None:
+    """Each fault's output (the plain version with one fault planted) must
+    differ from the kernel's somewhere: the check is bit for bit, so a fault
+    that equals the kernel's output is one the check cannot see."""
+    for label, fault in faults:
+        ref = fault()
+        diff = (got.float() - ref.float()).abs().max().item()
+        if not diff > 0:
+            raise AssertionError(f"{name}: the check cannot see {label}")
+        log(f"control {name}, {label}: max|diff| {diff:.3e}: outside the limit (0)")
+
+
+def int8_faulty(x, w, sc, bias, out_dtype, *, cols=None, acc_cols=None, acc_factor=1,
+                bias_first=False):
+    """The plain int8 matmul with one fault of the kernel's design planted:
+    the row scale from columns `cols` only; the partial sum of columns
+    `acc_cols` times `acc_factor` (0: dropped, 2: merged twice); the bias
+    added in f32 before the cast (one rounding too few)."""
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 
-    blocks = model_i8.decoder["blocks"]
-    head = model_i8.decoder["token_embedding"]
-    fc1, fc2, q = blocks["mlp"]["fc1"], blocks["mlp"]["fc2"], blocks["attn"]["q"]
-    shapes = {"attn q": (q["weight_i8"][0], q["scale_i8"][0]),
-              "fc1": (fc1["weight_i8"][0], fc1["scale_i8"][0]),
-              "fc2": (fc2["weight_i8"][0], fc2["scale_i8"][0]),
-              "lm head": (head["weight_i8"], head["scale_i8"])}
-    err = 0.0
-    for n in (1, 16):
-        for label, (w, sc) in shapes.items():
-            x = randn(n, w.shape[1])
-            err = max(err, compare(f"int8_matmul {label} ({n}, {w.shape[1]}) x "
-                                   f"{tuple(w.shape)} s8", i8mm.int8_matmul(x, w, sc),
-                                   i8mm.int8_matmul_plain(x, w, sc), rel=1e-5))
-    x = randn(1, head["weight_i8"].shape[1])
-    w, sc = shapes["lm head"]
-    ms, pms = timed_pair(lambda: i8mm.int8_matmul(x, w, sc),
-                         lambda: i8mm.int8_matmul_plain(x, w, sc), 20)
-    log(f"time int8_matmul lm head (1, {w.shape[1]}) x {tuple(w.shape)}: kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
-    o, i = w.shape
-    rows.append(kernel_row("int8_matmul", "tpu_audio_torch/csrc/int8_matmul.cu",
-                           "tpu_audio/ops/pallas/int8_matmul.py:50", err, ms, pms,
-                           bound({"int8": 2 * i * o}, nbytes(x, w, sc) + 4 * o), None,
-                           "torch._int_mm takes more than 16 rows; this call has 1"))
+    xf = x.float()
+    part = xf if cols is None else xf[:, cols.start:cols.stop]
+    sx = torch.clamp(i8mm.true_div(part.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-10)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127)
+    acc = xq.double() @ w.double().T
+    if acc_cols is not None:
+        sl = slice(acc_cols.start, acc_cols.stop)
+        acc = acc + (acc_factor - 1) * (xq[:, sl].double() @ w[:, sl].double().T)
+    y = acc.float() * sx * sc.reshape(1, -1).float()
+    if bias_first:
+        return (y + bias.to(out_dtype).float()).to(out_dtype)
+    y = y.to(out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
 
-    layer, err = model_i8.cfg.n_text_layer - 1, 0.0
-    for n in (1, 16):
-        for label, leaf in (("fc1", fc1), ("fc2", fc2)):
-            w_st, sc = leaf["weight_i8"], leaf["scale_i8"][layer]
-            x = randn(n, w_st.shape[2])
-            got = i8mm.int8_matmul_stacked(x, w_st, sc, layer)
-            err = max(err, compare(f"int8_matmul_stacked {label} layer {layer} ({n}, "
-                                   f"{w_st.shape[2]}) x {tuple(w_st.shape)} s8", got,
-                                   i8mm.int8_matmul_stacked_plain(x, w_st, sc, layer),
-                                   rel=1e-5))
-            planted_faults(f"int8_matmul_stacked {label} ({n} rows)", (got,), [
-                (f"layer 0 read instead of layer {layer}",
-                 lambda: (i8mm.int8_matmul_stacked_plain(x, w_st, sc, 0),))], rel=1e-5)
-    w_st, sc = fc1["weight_i8"], fc1["scale_i8"][layer]
-    x = randn(16, w_st.shape[2])
-    ms, pms = timed_pair(lambda: i8mm.int8_matmul_stacked(x, w_st, sc, layer),
-                         lambda: i8mm.int8_matmul_stacked_plain(x, w_st, sc, layer), 20)
-    log(f"time int8_matmul_stacked fc1 layer {layer} (16, {w_st.shape[2]}) x "
-        f"{tuple(w_st.shape)}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    _, o, i = w_st.shape
+
+def check_int8_matmul(model_i8, randn, rows: list) -> None:
+    """Phase 3, the W8A8 weight-streaming matmuls, bit for bit against their
+    plain versions (exact int32 sums, the same f32 epilogue in the same
+    order, the same roundings; the parent design was held at rel 1e-5):
+    every int8 linear of the Whisper decoder (q, k, v, o, cross q, o, fc1,
+    fc2 of its last layer, stacked; the tied head), Qwen3-0.6B's int8 head
+    and Llama-3.2-3B's down projection on random codes, at 1, 4, 16 and 32
+    rows of f32 and bf16 x, through both outputs (f32; x's dtype plus the
+    bias, as `int8_linear` takes it). Each row's |max| lies in the last
+    column slice, and at 1 and 4 rows the output has guard rows past B.
+    Planted faults of the design land outside: a row scale from the first
+    rank's slice only, the last rank's partial sum dropped or merged twice
+    (where the launch splits the columns), the wrong layer, the bias added
+    before the cast, the rows past B computed and stored. One
+    `int8_linear` on the bf16 tree is one device kernel (the profiler).
+    Times, the weights cold (copies in turn): the head at 1 row (row 12),
+    fc1 at 16 rows (row 13), each at 32 rows beside `torch._int_mm` (the
+    product alone) and `int8_matmul_bigm`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+
+    cfg = model_i8.cfg
+    layer = cfg.n_text_layer - 1
+    lp = model_i8.decoder["blocks"].layer(layer)
+    head = model_i8.decoder["token_embedding"]
+    dev = head["weight_i8"].device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # (entry, weight, scale, bias, layer): the decoder's own leaves, the others random
+    cases = {name: (lp[blk][leaf]["weight_i8_stacked"], lp[blk][leaf]["scale_i8"],
+                    lp[blk][leaf].get("bias"), layer)
+             for name, blk, leaf in (("q", "attn", "q"), ("k", "attn", "k"), ("v", "attn", "v"),
+                                     ("o", "attn", "o"), ("cross q", "cross_attn", "q"),
+                                     ("cross o", "cross_attn", "o"), ("fc1", "mlp", "fc1"),
+                                     ("fc2", "mlp", "fc2"))}
+    cases["whisper head"] = (head["weight_i8"], head["scale_i8"], None, None)
+    for name, (o, i) in I8_SHAPES.items():
+        w = torch.randint(-127, 128, (2, o, i), device=dev, dtype=torch.int8)
+        sc = (torch.rand((o, 1), device=dev) + 0.5) * (i ** -0.5 / 64)
+        cases[name] = (w, sc, None, 1) if "down" in name else (w[1], sc, None, None)
+
+    def call(kernel: bool, x, w, sc, bias, li, out_dtype, out=None):
+        if li is None:
+            fn = i8mm.int8_matmul if kernel else i8mm.int8_matmul_plain
+            return fn(x, w, sc, bias, out_dtype=out_dtype, out=out)
+        fn = i8mm.int8_matmul_stacked if kernel else i8mm.int8_matmul_stacked_plain
+        return fn(x, w, sc, li, bias, out_dtype=out_dtype, out=out)
+
+    err, seen, plans = 0.0, set(), {}
+    for name, (w, sc, bias, li) in cases.items():
+        w2 = w if li is None else w[li]
+        o, i = w2.shape
+        for n, dt in itertools.product(I8_ROWS, (torch.float32, torch.bfloat16)):
+            slices = i8mm.plan(n, i, o, n_sm)
+            plans[f"{name} {n}"] = slices
+            pad = -n % 8
+            x_all = randn(n + pad, i, dtype=dt)
+            peak = x_all.float().abs().amax(dim=1) * 3 + 1
+            # every row's |max| in the last eighth of the columns: the last slice's
+            x_all[:, i8mm.slice_columns(i, 8, 7).start] = peak.to(dt)
+            x = x_all[:n]
+            for out_dtype, b in ((torch.float32, None), (dt, bias)):
+                tag = (f"int8_matmul {name} ({n}, {i}) {str(dt)[6:]} x {tuple(w.shape)} s8 -> "
+                       f"{str(out_dtype)[6:]}" + (" + bias" if b is not None else ""))
+                guard = torch.full((n + pad, o), 7.0, dtype=out_dtype, device=dev)
+                got = call(True, x, w, sc, b, li, out_dtype, out=guard[:n])
+                ref = call(False, x, w, sc, b, li, out_dtype)
+                held_exact(tag, guard, torch.cat([ref, torch.full_like(guard[n:], 7.0)]))
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+                faults = []
+                if slices > 1:
+                    first = i8mm.slice_columns(i, slices, 0)
+                    tail = i8mm.slice_columns(i, slices, slices - 1)
+                    faults += [("the row scale from rank 0's slice only",
+                                lambda first=first: int8_faulty(x, w2, sc, b, out_dtype,
+                                                                cols=first)),
+                               (f"rank {slices - 1}'s partial sum dropped",
+                                lambda tail=tail: int8_faulty(x, w2, sc, b, out_dtype,
+                                                              acc_cols=tail, acc_factor=0)),
+                               (f"rank {slices - 1}'s partial sum merged twice",
+                                lambda tail=tail: int8_faulty(x, w2, sc, b, out_dtype,
+                                                              acc_cols=tail, acc_factor=2))]
+                    seen.add("slices")
+                if li is not None:
+                    faults.append((f"layer {li - 1} read instead of layer {li}",
+                                   lambda: call(False, x, w, sc, b, li - 1, out_dtype)))
+                    seen.add("layer")
+                if b is not None and out_dtype == torch.bfloat16:
+                    faults.append(("the bias added before the cast", lambda: int8_faulty(
+                        x, w2, sc, b, out_dtype, bias_first=True)))
+                    seen.add("bias")
+                if faults:
+                    exact_faults(tag, got, faults)
+                if pad:
+                    exact_faults(tag + ", guard rows", guard, [
+                        ("the rows past B computed and stored",
+                         lambda: call(False, x_all, w, sc, b, li, out_dtype))])
+                    seen.add("rows")
+        log(f"int8_matmul {name} {tuple(w.shape)}: bit for bit at rows {I8_ROWS}, f32 and bf16 "
+            f"x, both outputs; slices by rows {[plans[f'{name} {n}'] for n in I8_ROWS]}")
+    if seen != {"slices", "layer", "bias", "rows"}:
+        raise AssertionError(f"int8_matmul: some planted faults never ran ({seen})")
+    keys = ("slices", "blocks", "stages", "smem", "wide")
+    log(f"int8_matmul launches (rows, bf16 x: {'/'.join(keys)}): " + ", ".join(
+        f"{name} {n}: " + "/".join(str(plan[k]) for k in keys)
+        for name in ("q", "fc1", "fc2", "whisper head", "qwen3 head", "llama-3.2-3b down")
+        for n in (1, 16)
+        for plan in [i8mm.launch_plan(dev, n, cases[name][0].shape[-1],
+                                      cases[name][0].shape[-2], x_dtype=torch.bfloat16)]))
+    del cases
+
+    # one int8_linear on the bf16 tree, with its bias, and the head: one device kernel each
+    for label, leaf, n in (("fc1", lp["mlp"]["fc1"], 16), ("head", head, 1)):
+        x = randn(n, head["weight_i8"].shape[1], dtype=torch.bfloat16)
+        quant.int8_linear(leaf, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y = quant.int8_linear(leaf, x)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kernels) != 1 or y.dtype != torch.bfloat16:
+            raise AssertionError(f"int8_linear {label} ({n} rows, bf16): device kernels "
+                                 f"{kernels}, output {y.dtype}: expected one kernel, bf16")
+        log(f"int8_linear {label} ({n} rows, bf16 tree): one device kernel ({kernels[0]})")
+
+    # times, the weights from device memory: copies enough that the calls,
+    # made on the copies in turn, miss L2
+    fc1 = lp["mlp"]["fc1"]
+    timing = {}
+    for label, w_one, sc, bias, li, n in (
+            ("lm head", head["weight_i8"], head["scale_i8"], None, None, 1),
+            ("fc1", fc1["weight_i8_stacked"][layer], fc1["scale_i8"], fc1["bias"], 0, 16)):
+        o, i = w_one.shape
+        copies = max(2, -(-COLD_BYTES // (o * i)))
+        w_st = w_one[None].repeat(copies, 1, 1)
+        for m in (n, 32):
+            x = randn(m, i, dtype=torch.bfloat16)
+            cycle = itertools.cycle(range(copies))
+            b = None if bias is None else bias
+
+            def kernel(x=x, cycle=cycle, b=b, li=li):
+                if li is None:  # the head's entry
+                    return i8mm.int8_matmul(x, w_st[next(cycle)], sc, b, out_dtype=torch.bfloat16)
+                return i8mm.int8_matmul_stacked(x, w_st, sc, next(cycle), b,
+                                                out_dtype=torch.bfloat16)
+
+            def plain(x=x, b=b):
+                return i8mm.int8_matmul_stacked_plain(x, w_st, sc, 0, b,
+                                                      out_dtype=torch.bfloat16)
+            ms, pms = timed_pair(kernel, plain, 20)
+            roof = bound({"int8": 2 * m * i * o},
+                         nbytes(x, w_one, sc, *(() if b is None else (b,))) + 2 * m * o)
+            lib = ""
+            if m == 32:
+                xq, _ = i8mm.quantize_rows(x)
+                wp = w_one if o % 8 == 0 else torch.nn.functional.pad(w_one, (0, 0, 0, -o % 8))
+                lib = (f"; torch._int_mm, the product alone, "
+                       f"{time_ms(lambda: torch._int_mm(xq, wp.T), 20):.4f} ms, "
+                       f"int8_matmul_bigm "
+                       f"{time_ms(lambda: i8mm.int8_matmul_bigm(x, w_one, sc), 20):.4f} ms")
+                del xq, wp
+            log(f"time int8_matmul {label} ({m}, {i}) bf16 x ({o}, {i}) -> bf16"
+                f"{' + bias' if b is not None else ''}, the {copies} copies in turn: kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {roof[0]:.4f} ms ({roof[1]}), "
+                f"{roof[0] / ms:.3f} of the bound{lib}")
+            timing[(label, m)] = (x, ms, pms, roof)
+        del w_st
+    x, ms, pms, roof = timing[("lm head", 1)]
+    rows.append(kernel_row("int8_matmul", "tpu_audio_torch/csrc/int8_matmul.cu",
+                           "tpu_audio/ops/pallas/int8_matmul.py:50", err, ms, pms, roof, None,
+                           "torch._int_mm takes more than 16 rows; this call has 1 (its "
+                           "32-row time is logged beside the kernel's)"))
+    x, ms, pms, roof = timing[("fc1", 16)]
     rows.append(kernel_row("int8_matmul_stacked", "tpu_audio_torch/csrc/int8_matmul.cu",
-                           "tpu_audio/ops/pallas/int8_matmul.py:116", err, ms, pms,
-                           bound({"int8": 2 * 16 * i * o},
-                                 nbytes(x, w_st[layer], sc) + 4 * 16 * o), None,
-                           "torch._int_mm takes more than 16 rows; this call has 16"))
+                           "tpu_audio/ops/pallas/int8_matmul.py:116", err, ms, pms, roof, None,
+                           "torch._int_mm takes more than 16 rows; this call has 16 (its "
+                           "32-row time is logged beside the kernel's)"))
 
 
 def code_steps(got, ref, scale_rel: float, label: str = "plain") -> tuple[str, bool]:
@@ -1691,14 +1866,17 @@ def single_stream(model_i8, tok, clips, mel, dev, card: str) -> dict:
     return launches
 
 
-def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> float:
+def mixed_batch(model_i8, tok, clips, wall_bf16: float | None, card: str) -> float:
     """Phase 6: bench.py's "bf16-enc + int8 decoder + int8 cross-KV" row at
-    batch 16 through transcribe_windows; returns its wall time."""
+    batch 16 through transcribe_windows, then its decode step alone
+    (`tools/batch_step.py`: ms a step by the host clock, device kernels a
+    step by the profiler); returns the transcribe's wall time."""
     from tpu_audio_torch.models.whisper import batch as wbatch
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
     from tpu_audio_torch.ops.kernels import fused_mel
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.tools import batch_step
 
     mods = (fused_mel, fe, ckv, i8mm)
     reset(*mods)
@@ -1718,8 +1896,17 @@ def mixed_batch(model_i8, tok, clips, wall_bf16: float, card: str) -> float:
     audio_s = N_CLIPS * CLIP_SECONDS
     log(f"mixed batch: transcribe_windows, {BATCH} windows, bf16 encoder + int8 decoder "
         f"+ int8 cross-KV: {wall:.3f} s wall, {audio_s / wall:.1f}x real time, "
-        f"{sum(len(r.tokens) for r in results)} tokens (phase 4, bf16 weights: "
-        f"{wall_bf16:.3f} s) ({card})")
+        f"{sum(len(r.tokens) for r in results)} tokens"
+        + (f" (phase 4, bf16 weights: {wall_bf16:.3f} s)" if wall_bf16 is not None else "")
+        + f" ({card})")
+    reset(i8mm)
+    step = batch_step.measure(model_i8, tok, torch.device("cuda", 0))
+    calls = sum(i8mm.LAUNCHES.values())
+    per_step = calls / (batch_step.WARMUP + batch_step.STEPS + batch_step.PROFILED + 1)
+    log(f"mixed batch decode step at batch {batch_step.BATCH}: {step['ms_a_step']:.4f} ms a "
+        f"step, {step['kernels_a_step']:.1f} device kernels a step, device busy "
+        f"{step['device_ms_a_step']} ms a step (int8 matmul launches {calls}, "
+        f"~{per_step:.1f} a step) ({card})")
     return wall
 
 
@@ -3445,6 +3632,17 @@ def main() -> None:
         check_encoder_attention(cfg, randn, rows)
         counts = encoder_ab(model, clips, dev, card)
         print_result(rows, {name: n for c in counts.values() for name, n in c.items() if n})
+        return
+    if "--int8-only" in sys.argv[1:]:  # phases 1, 2, the int8 matmuls' part of 3, and 6
+        model_i8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params, encoder=False))
+        del params, model
+        rows = []
+        check_int8_matmul(model_i8, randn_on(dev), rows)
+        t_phase = time.perf_counter()
+        mixed_batch(model_i8, tok, clips, None, card)
+        log(f"phase 6 wall: {time.perf_counter() - t_phase:.1f} s")
+        from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+        print_result(rows, dict(i8mm.LAUNCHES))
         return
     if "--w8a8-only" in sys.argv[1:]:  # phases 1, 2, the W8A8 kernels' part of 3, 7's A/B
         model_w8a8 = wmodel.Whisper(cfg, wload.serve_tree_int8(params))

@@ -288,30 +288,33 @@ def group_affine_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def int8_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x (…, I) → (…, O) in x's dtype, by the JAX rule: up to 32 rows go to
-    the weight-streaming kernel (the stacked one for a stacked leaf); more
-    rows take the exact s8×s8 GEMM on CUDA, and on the CPU the product with
-    the dequantised weight that the JAX package takes off the TPU."""
+    the weight-streaming kernel (the stacked one for a stacked leaf), which
+    also casts to x's dtype and adds the bias, as the JAX function does
+    after it; more rows take the exact s8×s8 GEMM on CUDA, and on the CPU
+    the product with the dequantised weight that the JAX package takes off
+    the TPU."""
     lead = x.shape[:-1]
     rows = math.prod(lead)
     x2 = x.reshape(rows, x.shape[-1])
+    bias = p["bias"] if "bias" in p else None
     if "weight_i8_stacked" in p:
         w_st, li = p["weight_i8_stacked"], p["layer_idx"]
         if rows <= i8mm.MAX_ROWS:
-            y = i8mm.int8_matmul_stacked(x2, w_st, p["scale_i8"], li)
-        else:
-            sliced = {k: v for k, v in p.items()
-                      if k not in ("weight_i8_stacked", "layer_idx")}
-            return int8_linear({**sliced, "weight_i8": w_st[li]}, x)
-    elif rows <= i8mm.MAX_ROWS:
-        y = i8mm.int8_matmul(x2, p["weight_i8"], p["scale_i8"])
-    elif x2.device.type == "cuda" and x2.shape[-1] % 128 == 0:
+            y = i8mm.int8_matmul_stacked(x2, w_st, p["scale_i8"], li, bias, out_dtype=x.dtype)
+            return y.reshape(*lead, -1)
+        sliced = {k: v for k, v in p.items() if k not in ("weight_i8_stacked", "layer_idx")}
+        return int8_linear({**sliced, "weight_i8": w_st[li]}, x)
+    if rows <= i8mm.MAX_ROWS:
+        y = i8mm.int8_matmul(x2, p["weight_i8"], p["scale_i8"], bias, out_dtype=x.dtype)
+        return y.reshape(*lead, -1)
+    if x2.device.type == "cuda" and x2.shape[-1] % 128 == 0:
         y = i8mm.int8_matmul_bigm(x2, p["weight_i8"], p["scale_i8"])
     else:
         w = p["weight_i8"].to(x.dtype) * p["scale_i8"].to(x.dtype)
         y = x2 @ w.T
     y = y.to(x.dtype).reshape(*lead, -1)
-    if "bias" in p:
-        y = y + p["bias"].to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return y
 
 
