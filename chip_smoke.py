@@ -10,7 +10,9 @@ Phases (any failure raises and the script exits non-zero):
      TMA + wgmma kernels' ptxas lines and wgmma (HGMMA, IGMMA) counts, and
      fail on a spill;
   3. hold each kernel against its plain PyTorch version at the shapes of
-     Whisper large-v3-turbo (batch-16 transcription for the mel, encoder
+     Whisper large-v3-turbo (a 30 s chunk for the mel, with its float64
+     gate on a tone over faint noise and exact zeros; batch-16
+     transcription for the encoder
      and cross-attention kernels; the int8 decoder's and lm head's shapes
      every int8 decoder linear and the heads at 1, 4, 16 and 32 rows, bit
      for bit, for the int8 matmuls; the B=1 step for the
@@ -27,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
      among them);
   4. transcribe 4 two-minute clips (16 windows, one batch of 16) with
      `transcribe_windows` on random bf16 weights and the int8 cross-K/V
-     state, check the launch counters, tokens and log-probs, print the wall
+     state, check the launch counters (one log-mel launch a clip), tokens
+     and log-probs, print the wall
      time; then hold the kernel path and the plain bf16 path against the
      plain path in f32 on 2 windows (encoder features and decode logits),
      and run the same with faults planted in the kernel path;
@@ -123,6 +126,12 @@ per-op encoder at batch 16: a short check of the TMA + wgmma kernels.
 `python3 chip_smoke.py --int8-only` runs phases 1, 2, the W8A8
 weight-streaming matmuls' part of phase 3 (`check_int8_matmul`) and phase
 6: a short check of `csrc/int8_matmul.cu`.
+`python3 chip_smoke.py --mel-only` runs phases 1, 2, the log-mel's part of
+phase 3 (noise against the plain version, the dynamic-range gate against
+float64, a misaligned signal refused, four planted faults, a chunk and a
+150 s clip against the plain version and timed) and `MelExtractor` on phase
+4's clips, one launch a clip, against the plain path: a short check of
+`csrc/fused_mel.cu`.
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -201,8 +210,9 @@ SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a time
 # to neighbouring bf16 values (their exp arguments differ in the last bits),
 # which moves the row's |max| by up to a bf16 ulp, 2^-7 of itself at most
 PAIR_SCALE_REL = 2.0 ** -7
-# H100 SXM dense peaks (NVIDIA's data sheet, no sparsity) and memory rate
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# H100 SXM dense peaks (NVIDIA's data sheet, no sparsity; f32 and f64
+# outside the tensor cores) and memory rate
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "f64": 34e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -333,6 +343,159 @@ def batch_mels(clips, n_mels: int, dev) -> torch.Tensor:
         windows += [_pad_frames(mel[s:s + N_FRAMES], N_FRAMES)
                     for s in range(0, mel.shape[0] - N_FRAMES, N_FRAMES)]
     return torch.stack(windows[:BATCH]).to(torch.bfloat16)
+
+
+def mel_faulty(x: torch.Tensor, n_mels: int, *, window: bool = True, band=None,
+               floor: float = 1e-10, last_row: bool = True) -> torch.Tensor:
+    """The plain log-mel with a fault planted: the window left out, band
+    `band`'s weights one bin later (its first bin off by one), another
+    floor, or the last frame's row not written (left zero)."""
+    from tpu_audio_torch.ops import stft
+    from tpu_audio_torch.ops.kernels import fused_mel
+
+    c = fused_mel._constants(n_mels, x.device)
+    basis = c.basis if window else torch.as_tensor(stft.dft_basis(400), device=x.device)
+    fb = c.fb
+    if band is not None:
+        fb = fb.clone()
+        fb[:, band] = torch.roll(fb[:, band], 1)
+    spec = stft.frame(x, 400, 160) @ basis
+    power = spec[:, :201] ** 2 + spec[:, 201:] ** 2
+    out = torch.log10(torch.clamp(power @ fb, min=floor))
+    if not last_row:
+        out[-1] = 0.0
+    return out
+
+
+def mel_ops(frames: int, n_mels: int) -> dict:
+    """fused_log_mel's arithmetic a call, by type: a frame's f64 work is the
+    window (400 products), the radix-5 passes (40 items of 48 flops, then
+    40 of 48 + 4 twiddle products of 6), the radix-8 pass (25 items of 56 +
+    7 twiddle products), the split (101 pairs of 24 with their powers); in
+    f32, two a band weight (~394 nonzeros at 128 mels) and a log a band."""
+    from tpu_audio_torch.ops.kernels import fused_mel
+
+    nonzeros = fused_mel._constants(n_mels, torch.device("cpu")).weights.numel()
+    f64 = 400 + 40 * 48 + 40 * (48 + 24) + 25 * (56 + 42) + 101 * 24
+    return {"f64": frames * f64, "f32": frames * (2 * nonzeros + n_mels)}
+
+
+def check_mel(n_mels: int, dev, randn, rows: list, card: str) -> None:
+    """Phase 3, the log-mel: `fused_log_mel` on noise (one 30 s chunk with
+    its margins) against the plain version (atol 1e-3); on the
+    dynamic-range signals (`tools/mel_split.py`'s gate), its largest |log10
+    error| against float64 at most GATE_RATIO times the plain f32
+    version's; a signal that is not 16-byte aligned refused before a
+    launch; planted faults, each outside one of those limits; one chunk (the
+    JSON row) and one 150 s clip in one launch (as phase 4 launches it)
+    against the plain version (atol 1e-3) and timed, cold, beside the plain
+    version and torch.stft's spectrum alone (cuFFT, a yardstick)."""
+    from tpu_audio_torch.ops.kernels import fused_mel
+    from tpu_audio_torch.tools import mel_split
+
+    audio = randn(30 * 16000 + 400, scale=0.1)
+    got = fused_mel.fused_log_mel(audio, n_mels=n_mels)
+    ref = fused_mel.fused_log_mel_plain(audio, n_mels=n_mels)
+    err = compare(f"fused_log_mel ({got.shape[0]}, {n_mels}) f32, noise", got, ref, atol=1e-3)
+    if not torch.equal(mel_faulty(audio, n_mels), ref):
+        raise AssertionError("mel_faulty without a fault is not the plain version")
+
+    # the dynamic-range gate
+    signals, exact, p_err = mel_split.gate_refs(n_mels, dev, SEED)
+    for name, x in signals.items():
+        k_out = fused_mel.fused_log_mel(x, n_mels=n_mels)
+        k_err = (k_out.double() - exact[name]).abs().max().item()
+        msg = (f"fused_log_mel {name} (440 Hz at 0.5, chirp 1e-2, noise 1e-5, 2 s of zeros) "
+               f"against float64: kernel max |d log10| {k_err:.4e}, plain f32 {p_err[name]:.4e}, "
+               f"ratio {k_err / p_err[name]:.3f}")
+        if not (torch.isfinite(k_out).all() and k_err <= mel_split.GATE_RATIO * p_err[name]):
+            raise AssertionError(f"{msg}: outside ratio {mel_split.GATE_RATIO}")
+        log(msg)
+
+    # a signal 4 bytes off 16 is refused before it launches
+    off = torch.empty(audio.numel() + 4, device=dev)[1:1 + audio.numel()]
+    assert off.data_ptr() % 16 != 0
+    before = fused_mel.LAUNCHES["fused_log_mel"]
+    try:
+        fused_mel.fused_log_mel(off, n_mels=n_mels)
+    except ValueError as e:
+        log(f"fused_log_mel, a signal 4 bytes off 16: refused ({e})")
+    else:
+        raise AssertionError("fused_log_mel took a signal that is not 16-byte aligned")
+    if fused_mel.LAUNCHES["fused_log_mel"] != before:
+        raise AssertionError("fused_log_mel launched on a signal it refused")
+
+    faults = {"the window left out": dict(window=False),
+              f"band {n_mels // 2}'s first bin off by one": dict(band=n_mels // 2),
+              "the floor at 1e-9": dict(floor=1e-9),
+              "the last frame not written": dict(last_row=False)}
+    for label, fault in faults.items():
+        noise = (mel_faulty(audio, n_mels, **fault) - ref).abs().max().item()
+        ratios = {name: (mel_faulty(x, n_mels, **fault).double() - exact[name]).abs().max().item()
+                  / p_err[name] for name, x in signals.items()}
+        text = (f"noise max |d| {noise:.3e} (atol 1e-3), against float64 "
+                + ", ".join(f"{name} ratio {q:.3f}" for name, q in ratios.items()))
+        if noise <= 1e-3 and all(q <= mel_split.GATE_RATIO for q in ratios.values()):
+            raise AssertionError(f"fused_log_mel: the check cannot see {label} ({text})")
+        log(f"control fused_log_mel, {label}: {text}: outside the limit")
+
+    # each shape against the plain version on one copy, then its times,
+    # cold: each call reads the next of enough copies of its audio
+    window = torch.hann_window(400, periodic=False, device=dev)
+    randn = randn_on(dev, SEED + 1)  # the caller's draws stay as they were
+    for label, seconds in (("30 s chunk", 30), ("150 s clip", 150)):
+        n = seconds * 16000 + 400
+        frames = fused_mel.num_frames(n)
+        copies = max(2, -(-COLD_BYTES // (4 * (n + frames * n_mels))))
+        xs = [randn(n, scale=0.1) for _ in range(copies)]
+        compare(f"fused_log_mel {label} ({frames}, {n_mels}) f32, noise, one launch",
+                fused_mel.fused_log_mel(xs[0], n_mels=n_mels),
+                fused_mel.fused_log_mel_plain(xs[0], n_mels=n_mels), atol=1e-3)
+        nxt = itertools.cycle(xs).__next__
+        ms, pms = timed_pair(lambda: fused_mel.fused_log_mel(nxt(), n_mels=n_mels),
+                             lambda: fused_mel.fused_log_mel_plain(nxt(), n_mels=n_mels), 20)
+        stft_ms = time_ms(lambda: torch.view_as_real(torch.stft(
+            nxt(), 400, 160, window=window, center=False, return_complex=True)).square().sum(-1),
+            20)
+        c = fused_mel._constants(n_mels, dev)
+        roof = bound(mel_ops(frames, n_mels), 4 * (n + frames * n_mels)
+                     + nbytes(c.window, c.twiddles, c.bands, c.weights))
+        log(f"time fused_log_mel {label} ({frames} frames, n_mels {n_mels}), one launch: kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {roof[0]:.4f} ms ({roof[1]}), "
+            f"torch.stft |.|^2 (the spectrum alone, cuFFT) {stft_ms:.4f} ms ({card})")
+        if label == "30 s chunk":
+            rows.append(kernel_row("fused_log_mel", "tpu_audio_torch/csrc/fused_mel.cu",
+                                   "tpu_audio/ops/pallas/fused_mel.py:44", err, ms, pms, roof,
+                                   None, "no one PyTorch call computes a log-mel: torch.stft is "
+                                   f"the spectrum alone ({stft_ms:.4f} ms)"))
+        del xs
+
+
+def mel_slice(clips, n_mels: int, dev, card: str) -> dict:
+    """`--mel-only`'s main path: `MelExtractor` on each clip, one
+    fused_log_mel launch a clip, against the plain path (atol 1e-3 in the
+    normalised units). Returns the launches."""
+    from tpu_audio_torch.models.whisper.pipeline import MelExtractor
+    from tpu_audio_torch.ops.kernels import fused_mel
+
+    extractor = MelExtractor(n_mels, dev)
+    reset(fused_mel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mels = [extractor(clip) for clip in clips]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fused_mel)
+    if launches["fused_log_mel"] != len(clips):
+        raise AssertionError(f"expected one fused_log_mel launch a clip ({len(clips)}), got "
+                             f"{launches}")
+    with plain_kernels(fused_mel):
+        for i, (clip, mel) in enumerate(zip(clips, mels)):
+            compare(f"MelExtractor clip {i} ({len(clip) / 16000:.0f} s) {tuple(mel.shape)}",
+                    mel, extractor(clip), atol=1e-3)
+    log(f"MelExtractor: {len(clips)} clips, {launches['fused_log_mel']} launches, "
+        f"{wall * 1e3:.1f} ms wall with the host's padding and copy ({card})")
+    return launches
 
 
 def nbytes(*tensors) -> int:
@@ -1616,9 +1779,11 @@ def check_decoder_step(models: dict, cfg, dev, randn, rows: list) -> None:
 
 def batch_slice(model, tok, clips, dev, card: str):
     """Phase 4: `transcribe_windows` of the clips at batch 16 (bf16 weights,
-    int8 cross-K/V), launches checked, then the kernel path against the f32
-    plain path on 2 windows with faults planted in `attn_oproj_ln`; returns
-    (launch counts, wall seconds, the 2 windows' mel)."""
+    int8 cross-K/V), launches checked, then the clips' log-mel against the
+    plain path (`mel_slice`: the kernel at the shape this phase launches it)
+    and the kernel path against the f32 plain path on 2 windows with faults
+    planted in `attn_oproj_ln`; returns (launch counts, wall seconds, the 2
+    windows' mel)."""
     from tpu_audio_torch.models.whisper import batch as wbatch
     from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
     from tpu_audio_torch.ops.kernels import fused_encoder as fe
@@ -1638,6 +1803,9 @@ def batch_slice(model, tok, clips, dev, card: str):
     log(f"slice launches: {launches}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if launches["fused_log_mel"] != N_CLIPS:
+        raise AssertionError(f"expected one fused_log_mel launch a clip ({N_CLIPS}), got "
+                             f"{launches['fused_log_mel']}")
     if len(texts) != N_CLIPS or len(results) != BATCH:
         raise AssertionError(f"expected {N_CLIPS} texts and {BATCH} windows, "
                              f"got {len(texts)} and {len(results)}")
@@ -1652,6 +1820,7 @@ def batch_slice(model, tok, clips, dev, card: str):
         f"batch {BATCH}, bf16 weights, int8 cross-KV: {wall:.3f} s wall, "
         f"{audio_s / wall:.1f}x real time, {n_tokens} tokens generated, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    mel_slice(clips, cfg.n_mels, dev, card)
 
     # The kernel path end to end on 2 windows: encoder features and the
     # logits of the first decode step. The reference is the plain path in
@@ -3595,6 +3764,14 @@ def main() -> None:
         check_fused_step_llama(o_trees, dev, randn, rows)
         print_result(rows, orpheus_slice(o_trees, dev, card))
         return
+    if "--mel-only" in sys.argv[1:]:  # phases 1, 2, the mel part of 3, phase 4's MelExtractor
+        rng = np.random.default_rng(SEED)
+        clips = [(rng.standard_normal(CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
+                 for _ in range(N_CLIPS)]
+        rows, n_mels = [], PRESETS["large-v3-turbo"].n_mels
+        check_mel(n_mels, dev, randn_on(dev), rows, card)
+        print_result(rows, mel_slice(clips, n_mels, dev, card))
+        return
     if "--funasr-only" in sys.argv[1:]:  # phases 1, 2, Fun-ASR's part of 3, and 8
         rows, randn = [], randn_on(dev)
         trees = funasr_trees(dev)
@@ -3673,22 +3850,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     rows, randn = [], randn_on(dev)
 
-    # fused_log_mel: one 30 s chunk with its 200-sample margins
-    audio = randn(30 * 16000 + 400, scale=0.1)
-    got = fused_mel.fused_log_mel(audio, n_mels=cfg.n_mels)
-    ref = fused_mel.fused_log_mel_plain(audio, n_mels=cfg.n_mels)
-    err = compare("fused_log_mel (3001, 128) f32", got, ref, atol=1e-3)
-    ms, pms = timed_pair(lambda: fused_mel.fused_log_mel(audio, n_mels=cfg.n_mels),
-                         lambda: fused_mel.fused_log_mel_plain(audio, n_mels=cfg.n_mels), 20)
-    basis, fb = fused_mel._constants(cfg.n_mels, dev)
-    frames = got.shape[0]
-    rows.append(kernel_row("fused_log_mel", "tpu_audio_torch/csrc/fused_mel.cu",
-                           "tpu_audio/ops/pallas/fused_mel.py:44", err, ms, pms,
-                           bound({"f32": 2 * frames * (basis.numel() + fb.numel())},
-                                 nbytes(audio, basis, fb, got)), None,
-                           "no one PyTorch call computes a log-mel: torch.stft is the "
-                           "spectrum alone"))
-
+    check_mel(cfg.n_mels, dev, randn, rows, card)
     check_encoder_kernels(model, cfg, randn, rows)
     check_encoder_attention(cfg, randn, rows)
 

@@ -37,11 +37,14 @@ _log = logging.getLogger("tpu_audio_torch.stt")
 
 
 class MelExtractor:
-    """Whole-clip log-mel, one `fused_log_mel` launch per 30 s chunk.
+    """Whole-clip log-mel, one `fused_log_mel` launch per clip.
 
-    Chunks carry an n_fft/2 sample margin on each side so frame values are
-    identical to a single full-clip STFT; the clip-wide max−8 clip and the
-    (x+4)/4 normalisation follow (the clip is a global max in Whisper).
+    The clip, with an n_fft/2 sample reflect margin on each side and zeros
+    to a whole number of 30 s chunks, goes through the kernel at once: frame
+    j of chunk c is frame 3000·c + j of the one pass (the JAX package's
+    chunks, each with its margins, give the same frames). The clip-wide
+    max−8 clip and the (x+4)/4 normalisation follow (the clip is a global
+    max in Whisper).
     """
 
     def __init__(self, n_mels: int, device: torch.device | str = "cuda"):
@@ -61,12 +64,9 @@ class MelExtractor:
         need = n_chunks * CHUNK_SAMPLES + 2 * margin
         if len(padded) < need:
             padded = np.pad(padded, (0, need - len(padded)))
-        x = torch.from_numpy(padded).to(self.device)
-        mels = [fused_mel.fused_log_mel(
-                    x[c * CHUNK_SAMPLES: c * CHUNK_SAMPLES + CHUNK_SAMPLES + 2 * margin],
-                    n_mels=self.n_mels)[:N_FRAMES]
-                for c in range(n_chunks)]
-        return frontends.log10_norm(torch.cat(mels)[:total_frames])
+        x = torch.from_numpy(padded[:need]).to(self.device)
+        mel = fused_mel.fused_log_mel(x, n_mels=self.n_mels)
+        return frontends.log10_norm(mel[:total_frames])
 
 
 def _pad_frames(mel: torch.Tensor, n: int) -> torch.Tensor:

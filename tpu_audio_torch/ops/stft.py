@@ -1,9 +1,9 @@
 """STFT primitives (port of tpu_audio/ops/stft.py: dft_basis, frame,
 stft_power).
 
-The rFFT is a dense DFT matrix product, as in the JAX module, so the
-Whisper front-end is two products (DFT, mel projection) that the fused
-log-mel kernel (`kernels/fused_mel.py`) keeps in one launch.
+The rFFT is a dense DFT matrix product, as in the JAX module; the fused
+log-mel kernel's plain version (`kernels/fused_mel.py`) keeps that
+formulation, and its CUDA kernel takes an FFT of each frame instead.
 """
 
 from __future__ import annotations
