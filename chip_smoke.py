@@ -80,6 +80,27 @@ Phases (any failure raises and the script exits non-zero):
      of `benchmarks/llm_decode.py --w4a8sg` greedy at B=1 and B=8; the W4A8
      kernel path against the f32 plain path on teacher-forced logits, with
      faults planted in the W4A8 kernels.
+ 11. (run last) checkpoints in, audio files in and out, at full width from
+     seed-0 random weights written into a temporary directory by the
+     script's own safetensors writer (the card has no `safetensors`): (a)
+     Whisper large-v3-turbo in the mlx-community 8-bit layout with a
+     50,257-rank `multilingual.tiktoken`, through `STT.whisper(
+     "large-v3-turbo", "w8a8", repo=dir).load()`: its tree against
+     `serve_tree_int8` of the written q8 tree bit for bit, `transcribe` and
+     `transcribe_batch(kv_int8=True)` token for token against
+     `from_pipeline` on that tree, and a 44.1 kHz WAV by its path against
+     `load_audio`'s array; (b) Fun-ASR-Nano in the mlx 4-bit layout with a
+     `tokenizer.json` (Qwen's pattern, NFC, the chat and speech tokens) in
+     a pre-seeded Hugging Face cache, through `STT.funasr().load()`: the eos
+     ids, the tree, and the tokens of `from_params`; (c) Orpheus (the mlx
+     4-bit Llama-3.2-3B and SNAC 24 kHz, a `tokenizer.json` of Llama-3's
+     pattern) through `TTS.orpheus().load()` and `TTS.orpheus(
+     quantization="w4a8").load()`: the served trees and greedy tokens
+     against `from_params`, and `AudioResult.save` read back by `read_wav`;
+     (d) the `tokenizer.json` reader and the Whisper BPE, `regex` blocked,
+     on the golden texts of tests/data/tokenizer_golden/. Each run asserts
+     its kernels' launches; the bytes written and each engine's write and
+     load walls are printed beside the card line.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
 seven planted faults (a partial last row tile among them), `attn_oproj_ln`
@@ -132,6 +153,8 @@ float64, a misaligned signal refused, four planted faults, a chunk and a
 150 s clip against the plain version and timed) and `MelExtractor` on phase
 4's clips, one launch a clip, against the plain path: a short check of
 `csrc/fused_mel.cu`.
+`python3 chip_smoke.py --load-only` runs phases 1, 2 and 11: a short check
+of the checkpoint, tokenizer and audio-file layer on the card (~30 s).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -3233,7 +3256,8 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
     from tpu_audio_torch.api.stt_funasr import build_prompt_text
     from tpu_audio_torch.models.funasr import model as fmodel
     from tpu_audio_torch.nn import transformer
-    from tpu_audio_torch.ops import frontends, quant
+    from tpu_audio_torch.ops import frontends
+    from tpu_audio_torch.utils import pytree
     from tpu_audio_torch.ops.decoding import decode_loop
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
@@ -3340,9 +3364,8 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
                     out.append(lg[:, -1])
             return torch.cat(out).float()
 
-        llm32 = {k: v for k, v in quant._flatten(llm).items()}
-        llm32 = quant._unflatten({k: v.float() if v.is_floating_point() else v
-                                  for k, v in llm32.items()})
+        llm32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
+                                  for k, v in pytree.flatten(llm).items()})
         with plain_kernels(*mods):
             exact = run_path(llm32, x.float(), torch.float32)
             plain_out = run_path(llm, x, torch.bfloat16)
@@ -3433,11 +3456,11 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     from tpu_audio_torch.codecs.snac import model as snac
     from tpu_audio_torch.models.orpheus import model as om
     from tpu_audio_torch.nn import transformer
-    from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
     from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
     from tpu_audio_torch.ops.sampling import SamplerConfig
+    from tpu_audio_torch.utils import pytree
 
     mods = (w4mm, fs, i8mm)
     total = {n: 0 for m in mods for n in m.LAUNCHES}
@@ -3603,8 +3626,8 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
                 out.append(lg[:, -1])
         return torch.cat(out).float()
 
-    tree32 = quant._unflatten({k: v.float() if v.is_floating_point() else v
-                               for k, v in quant._flatten(tree).items()})
+    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
+                               for k, v in pytree.flatten(tree).items()})
     with plain_kernels(w4mm):
         exact = run_path(tree32, torch.float32)
         plain_out = run_path(tree, torch.bfloat16)
@@ -3640,6 +3663,604 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
         held_against_f32("orpheus w4a8", outputs, [exact[sl] for sl in parts], p_err, label,
                          [out[sl] for sl in parts], control=True, p_cos=p_cos)
     return total
+
+
+# ------------------------------------------------ 11. checkpoints in, files out
+
+# safetensors dtype names of numpy dtypes (BF16 comes from torch tensors)
+ST_DTYPES = {"float64": "F64", "float32": "F32", "float16": "F16", "int64": "I64",
+             "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8", "uint32": "U32",
+             "bool": "BOOL"}
+WHISPER_MLX_NAMES = [(".attn.q.", ".attn.query."), (".attn.k.", ".attn.key."),
+                     (".attn.v.", ".attn.value."), (".attn.o.", ".attn.out."),
+                     (".ln1.", ".attn_ln."), (".ln_cross.", ".cross_attn_ln."),
+                     (".ln2.", ".mlp_ln."), (".mlp.fc1.", ".mlp1."), (".mlp.fc2.", ".mlp2.")]
+LLAMA_HF_NAMES = [(".attn.q.", ".self_attn.q_proj."), (".attn.k.", ".self_attn.k_proj."),
+                  (".attn.v.", ".self_attn.v_proj."), (".attn.o.", ".self_attn.o_proj."),
+                  (".attn.q_norm.", ".self_attn.q_norm."),
+                  (".attn.k_norm.", ".self_attn.k_norm."), (".mlp.gate.", ".mlp.gate_proj."),
+                  (".mlp.up.", ".mlp.up_proj."), (".mlp.down.", ".mlp.down_proj."),
+                  (".ln1.", ".input_layernorm."), (".ln2.", ".post_attention_layernorm.")]
+QWEN2_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
+             r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+              r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LOAD_CLIP_SECONDS = 6        # phase 11's Whisper clip
+LOAD_FUNASR_NEW = 24         # phase 11's Fun-ASR tokens per transcribe
+LOAD_ORPHEUS_NEW = 56        # phase 11's Orpheus tokens per generate (8 frames)
+
+
+def write_safetensors(path, tensors: dict, metadata: dict | None = None) -> int:
+    """Write `tensors` (name → numpy array, or torch tensor; bf16 tensors
+    as BF16) as a safetensors file; return its bytes. The script's own
+    writer: the card's Python has no `safetensors`, and the package only
+    reads."""
+    entries, off = [], 0
+    for name, t in tensors.items():
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            dt, arr = "BF16", t.detach().contiguous().view(torch.int16).cpu().numpy()
+        else:
+            arr = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+            dt = ST_DTYPES[arr.dtype.name]
+        arr = np.require(arr, requirements="C")  # 0-d stays 0-d
+        entries.append((name, dt, arr))
+        off += arr.nbytes
+    header, off = {}, 0
+    if metadata:
+        header["__metadata__"] = metadata
+    for name, dt, arr in entries:
+        header[name] = {"dtype": dt, "shape": list(arr.shape),
+                        "data_offsets": [off, off + arr.nbytes]}
+        off += arr.nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for _, _, arr in entries:
+            f.write(arr.data)
+    return 8 + len(head) + off
+
+
+def renamed(key: str, names) -> str:
+    for ours, theirs in names:
+        key = key.replace(ours, theirs)
+    return key
+
+
+def unstacked(flat: dict, prefix: str, out_prefix: str) -> dict:
+    """'{prefix}.rest' stacked (L, …) leaves → '{out_prefix}.{i}.rest' per layer."""
+    out = {}
+    for k, v in flat.items():
+        if k.startswith(prefix + "."):
+            rest = k[len(prefix) + 1:]
+            out.update({f"{out_prefix}.{i}.{rest}": v[i] for i in range(v.shape[0])})
+        else:
+            out[k] = v
+    return out
+
+
+def packed_weights(flat: dict) -> dict:
+    """The mlx quantised leaf names: weight_q4/weight_q8 int32 words → "weight"
+    uint32; scales and biases stay."""
+    out = {}
+    for k, v in flat.items():
+        if re.search(r"\.weight_q[48]$", k):
+            k, v = k.rsplit(".", 1)[0] + ".weight", v.cpu().numpy().view(np.uint32)
+        out[k] = v
+    return out
+
+
+def bf16_affine(tree: dict) -> dict:
+    """A group-affine tree with its scales and biases rounded to bf16 (as the
+    published checkpoints store them), kept float32."""
+    from tpu_audio_torch.utils import pytree
+
+    return pytree.unflatten({k: v.bfloat16().float() if k.endswith((".scales", ".biases"))
+                             else v for k, v in pytree.flatten(tree).items()})
+
+
+def whisper_mlx_flat(tree: dict, cfg) -> dict:
+    """A port Whisper tree (fp or group-affine) → the flat dict of an
+    mlx-community checkpoint: numbered blocks, openai names, convs (O, K, I),
+    packed uint32 words, and the encoder sinusoids that sanitize drops."""
+    from tpu_audio_torch.nn.layers import sinusoidal_positions
+    from tpu_audio_torch.utils import pytree
+
+    flat = unstacked(unstacked(pytree.flatten(tree), "encoder.blocks", "encoder.blocks"),
+                     "decoder.blocks", "decoder.blocks")
+    flat = {renamed(k, WHISPER_MLX_NAMES): v.permute(0, 2, 1) if re.match(
+        r"encoder\.conv[12]\.weight$", k) else v for k, v in packed_weights(flat).items()}
+    flat["encoder.positional_embedding"] = sinusoidal_positions(
+        cfg.n_audio_ctx, cfg.n_audio_state).astype(np.float16)
+    return flat
+
+
+def llama_flat(tree: dict, prefix: str = "") -> dict:
+    """A port Llama/Qwen tree → the flat dict of an HF/mlx checkpoint, keys
+    under `prefix`: model.layers.N.self_attn.q_proj, …, packed uint32 words."""
+    from tpu_audio_torch.utils import pytree
+
+    flat = packed_weights(unstacked(pytree.flatten(tree), "layers", "model.layers"))
+    out = {}
+    for k, v in flat.items():
+        k = renamed("." + k, LLAMA_HF_NAMES)[1:]
+        k = re.sub(r"^embed\.", "model.embed_tokens.", re.sub(r"^norm\.", "model.norm.", k))
+        out[prefix + k] = v
+    return out
+
+
+def funasr_flat(tree: dict) -> dict:
+    """A port Fun-ASR tree → the flat dict of an mlx-community checkpoint:
+    encoder.* and adaptor.* as named in the tree (the FSMN kernels in
+    torch's (C, 1, K)), the Qwen3 stack under llm.model.*."""
+    from tpu_audio_torch.utils import pytree
+
+    flat = {f"{side}.{k}": v for side in ("encoder", "adaptor")
+            for k, v in pytree.flatten(tree[side]).items()}
+    flat.update(llama_flat(tree["llm"], "llm."))
+    return flat
+
+
+def snac_torch_flat(tree: dict) -> dict:
+    """A port SNAC tree → the flat dict that `convert_snac` reads: torch
+    SNAC's names (decoder.model.N.block.M…, quantizer.quantizers.N…) and
+    layouts: conv kernels (O, I, K), Snake alphas (1, C, 1)."""
+    from tpu_audio_torch.utils import pytree
+
+    res = {"snake1": 0, "conv1": 1, "snake2": 2, "conv2": 3}
+    out = {}
+    for k, v in pytree.flatten(tree).items():
+        if k.endswith(".alpha"):
+            v = v.permute(0, 2, 1)
+        m = re.match(r"quantizer\.(\d+)\.(.*)$", k)
+        if m:
+            out[f"quantizer.quantizers.{m.group(1)}.{m.group(2)}"] = v
+            continue
+        k = re.sub(r"^decoder\.", "", k)
+        for name, idx in (("depthwise_conv", 0), ("pointwise_conv", 1), ("final_snake", 6),
+                          ("final_conv", 7)):
+            k = re.sub(rf"^{name}\.", f"model.{idx}.", k)
+        m = re.match(r"blocks\.(\d+)\.(.*)$", k)
+        if m:
+            b, rest = int(m.group(1)), m.group(2)
+            rest = re.sub(r"^snake\.", "block.0.", rest)
+            rest = re.sub(r"^convT\.", "block.1.", rest)
+            rest = re.sub(r"^noise\.", "block.2.", rest)
+            r = re.match(r"residuals\.(\d+)\.(\w+)\.(.*)$", rest)
+            if r:
+                rest = f"block.{int(r.group(1)) + 3}.block.{res[r.group(2)]}.{r.group(3)}"
+            k = f"model.{b + 2}.{rest}"
+        out["decoder." + k] = v
+    return out
+
+
+def seed_cache(root: Path, repo_id: str, files: dict) -> tuple[Path, int]:
+    """A Hugging Face cache entry for repo_id under root (refs/main and
+    snapshots/<revision>/), files = {name: writer(path) → bytes}; returns
+    (the snapshot directory, the bytes written)."""
+    from tpu_audio_torch.utils.hub import repo_cache_dir
+
+    repo_dir = Path(repo_cache_dir(repo_id, str(root)))
+    rev = "0" * 40
+    snap = repo_dir / "snapshots" / rev
+    snap.mkdir(parents=True)
+    (repo_dir / "refs").mkdir()
+    (repo_dir / "refs" / "main").write_text(rev)
+    return snap, sum(write(snap / name) for name, write in files.items())
+
+
+def write_text(text: str):
+    def write(path):
+        path.write_text(text)
+        return len(text.encode())
+    return write
+
+
+def tiktoken_text(n_ranks: int) -> str:
+    """A rank table of n_ranks tokens in the tiktoken format: the 256 bytes,
+    then byte pairs in order."""
+    import base64
+
+    pieces = [bytes([b]) for b in range(256)]
+    pieces += [bytes([a, b]) for a in range(256) for b in range(256)][:n_ranks - 256]
+    return "".join(f"{base64.b64encode(p).decode()} {r}\n" for r, p in enumerate(pieces))
+
+
+def tokenizer_json(pattern: str, added: dict, words: list[str], *, nfc: bool,
+                   ignore_merges: bool) -> str:
+    """A byte-level BPE tokenizer.json: the 256 byte characters, the merges
+    that build each of `words` left to right, and `added` {content: id} as
+    special added tokens."""
+    from tpu_audio_torch.utils.tokenizer import bytes_to_unicode
+
+    table = bytes_to_unicode()
+    vocab = {table[b]: b for b in range(256)}
+    merges = []
+    for w in words:
+        chars = [table[b] for b in w.encode()]
+        cur = chars[0]
+        for c in chars[1:]:
+            if cur + c not in vocab:
+                vocab[cur + c] = len(vocab)
+                merges.append([cur, c])
+            cur += c
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for c, i in added.items()],
+        "normalizer": {"type": "NFC"} if nfc else None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": pattern}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": ignore_merges,
+                  "vocab": vocab, "merges": merges}})
+
+
+def hf_config(cfg, model_type: str, **extra) -> dict:
+    """The HF config.json of a TransformerConfig (llama / qwen3), as
+    `load_llama.config_from_hf` reads it back."""
+    return {"model_type": model_type, "hidden_size": cfg.dim, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.kv_heads,
+            "head_dim": cfg.hd, "intermediate_size": cfg.hidden_dim,
+            "vocab_size": cfg.vocab_size, "rope_theta": cfg.rope_theta,
+            "rope_scaling": cfg.rope_scaling, "rms_norm_eps": cfg.norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "max_position_embeddings": cfg.max_position_embeddings, **extra}
+
+
+def card_params(schema: dict, dev, seed: int, dtype=torch.bfloat16) -> dict:
+    """A model's `numpy_params` schema (from a ShapeRNG) filled on the card:
+    each drawn leaf uniform in ±1/√(its last dim), the norms as the schema
+    has them; converted to the port's layout in `dtype`. A full-width tree
+    in a second, with nothing drawn on the host."""
+    from tpu_audio_torch.convert import params_from_numpy
+    from tpu_audio_torch.utils import pytree, weights
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = {}
+    for k, v in pytree.flatten(schema).items():
+        if isinstance(v, weights.AbstractLeaf):
+            flat[k] = ((torch.rand(v.shape, generator=gen, device=dev) * 2 - 1)
+                       / math.sqrt(v.shape[-1])).to(dtype)
+        else:
+            flat[k] = torch.as_tensor(v, device=dev)
+    return params_from_numpy(pytree.unflatten(flat), dev, dtype)
+
+
+def held_tree(name: str, got: dict, ref: dict) -> None:
+    """Two parameter trees equal key for key and bit for bit."""
+    from tpu_audio_torch.utils import pytree
+
+    g, r = pytree.flatten(got), pytree.flatten(ref)
+    if set(g) != set(r):
+        raise AssertionError(f"{name}: keys differ: {sorted(set(g) ^ set(r))[:8]}")
+    bad = [k for k in r if g[k].dtype != r[k].dtype or g[k].shape != r[k].shape
+           or not torch.equal(g[k], r[k])]
+    if bad:
+        raise AssertionError(f"{name}: {len(bad)} leaves differ, e.g. {bad[:5]}")
+    log(f"{name}: {len(r)} leaves equal bit for bit")
+
+
+def module_params(model) -> dict:
+    from tpu_audio_torch.utils import pytree
+
+    return pytree.unflatten({k: v.data for k, v in model.named_parameters()})
+
+
+def check_tokenizer_golden() -> int:
+    """Phase 11 (d): the texts of tests/data/tokenizer_golden/ re-encoded by
+    the tokenizer.json reader and the Whisper BPE with `regex` blocked; the
+    ids must equal the committed ones (those of `tokenizers` and of the JAX
+    package). Returns the number of texts checked."""
+    from tpu_audio_torch.utils.tokenizer import HFTokenizer
+
+    gold_dir = ROOT / "tests" / "data" / "tokenizer_golden"
+    golden = json.loads((gold_dir / "golden.json").read_text())
+    saved = sys.modules.get("regex")
+    sys.modules["regex"] = None  # the card's Python has no regex: hold that path
+    try:
+        from tpu_audio_torch.models.whisper.tokenizer import BPE, WhisperTokenizer
+
+        toks = {name: HFTokenizer(str(gold_dir / f"{name}.json"))
+                for name in ("llama3", "qwen2", "gpt2")}
+        toks["whisper"] = WhisperTokenizer(
+            BPE.from_tiktoken_file(str(gold_dir / "whisper.tiktoken")), True, 100)
+        n = 0
+        for name, tok in toks.items():
+            for text, ids in zip(golden["texts"], golden["ids"][name]):
+                if tok.encode(text) != ids:
+                    raise AssertionError(f"tokenizer {name}: {text!r} -> {tok.encode(text)}, "
+                                         f"golden {ids}")
+                n += 1
+    finally:
+        if saved is None:
+            del sys.modules["regex"]
+        else:
+            sys.modules["regex"] = saved
+    return n
+
+
+def load_slice(dev, card: str) -> dict:
+    """Phase 11: checkpoints in the published layouts written at full width
+    from seed-0 random weights into a temporary directory, each served through
+    its engine's `load()` and held against `from_params`/`from_pipeline` on
+    the same trees; audio files in and out; the tokenizer readers against the
+    golden ids. Returns the launch counts of the loaded engines' runs."""
+    import tempfile
+
+    from tpu_audio_torch.api.stt import STT, WhisperEngine
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.codecs.snac import model as snac
+    from tpu_audio_torch.models.funasr import model as fmodel
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.models.orpheus.engine import LLM_REPO, SNAC_REPO
+    from tpu_audio_torch.models.whisper import load as wload
+    from tpu_audio_torch.models.whisper import model as wmodel
+    from tpu_audio_torch.models.whisper.config import PRESETS
+    from tpu_audio_torch.models.whisper.pipeline import WhisperPipeline
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+    from tpu_audio_torch.ops.kernels import fused_mel
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.ops.resample import resample
+    from tpu_audio_torch.utils import audio_io, weights
+
+    mods = (fused_mel, fe8, ckv, fws, i8mm, qmm, fs, w4mm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    rng = np.random.default_rng(SEED + 11)
+
+    def run(label, fn, need):
+        """fn() on the loaded engine, its launches counted and required."""
+        reset(*mods)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = launch_counts(*mods)
+        missing = [n for n in need if not launches[n]]
+        log(f"load {label} launches: { {n: c for n, c in launches.items() if c} }")
+        if missing:
+            raise AssertionError(f"load {label}: {missing} never launched: {launches}")
+        for n, c in launches.items():
+            total[n] += c
+        return out
+
+    old_cache = os.environ.get("TPU_AUDIO_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_load_") as tmp:
+        hub = Path(tmp) / "hub"
+        os.environ["TPU_AUDIO_CACHE"] = str(hub)
+        try:
+            # (a) Whisper large-v3-turbo, mlx-community 8-bit layout
+            cfg = PRESETS["large-v3-turbo"]
+            q8 = bf16_affine(quant.quantize_tree(card_params(
+                wmodel.numpy_params(weights.ShapeRNG(), cfg), dev, SEED), bits=8))
+            mlx_cfg = {"model_type": "whisper", **{k: getattr(cfg, k) for k in (
+                "n_mels", "n_audio_ctx", "n_audio_state", "n_audio_head", "n_audio_layer",
+                "n_vocab", "n_text_ctx", "n_text_state", "n_text_head", "n_text_layer")},
+                "quantization": {"group_size": 64, "bits": 8}}
+            wdir = Path(tmp) / "whisper-large-v3-turbo-8bit"
+            wdir.mkdir()
+            nbytes, wall = timed(lambda: sum((
+                write_safetensors(wdir / "model.safetensors", whisper_mlx_flat(q8, cfg),
+                                  {"format": "mlx"}),
+                write_text(json.dumps(mlx_cfg))(wdir / "config.json"),
+                write_text(tiktoken_text(50257))(wdir / "multilingual.tiktoken"))))
+            log(f"load whisper: wrote {nbytes} bytes (mlx 8-bit large-v3-turbo, "
+                f"50257 ranks) in {wall:.2f} s ({card})")
+            engine = STT.whisper("large-v3-turbo", "w8a8", repo=str(wdir))
+            _, wall = timed(engine.load)
+            log(f"load whisper: STT.whisper(large-v3-turbo, w8a8).load() {wall:.2f} s "
+                f"({card})")
+            model = engine.pipeline.model
+            ref_tree = wload.serve_tree_int8(q8)
+            del q8
+            held_tree("load whisper w8a8 tree against serve_tree_int8 of the q8 tree",
+                      module_params(model), ref_tree)
+            tok = engine.pipeline.tok
+            if (tok.eot, tok.sot, tok.timestamp_begin) != (50257, 50258, 50365):
+                raise AssertionError(f"whisper special ids {tok.eot}, {tok.sot}, "
+                                     f"{tok.timestamp_begin}")
+            ref = WhisperEngine.from_pipeline(WhisperPipeline(
+                wmodel.Whisper(cfg, ref_tree), tok, compute_dtype=torch.bfloat16,
+                kv_int8=True))
+            clips = [(rng.standard_normal(LOAD_CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
+                     for _ in range(2)]
+
+            def tokens(res):
+                return [t for s in res.segments for t in s.tokens]
+
+            got = run("whisper transcribe", lambda: engine.transcribe(
+                clips[0], language="en", temperature=(0.0,)),
+                ("fused_log_mel", *fe8.LAUNCHES, "fused_whisper_decode_step", "int8_matmul"))
+            want = ref.transcribe(clips[0], language="en", temperature=(0.0,))
+            if tokens(got) != tokens(want):
+                raise AssertionError(f"whisper transcribe: load {tokens(got)[:20]}, "
+                                     f"from_pipeline {tokens(want)[:20]}")
+            (_, res_b) = run("whisper transcribe_batch", lambda: engine.transcribe_batch(
+                clips, batch_size=2, language="en", kv_int8=True, return_results=True),
+                ("cross_attention_decode", "int8_matmul_stacked"))
+            _, ref_b = ref.transcribe_batch(clips, batch_size=2, language="en",
+                                            kv_int8=True, return_results=True)
+            if [r.tokens for r in res_b] != [r.tokens for r in ref_b]:
+                raise AssertionError("whisper transcribe_batch: load and from_pipeline differ")
+            wav = Path(tmp) / "clip_44k.wav"
+            audio_io.write_wav(str(wav), resample(clips[0], 16000, 44100), 44100)
+            by_path = run("whisper transcribe(path)", lambda: engine.transcribe(
+                str(wav), language="en", temperature=(0.0,)), ("fused_log_mel",))
+            by_array = engine.transcribe(audio_io.load_audio(str(wav), 16000)[0],
+                                         language="en", temperature=(0.0,))
+            if tokens(by_path) != tokens(by_array):
+                raise AssertionError("whisper: a WAV path and load_audio's array differ")
+            log(f"load whisper: transcribe of {LOAD_CLIP_SECONDS} s ({len(tokens(got))} "
+                f"tokens) and transcribe_batch of 2 clips equal from_pipeline's; the 44.1 kHz "
+                f"WAV by path equals load_audio's array ({len(tokens(by_path))} tokens)")
+            del engine, ref, model, ref_tree
+            torch.cuda.empty_cache()
+
+            # (b) Fun-ASR-Nano, mlx-community 4-bit layout, pre-seeded cache
+            fcfg = fmodel.FunASRConfig()
+            params = card_params(fmodel._numpy_params(weights.ShapeRNG(), fcfg), dev, SEED)
+            params["llm"] = bf16_affine(quant.quantize_tree(params["llm"], bits=4))
+            flat = funasr_flat(params)
+            added = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645,
+                     "<|startofspeech|>": 151646, "<|endofspeech|>": 151647}
+            tok_json = tokenizer_json(QWEN2_PAT, added, ["speech", " recognition", " the",
+                                                         "assistant", "system", "user"],
+                                      nfc=True, ignore_merges=False)
+            (_, nbytes), wall = timed(lambda: seed_cache(hub, "mlx-community/Fun-ASR-Nano-4bit", {
+                "model.safetensors": lambda p: write_safetensors(p, flat, {"format": "mlx"}),
+                "config.json": write_text(json.dumps({"llm_config": hf_config(fcfg.llm, "qwen3")})),
+                "tokenizer.json": write_text(tok_json)}))
+            del flat
+            log(f"load funasr: wrote {nbytes} bytes (mlx 4-bit Fun-ASR-Nano into the "
+                f"pre-seeded cache) in {wall:.2f} s ({card})")
+            engine = STT.funasr()
+            _, wall = timed(engine.load)
+            log(f"load funasr: STT.funasr().load() {wall:.2f} s ({card})")
+            if engine.cfg.llm != fcfg.llm or engine._eos_ids != (151643, 151645):
+                raise AssertionError(f"funasr load: config {engine.cfg.llm} or eos "
+                                     f"{engine._eos_ids}")
+            held_tree("load funasr tree against the written one", engine.generator.params,
+                      dict(params, llm=transformer.fuse_fp_tree(params["llm"])))
+            ref = STT.funasr().from_params(params, fcfg, tokenizer=engine.tokenizer)
+            clip = (rng.standard_normal(LOAD_CLIP_SECONDS * 16000) * 0.1).astype(np.float32)
+            got = run("funasr transcribe", lambda: engine.generator.generate(
+                *_funasr_prompt(engine, clip), eos_ids=engine._eos_ids, max_new=LOAD_FUNASR_NEW,
+                sampler=_greedy()), ("quant_matmul",))
+            want = ref.generator.generate(*_funasr_prompt(ref, clip), eos_ids=ref._eos_ids,
+                                          max_new=LOAD_FUNASR_NEW, sampler=_greedy())
+            text = engine.transcribe(clip, max_new_tokens=LOAD_FUNASR_NEW).text
+            if got != want or not isinstance(text, str):
+                raise AssertionError(f"funasr: load {got} != from_params {want}")
+            log(f"load funasr: {len(got)} tokens equal from_params's; eos ids "
+                f"{engine._eos_ids}")
+            del engine, ref, params
+            torch.cuda.empty_cache()
+
+            # (c) Orpheus: Llama-3.2-3B mlx 4-bit + SNAC, pre-seeded cache
+            q4 = bf16_affine(quant.quantize_tree(llama_params(om.LLAMA_3B, dev, SEED), bits=4))
+            snac_cfg = snac.SNACConfig()
+            snac_params = snac.init_params(SEED, snac_cfg, torch.float32, dev)
+            added = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+                     "<|eot_id|>": 128009}
+            tok_json = tokenizer_json(LLAMA3_PAT, added, ["tara", " the", " voice", "Hello"],
+                                      nfc=False, ignore_merges=True)
+            llama = hf_config(om.LLAMA_3B, "llama",
+                              quantization={"group_size": 64, "bits": 4})
+            (_, n_lm), w_lm = timed(lambda: seed_cache(hub, LLM_REPO, {
+                "model.safetensors": lambda p: write_safetensors(p, llama_flat(q4),
+                                                                 {"format": "mlx"}),
+                "config.json": write_text(json.dumps(llama)),
+                "tokenizer.json": write_text(tok_json)}))
+            (_, n_snac), w_snac = timed(lambda: seed_cache(hub, SNAC_REPO, {
+                "model.safetensors": lambda p: write_safetensors(p, snac_torch_flat(snac_params)),
+                "config.json": write_text(json.dumps({
+                    "sampling_rate": snac_cfg.sampling_rate,
+                    "encoder_dim": snac_cfg.latent_dim // 16, "encoder_rates": [2, 4, 8, 8],
+                    "decoder_dim": snac_cfg.decoder_dim,
+                    "decoder_rates": list(snac_cfg.decoder_rates), "attn_window_size": None,
+                    "codebook_size": snac_cfg.codebook_size,
+                    "codebook_dim": snac_cfg.codebook_dim, "vq_strides": list(snac_cfg.vq_strides),
+                    "noise": snac_cfg.noise, "depthwise": snac_cfg.depthwise}))}))
+            log(f"load orpheus: wrote {n_lm} bytes (mlx 4-bit Llama-3.2-3B) in {w_lm:.2f} s "
+                f"and {n_snac} bytes (SNAC 24 kHz) in {w_snac:.2f} s ({card})")
+            for quantization, serve, need in (
+                    ("w8a8", quant.requantize_tree_int8, ("fused_decode_step",)),
+                    ("w4a8", quant.repack_tree_w4a8, ("w4a8_matmul", "w4a8_matmul_stacked"))):
+                engine = TTS.orpheus(quantization=quantization)
+                _, wall = timed(engine.load)
+                log(f"load orpheus: TTS.orpheus(quantization={quantization}).load() "
+                    f"{wall:.2f} s ({card})")
+                if engine.lm.cfg != om.LLAMA_3B:
+                    raise AssertionError(f"orpheus load: config {engine.lm.cfg}")
+                held_tree("load orpheus snac against the written one", engine.snac_params,
+                          snac_params)
+                ref = TTS.orpheus().from_params(serve(q4), om.LLAMA_3B, snac_params, snac_cfg)
+                held_tree(f"load orpheus {quantization} LM tree against from_params's",
+                          engine.lm.params, ref.lm.params)
+                prompt = engine._prompt("Hello from the card!")
+                got = run(f"orpheus {quantization} generate", lambda: engine.lm.generate(
+                    prompt, sampler=_greedy(), eos_ids=(), max_new=LOAD_ORPHEUS_NEW), need)
+                want = ref.lm.generate(prompt, sampler=_greedy(), eos_ids=(),
+                                       max_new=LOAD_ORPHEUS_NEW)
+                if got != want or len(got) != LOAD_ORPHEUS_NEW:
+                    raise AssertionError(f"orpheus {quantization}: load {got[:10]} != "
+                                         f"from_params {want[:10]}")
+                log(f"load orpheus {quantization}: {len(got)} greedy tokens equal "
+                    f"from_params's on the same served tree")
+                del ref
+                if quantization == "w8a8":
+                    save_check(engine, Path(tmp), rng)
+                del engine
+                torch.cuda.empty_cache()
+            del q4
+        finally:
+            if old_cache is None:
+                os.environ.pop("TPU_AUDIO_CACHE", None)
+            else:
+                os.environ["TPU_AUDIO_CACHE"] = old_cache
+
+    # (d) the tokenizer readers on this Python, without regex
+    n = check_tokenizer_golden()
+    log(f"load tokenizers: {n} golden encodings equal (tokenizer.json reader on llama3, "
+        f"qwen2, gpt2 and the Whisper BPE, regex blocked)")
+    return total
+
+
+def save_check(engine, tmp: Path, rng) -> None:
+    """`TTSEngineBase.save` (generate, then `AudioResult.save`) of a short
+    text, and `AudioResult.save` of SNAC audio of given frames read back by
+    `read_wav`: the int16 file holds each sample truncated to its step, so
+    it reads back within one step plus the 32767/32768 scale gap."""
+    from tpu_audio_torch.api.results import AudioResult
+    from tpu_audio_torch.models.orpheus.model import parse_frames
+    from tpu_audio_torch.utils import audio_io
+
+    path = engine.save("Hi.", str(tmp / "orpheus_generate.wav"),
+                       max_new_tokens=LOAD_ORPHEUS_NEW)
+    back, rate = audio_io.read_wav(path)
+    if rate != engine.sample_rate:
+        raise AssertionError(f"orpheus save: {rate} Hz")
+    samples = engine._decode_snac(parse_frames(frame_tokens(rng, 8)))
+    path = AudioResult(samples=samples, sample_rate=engine.sample_rate).save(
+        str(tmp / "orpheus_frames.wav"))
+    back, rate = audio_io.read_wav(path)
+    err = float(np.abs(back - samples).max())
+    limit = (1 + float(np.abs(samples).max())) / 32768
+    if rate != engine.sample_rate or len(back) != len(samples) or not len(back) or err > limit:
+        raise AssertionError(f"orpheus AudioResult.save: {rate} Hz, {len(back)} of "
+                             f"{len(samples)} samples, |err| {err} > {limit}")
+    log(f"load orpheus: AudioResult.save wrote {len(back)} samples at {rate} Hz, read back "
+        f"within {err:.3e} (limit {limit:.3e}: one int16 step 2^-15 and the scale gap)")
+
+
+def _greedy():
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    return SamplerConfig(temperature=0.0)
+
+
+def _funasr_prompt(engine, clip):
+    """(pre ids, post ids, features) of a Fun-ASR transcribe of `clip`."""
+    from tpu_audio_torch.api.stt_funasr import build_prompt_text
+    from tpu_audio_torch.ops import frontends
+
+    feats = frontends.funasr_features(torch.as_tensor(clip, device=engine.generator.device))
+    pre, post = build_prompt_text()
+    return engine.tokenizer.encode(pre), engine.tokenizer.encode(post), feats
 
 
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
@@ -3771,6 +4392,12 @@ def main() -> None:
         rows, n_mels = [], PRESETS["large-v3-turbo"].n_mels
         check_mel(n_mels, dev, randn_on(dev), rows, card)
         print_result(rows, mel_slice(clips, n_mels, dev, card))
+        return
+    if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
+        t_phase = time.perf_counter()
+        launches = load_slice(dev, card)
+        log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
+        print_result([], launches)
         return
     if "--funasr-only" in sys.argv[1:]:  # phases 1, 2, Fun-ASR's part of 3, and 8
         rows, randn = [], randn_on(dev)
@@ -3923,6 +4550,16 @@ def main() -> None:
     launches.update({name: orph[name] for name in ("w4a8_matmul", "w4a8_matmul_stacked",
                                                    "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")})
     log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f} s")
+    del o_trees
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 11. checkpoints, files
+    t_phase = time.perf_counter()
+    loaded = load_slice(dev, card)
+    # the kernels line keeps the launches of phases 4-10; phase 11's go on
+    # their own line
+    log(f"phase 11 launches: { {n: c for n, c in loaded.items() if c} }")
+    log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
     print_result(rows, launches)
 
 

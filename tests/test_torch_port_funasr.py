@@ -30,6 +30,7 @@ from tpu_audio.nn import transformer as jt
 from tpu_audio.ops import frontends as jfront
 from tpu_audio.ops import quant as jquant
 from tpu_audio_torch.api import stt_funasr as tstt
+from tpu_audio_torch.api.errors import ModelLoadError
 from tpu_audio_torch.api.stt import STT
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.funasr import model as tm
@@ -193,11 +194,14 @@ def test_engine_defaults_fit_the_default_request(jparams):
     assert set(eng.warmup()) == {"short"}
 
 
-def test_checkpoints_and_tokenizer_files_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+def test_checkpoints_and_tokenizer_files_raise(tmp_path, monkeypatch):
+    """No checkpoint in an empty cache: ModelLoadError naming the repo; a
+    tokenizer.json the reader cannot take: ValueError; no file: the stand-in."""
+    monkeypatch.setenv("TPU_AUDIO_CACHE", str(tmp_path / "empty"))
+    with pytest.raises(ModelLoadError, match="Fun-ASR-Nano-4bit"):
         STT.funasr().load()
     (tmp_path / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="tokenizer.json"):
         load_tokenizer(str(tmp_path))
     assert load_tokenizer(None).encode("<|im_end|>") == list(b"<|im_end|>")
 

@@ -33,6 +33,7 @@ from tpu_audio.nn import layers as jlayers
 from tpu_audio.nn import transformer as jt
 from tpu_audio.ops import quant as jquant
 from tpu_audio.ops.sampling import SamplerConfig as JSampler
+from tpu_audio_torch.api.errors import ModelLoadError
 from tpu_audio_torch.api.tts import TTS, StreamingGranularity
 from tpu_audio_torch.codecs.snac import model as tsnac
 from tpu_audio_torch.convert import params_from_numpy
@@ -212,7 +213,7 @@ def test_sampled_stream_equals_generate(jbase):
     assert len(set(ref)) > 2
 
 
-def test_frames_prompts_and_unported_paths():
+def test_frames_prompts_and_unported_paths(tmp_path, monkeypatch):
     rng = np.random.default_rng(5)
     toks = [jm.AUDIO_MARKER] + [int(t) for t in rng.integers(jm.CODE_OFFSET, jm.CODE_OFFSET
                                                              + 7 * jm.CODEBOOK_SIZE, 40)]
@@ -231,7 +232,8 @@ def test_frames_prompts_and_unported_paths():
         tm.CausalLMGenerator(params, cfg).generate_speculative(PROMPT)
     with pytest.raises(NotImplementedError, match="A9"):
         tm.DraftModel(params, cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
+    monkeypatch.setenv("TPU_AUDIO_CACHE", str(tmp_path / "empty"))
+    with pytest.raises(ModelLoadError, match="orpheus-3b-0.1-ft-4bit"):
         TTS.orpheus().load()
     with pytest.raises(NotImplementedError, match="A9"):
         TTS.orpheus(mesh=object())

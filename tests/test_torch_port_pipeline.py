@@ -26,6 +26,7 @@ from tpu_audio.models.whisper.config import WhisperConfig as JWhisperConfig
 from tpu_audio.models.whisper.tokenizer import BPE as JBPE
 from tpu_audio.models.whisper.tokenizer import WhisperTokenizer as JWhisperTokenizer
 from tpu_audio_torch.api.results import TranscriptionResult
+from tpu_audio_torch.api.errors import ModelLoadError
 from tpu_audio_torch.api.stt import STT, WhisperEngine
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.whisper import decoding as tdecoding
@@ -166,17 +167,18 @@ def test_transcribe_matches(window_trees, jax_kernels):  # noqa: F811
         assert g.avg_logprob == pytest.approx(r.avg_logprob, abs=1e-4)
 
 
-def test_stt_engine_routes_to_the_pipeline(window_trees):
+def test_stt_engine_routes_to_the_pipeline(window_trees, tmp_path, monkeypatch):
     _, _, model = window_trees
     ttok, _ = tokenizers()
     pipe = tpipeline.WhisperPipeline(model, ttok, kv_int8=True)
     audio = np.zeros(16000 * 2, np.float32)
 
+    monkeypatch.setenv("TPU_AUDIO_CACHE", str(tmp_path / "empty"))
     engine = STT.whisper("large-v3-turbo", "w8a8")
     assert isinstance(engine, WhisperEngine) and not engine.is_loaded
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ModelLoadError, match="whisper-large-v3-turbo-8bit"):
         engine.load()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ModelLoadError):
         engine.transcribe(audio)
 
     engine = WhisperEngine.from_pipeline(pipe)
@@ -196,8 +198,8 @@ def test_stt_engine_routes_to_the_pipeline(window_trees):
     kept = engine.transcribe(audio, word_timestamps=True, hallucination_silence_threshold=2.0,
                              **kw)
     assert {s.id for s in kept.segments} <= {s.id for s in timed.segments}
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        engine.transcribe("clip.wav")
+    with pytest.raises(FileNotFoundError):
+        engine.transcribe(str(tmp_path / "clip.wav"))
 
 
 def test_decode_steps_do_not_wait_for_the_device(trees, mel, monkeypatch):

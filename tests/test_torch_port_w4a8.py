@@ -32,6 +32,7 @@ from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
 from tpu_audio_torch.tools import w4a8_order, w4a8_split
+from tpu_audio_torch.utils import pytree
 
 ENTRIES = ("w4a8_matmul", "w4a8_matmul_stacked", "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")
 
@@ -155,7 +156,7 @@ def test_tree_repacks_and_fusions_match(rng):
         assert set(tr["layers"]["attn"]) == {"qkv", "o"}
         jflat = {"/".join(str(p.key) for p in path): np.asarray(v)
                  for path, v in jax.tree_util.tree_flatten_with_path(jr)[0]}
-        tflat = tquant._flatten(tr)
+        tflat = pytree.flatten(tr)
         assert set(jflat) == {k.replace(".", "/") for k in tflat}
         for k, v in tflat.items():
             np.testing.assert_array_equal(v.numpy(), jflat[k.replace(".", "/")])

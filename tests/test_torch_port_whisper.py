@@ -194,13 +194,17 @@ def test_tokenizer_matches_jax():
 
 
 def test_re_fallback_pattern_splits_like_regex():
-    import re
-
+    """The pattern the tokenizer compiles without `regex` (`_unicode`'s
+    translation of GPT2_PAT for `re`) splits as `regex` does, also on the
+    numerals of categories No and Nl and on U+001C..U+001F (ROADMAP C10)."""
     import regex
 
-    texts = ["Hello, world! It's 2024 -- don't_stop\n  ♪", "a_b  c\t\td  ", "x1y2 (z)"]
+    from tpu_audio_torch.utils import _unicode
+
+    texts = ["Hello, world! It's 2024 -- don't_stop\n  ♪", "a_b  c\t\td  ", "x1y2 (z)",
+             "x² 3½", "Ⅻa", "a\x1c\x1d b\xa0c"]
     for text in texts:
-        assert (re.compile(ttokenizer.GPT2_PAT_RE).findall(text)
+        assert (_unicode.compile(ttokenizer.GPT2_PAT).findall(text)
                 == regex.compile(ttokenizer.GPT2_PAT).findall(text)), text
 
 

@@ -21,5 +21,10 @@ tree and the whole B=1 decoder step; Fun-ASR-Nano through
 with bf16, group-affine q4 and int8 LLM weights; and Orpheus TTS through
 `api/tts.py` (`models/orpheus/`: `CausalLMGenerator` on a Llama-3.2-3B
 stack, the SNAC codec in `codecs/snac/`) on the bf16, int8 and W4A8
-(pair-packed and super-group int4) trees.
+(pair-packed and super-group int4) trees. Each engine's `load()` reads its
+checkpoint from a local directory or a pre-seeded Hugging Face cache
+(`utils/hub.py`): the safetensors reader and key remaps (`utils/weights.py`,
+`models/*/load.py`, `nn/load_llama.py`), the Whisper and `tokenizer.json`
+BPEs in plain Python (`utils/tokenizer.py`), and WAV files in and out
+(`utils/audio_io.py`, `ops/resample.py`).
 """

@@ -86,5 +86,7 @@ class AudioResult:
         return self.processing_time / self.duration if self.duration > 0 else float("inf")
 
     def save(self, path: str, dtype: str = "int16") -> str:
-        raise NotImplementedError("writing audio files (utils/audio_io) is not ported yet "
-                                  "(ROADMAP A7)")
+        from tpu_audio_torch.utils.audio_io import write_wav
+
+        write_wav(path, self.samples, self.sample_rate, dtype=dtype)
+        return path

@@ -6,10 +6,12 @@ STT.fun_asr as `STT.funasr`).
 detect_language / transcribe_batch / warmup / stop / unload / cleanup and
 the is_transcribing / transcription_time state; `STT.funasr(...)` the
 Fun-ASR engine (`api/stt_funasr.py`: transcribe / translate /
-transcribe_streaming). Loading checkpoints (`load()`: the model matrix,
-the safetensors remap, tokenizer.json) and audio files are not ported yet
-(ROADMAP A7, A10): build an engine with `WhisperEngine.from_pipeline` or
-`FunASREngine.from_params` and pass sample arrays.
+transcribe_streaming). `load()` reads the checkpoint of `repo` (a local
+directory, or a repo id whose snapshot sits in the pre-seeded cache,
+`utils/hub.py`) onto `device`, the card unless the caller asks for the
+CPU: bf16 weights on the card, f32 on the CPU. `WhisperEngine.from_pipeline`
+and `FunASREngine.from_params` wrap trees already built. Audio is a float
+array at 16 kHz or a WAV file's path (`utils/audio_io.load_audio`).
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from tpu_audio_torch.api.results import TranscriptionResult
+from tpu_audio_torch.convert import serving_dtype
 
 _log = logging.getLogger("tpu_audio_torch.stt")
 
@@ -30,7 +34,8 @@ class STTEngineBase:
 
     sample_rate: int = 16000
 
-    def __init__(self):
+    def __init__(self, device: torch.device | str = "cuda"):
+        self.device = device
         self.is_loaded = False
         self.is_transcribing = False
         self.transcription_time: float = 0.0
@@ -65,11 +70,13 @@ class STTEngineBase:
         return timings
 
     def _resolve_audio(self, audio) -> np.ndarray:
-        """A float array at self.sample_rate; file paths are not ported."""
+        """A file path (read, mixed to mono, resampled to self.sample_rate)
+        or a float array at self.sample_rate."""
         if isinstance(audio, str):
-            raise NotImplementedError(
-                "reading audio files (utils/audio_io) is not ported yet "
-                "(ROADMAP A7): pass the samples as an array")
+            from tpu_audio_torch.utils.audio_io import load_audio
+
+            samples, _ = load_audio(audio, target_rate=self.sample_rate)
+            return samples
         return np.asarray(audio, np.float32)
 
 
@@ -77,8 +84,8 @@ class WhisperEngine(STTEngineBase):
     """Whisper STT engine over a `models.whisper.pipeline.WhisperPipeline`."""
 
     def __init__(self, model: str = "tiny", quantization: str = "fp16",
-                 repo: str | None = None):
-        super().__init__()
+                 repo: str | None = None, device: torch.device | str = "cuda"):
+        super().__init__(device)
         self.model_name = model
         self.quantization = quantization
         self.repo = repo
@@ -87,14 +94,22 @@ class WhisperEngine(STTEngineBase):
     def load(self, progress_handler=None) -> None:
         if self.is_loaded:
             return
-        raise NotImplementedError(
-            "loading Whisper checkpoints (models/whisper/load.py) is not ported "
-            "yet (ROADMAP A7): use WhisperEngine.from_pipeline")
+        from tpu_audio_torch.models.whisper import load as wload
+        from tpu_audio_torch.models.whisper.model import Whisper
+        from tpu_audio_torch.models.whisper.pipeline import WhisperPipeline
+
+        dtype = serving_dtype(self.device)
+        params, cfg, tok = wload.load(self.model_name, self.quantization, repo=self.repo,
+                                      dtype=dtype, device=self.device)
+        # the w8a8 serving format also keeps the cross-K/V state in int8
+        self.pipeline = WhisperPipeline(Whisper(cfg, params), tok, compute_dtype=dtype,
+                                        kv_int8=self.quantization == "w8a8")
+        self.is_loaded = True
 
     @classmethod
     def from_pipeline(cls, pipeline) -> "WhisperEngine":
         """An engine around an existing pipeline (random weights, tests)."""
-        eng = cls()
+        eng = cls(device=pipeline.model.device)
         eng.pipeline = pipeline
         eng.is_loaded = True
         return eng
@@ -157,11 +172,12 @@ class STT:
 
     @staticmethod
     def whisper(model: str = "tiny", quantization: str = "fp16",
-                repo: str | None = None) -> WhisperEngine:
-        return WhisperEngine(model, quantization, repo)
+                repo: str | None = None, device: torch.device | str = "cuda") -> WhisperEngine:
+        return WhisperEngine(model, quantization, repo, device)
 
     @staticmethod
-    def funasr(model_type: str = "nano", quantization: str = "q4"):
+    def funasr(model_type: str = "nano", quantization: str = "q4",
+               device: torch.device | str = "cuda"):
         from tpu_audio_torch.api.stt_funasr import FunASREngine
 
-        return FunASREngine(model_type, quantization)
+        return FunASREngine(model_type, quantization, device)

@@ -7,9 +7,9 @@ Qwen3 chat prompt with the audio embedding spliced between
 <|startofspeech|><|endofspeech|>, a decode loop yielding token ids, output
 cleaning (FunASRTokenizer.swift:130-229).
 
-Loading checkpoints (`load`: safetensors and `tokenizer.json`) is not
-ported yet (ROADMAP A10): build an engine on a parameter tree with
-`FunASREngine.from_params`.
+`load()` reads the checkpoint (`models/funasr/load.py`: safetensors and
+its `tokenizer.json`) from a local directory or the pre-seeded cache;
+`FunASREngine.from_params` builds an engine on a parameter tree.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from tpu_audio_torch.api.results import TranscriptionResult, TranscriptionSegment
 from tpu_audio_torch.api.stt import STTEngineBase
+from tpu_audio_torch.convert import serving_dtype
 from tpu_audio_torch.models.funasr import model as fmodel
 from tpu_audio_torch.ops import frontends
 from tpu_audio_torch.ops.sampling import SamplerConfig
@@ -75,8 +76,9 @@ def clean_output(text: str) -> str:
 class FunASREngine(STTEngineBase):
     sample_rate = 16000
 
-    def __init__(self, model_type: str = "nano", quantization: str = "q4"):
-        super().__init__()
+    def __init__(self, model_type: str = "nano", quantization: str = "q4",
+                 device: torch.device | str = "cuda"):
+        super().__init__(device)
         self.model_type = model_type
         self.quantization = quantization
         self.generator: fmodel.FunASRGenerator | None = None
@@ -87,10 +89,15 @@ class FunASREngine(STTEngineBase):
     def load(self, progress_handler=None) -> None:
         if self.is_loaded:
             return
-        raise NotImplementedError(
-            f"loading the {REPOS.get(self.model_type, self.model_type)} checkpoint "
-            "(models/funasr/load.py) is not ported yet (ROADMAP A10): use "
-            "FunASREngine.from_params")
+        from tpu_audio_torch.models.funasr import load as fload
+
+        params, self.cfg, self.tokenizer = fload.load(
+            REPOS.get(self.model_type, self.model_type), serving_dtype(self.device),
+            self.device)
+        # the decoder cache sized for each request, as from_params's default
+        self.generator = fmodel.FunASRGenerator(params, self.cfg, max_cache=None)
+        self._resolve_eos()
+        self.is_loaded = True
 
     @classmethod
     def from_params(cls, params, cfg, tokenizer=None,
@@ -102,6 +109,7 @@ class FunASREngine(STTEngineBase):
         eng = cls()
         eng.cfg = cfg
         eng.generator = fmodel.FunASRGenerator(params, cfg, max_cache=max_cache)
+        eng.device = eng.generator.device
         eng.tokenizer = tokenizer or load_tokenizer(None)
         eng._resolve_eos()
         eng.is_loaded = True

@@ -168,10 +168,14 @@ class TTS:
     """Factory namespace."""
 
     @staticmethod
-    def orpheus(voice: str = "tara", mesh=None):
+    def orpheus(voice: str = "tara", mesh=None, quantization: str = "w8a8",
+                device="cuda"):
+        """quantization: how `load()` serves the 4-bit checkpoint ("w8a8",
+        "w4a8" or "q4", `OrpheusEngine`); device: the card unless the
+        caller asks for the CPU."""
         from tpu_audio_torch.models.orpheus.engine import OrpheusEngine
 
-        return OrpheusEngine(voice=voice, mesh=mesh)
+        return OrpheusEngine(voice=voice, mesh=mesh, quantization=quantization, device=device)
 
     @staticmethod
     def kokoro(voice: str = "af_heart"):

@@ -1,8 +1,9 @@
 """Parameter conversion from the JAX package's param trees.
 
 `params_from_numpy` turns a tpu_audio param pytree (nested dicts whose
-leaves are numpy arrays, or anything `np.asarray` accepts) into the port's
-tree of torch tensors with the same keys. Stacked (L, …) layer leaves keep
+leaves are numpy arrays, or anything `np.asarray` accepts, or torch
+tensors in the JAX layout) into the port's tree of torch tensors with the
+same keys. Stacked (L, …) layer leaves keep
 their layout. Conv weights go from JAX's (kernel, in, out) to torch's
 (out, in, kernel). Both packages then compute the same function from the
 same weights.
@@ -33,6 +34,12 @@ WN_KEYS = ("weight_v", "weight_g")  # weight-normalised conv kernels, under any 
 
 
 def _leaf(a, perm, device, dtype) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a tensor already (on any device)
+        t = a.permute(*perm) if perm is not None and a.dim() == 3 else a
+        t = t.contiguous()
+        if t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
     a = np.asarray(a)
     if a.dtype == np.uint32:  # packed q4/q8 words: the same bits as int32
         a = np.ascontiguousarray(a).view(np.int32)
@@ -44,6 +51,12 @@ def _leaf(a, perm, device, dtype) -> torch.Tensor:
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def serving_dtype(device: torch.device | str) -> torch.dtype:
+    """The dtype a loaded engine serves its weights in: bf16 on the card,
+    f32 (the JAX package's) on the CPU."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
 def tree_device(tree: dict) -> torch.device:

@@ -10,12 +10,13 @@ SNAC_CTX_FRAMES of left context and SNAC_HOLD_FRAMES held back (both past
 the decoder's receptive field) and the position-keyed noise, the
 concatenated stream equals the one-shot decode of the same tokens.
 
-The LM tree is the caller's: the JAX engine's `load` requantises the q4
-checkpoint to per-channel int8 ("w8a8", the default: the whole-stack step
-kernel), repacks it to W4A8 ("w4a8": the W4A8 kernels, layer by layer) or
-keeps it ("q4"); `from_params` takes a tree built so (`ops/quant`).
-`load()` from a checkpoint is ROADMAP A7; `mesh=` and `speculative=` are
-A9; they raise.
+`load()` reads the q4 checkpoint (`models/orpheus/load.py`: the LM, SNAC
+and the tokenizer, from local directories or the pre-seeded cache) onto
+`device`, the card unless the caller asks for the CPU, and requantises the
+LM to per-channel int8 ("w8a8", the default: the whole-stack step kernel),
+repacks it to W4A8 ("w4a8": the W4A8 kernels, layer by layer) or keeps it
+("q4"); `from_params` takes a tree built so (`ops/quant`). The LM cache is
+sized for each request. `mesh=` and `speculative=` are A9; they raise.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from tpu_audio_torch.api.results import AudioResult
 from tpu_audio_torch.api.tts import AudioChunk, StreamingGranularity, TTSEngineBase
 from tpu_audio_torch.codecs.snac import model as snac
-from tpu_audio_torch.convert import tree_device
+from tpu_audio_torch.convert import serving_dtype, tree_device
 from tpu_audio_torch.models.orpheus import model as omodel
 from tpu_audio_torch.models.orpheus.model import (CausalLMGenerator, build_prompt_ids,
                                                   parse_frames)
@@ -57,7 +58,8 @@ class OrpheusEngine(TTSEngineBase):
     STREAM_SPAN = 28  # LM tokens per span (4 frames)
 
     def __init__(self, voice: str = "tara", temperature: float = 0.6, top_p: float = 0.8,
-                 quantization: str = "w8a8", mesh=None, speculative=None, gamma: int = 8):
+                 quantization: str = "w8a8", mesh=None, speculative=None, gamma: int = 8,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         if mesh is not None or speculative is not None:
             raise NotImplementedError("tensor-parallel and speculative serving are not ported "
@@ -69,6 +71,7 @@ class OrpheusEngine(TTSEngineBase):
         self.top_p = top_p
         self.quantization = quantization
         self.gamma = gamma
+        self.device = device
         self.lm: CausalLMGenerator | None = None
         self.snac_params = None
         self.snac_cfg = snac.SNACConfig()
@@ -77,8 +80,20 @@ class OrpheusEngine(TTSEngineBase):
     def load(self, progress_handler=None) -> None:
         if self.is_loaded:
             return
-        raise NotImplementedError(f"loading {LLM_REPO} and {SNAC_REPO} is not ported yet "
-                                  "(ROADMAP A7); build the engine with from_params")
+        from tpu_audio_torch.models.orpheus import load as oload
+        from tpu_audio_torch.ops import quant
+
+        lm_params, cfg, tok, snac_params, snac_cfg = oload.load(
+            LLM_REPO, SNAC_REPO, serving_dtype(self.device), self.device)
+        if self.quantization == "w8a8":
+            lm_params = quant.requantize_tree_int8(lm_params)
+        elif self.quantization == "w4a8":
+            lm_params = quant.repack_tree_w4a8(lm_params)
+        self.lm = CausalLMGenerator(lm_params, cfg, max_cache=None, pad_id=omodel.PAD_TOKEN)
+        self.tokenizer = tok
+        self.snac_params = snac_params
+        self.snac_cfg = snac_cfg
+        self.is_loaded = True
 
     @classmethod
     def from_params(cls, lm_params, cfg, snac_params, snac_cfg=None,

@@ -86,8 +86,12 @@ def init_params(seed: int, cfg: WhisperConfig, dtype: torch.dtype = torch.float3
     initialisation ranges of the JAX `init_params`, converted by
     `params_from_numpy` (so conv weights come out as (O, I, K)), on the card
     unless `device` says otherwise."""
-    rng = np.random.default_rng(seed)
+    return params_from_numpy(numpy_params(np.random.default_rng(seed), cfg), device, dtype)
 
+
+def numpy_params(rng: np.random.Generator, cfg: WhisperConfig) -> dict:
+    """The tree of `init_params` in the JAX layout (conv kernels (K, I, O))
+    as f32 numpy arrays drawn from `rng`."""
     def uniform(shape, fan_in):
         scale = np.float32(1.0 / math.sqrt(fan_in))
         return (rng.random(shape, dtype=np.float32) * 2 - 1) * scale
@@ -120,7 +124,7 @@ def init_params(seed: int, cfg: WhisperConfig, dtype: torch.dtype = torch.float3
                 "bias": uniform((c_out,), 3 * c_in)}
 
     da, dt = cfg.n_audio_state, cfg.n_text_state
-    tree = {
+    return {
         "encoder": {"conv1": conv(cfg.n_mels, da), "conv2": conv(da, da),
                     "blocks": blocks(cfg.n_audio_layer, da, False),
                     "ln_post": norm((da,))},
@@ -132,7 +136,6 @@ def init_params(seed: int, cfg: WhisperConfig, dtype: torch.dtype = torch.float3
             "blocks": blocks(cfg.n_text_layer, dt, True),
             "ln": norm((dt,))},
     }
-    return params_from_numpy(tree, device, dtype)
 
 
 class ParamTree(nn.Module):

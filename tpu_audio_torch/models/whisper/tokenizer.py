@@ -9,9 +9,9 @@ from the base vocab size and the language count
   eot, sot, <languages×N>, translate, transcribe, sotLm, sotPrev,
   noSpeech, noTimestamps, timestamps <|0.00|>..
 
-Pre-tokenisation uses the `regex` module when it can be imported, and
-otherwise `re` with `[^\\W\\d_]` standing in for \\p{L} and `\\d` for
-\\p{N}. The merge is pure Python.
+Pre-tokenisation uses `re` with the pattern's \\p{L}, \\p{N} and \\s
+spelled out as code-point classes (`utils/_unicode.py`), which split every
+assigned code point as `regex` does. The merge is pure Python.
 """
 
 from __future__ import annotations
@@ -20,20 +20,11 @@ import base64
 import functools
 import os
 
+from tpu_audio_torch.utils import _unicode
+
 GPT2_PAT = (r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"""
             r"""| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
-# the same pattern for the standard `re` module, which lacks \p{..}
-GPT2_PAT_RE = (r"""'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+"""
-               r"""| ?(?:[^\s\w]|_)+|\s+(?!\S)|\s+""")
 
-try:
-    import regex as _re
-
-    _PAT = GPT2_PAT
-except ImportError:
-    import re as _re
-
-    _PAT = GPT2_PAT_RE
 
 # Whisper language registry, in token-id order (token id = sot + 1 + index).
 # 100 entries; models with num_languages == 99 exclude the final "yue".
@@ -56,7 +47,7 @@ class BPE:
     def __init__(self, ranks: dict[bytes, int]):
         self.ranks = ranks
         self.id_to_bytes = {v: k for k, v in ranks.items()}
-        self.pat = _re.compile(_PAT)
+        self.pat = _unicode.compile(GPT2_PAT)
 
     @staticmethod
     def from_tiktoken_file(path: str) -> "BPE":
@@ -135,17 +126,23 @@ class WhisperTokenizer:
             self._special_names[tid] = f"<|{lang}|>"
 
     @staticmethod
-    def load(model_dir: str, multilingual: bool = True,
+    def load(model_dir: str | None = None, multilingual: bool = True,
              num_languages: int = 99) -> "WhisperTokenizer":
-        """Read `multilingual.tiktoken` (or `gpt2.tiktoken`) from model_dir."""
+        """Read `multilingual.tiktoken` (or `gpt2.tiktoken`) from model_dir,
+        else from ~/.cache/tpu_audio/whisper/."""
         name = "multilingual.tiktoken" if multilingual else "gpt2.tiktoken"
-        path = os.path.join(model_dir, name)
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"{name} not found in {model_dir}; place the OpenAI Whisper "
-                "vocabulary file in the model directory")
-        return WhisperTokenizer(BPE.from_tiktoken_file(path), multilingual,
-                                num_languages)
+        candidates = []
+        if model_dir:
+            candidates.append(os.path.join(model_dir, name))
+        candidates.append(os.path.join(os.path.expanduser("~"), ".cache", "tpu_audio",
+                                       "whisper", name))
+        for path in candidates:
+            if os.path.exists(path):
+                return WhisperTokenizer(BPE.from_tiktoken_file(path), multilingual,
+                                        num_languages)
+        raise FileNotFoundError(
+            f"{name} not found in {candidates}; place the OpenAI Whisper "
+            "vocabulary file in the model directory")
 
     # -------------------------------------------------------------- encode/decode
 

@@ -52,6 +52,7 @@ import torch
 from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 from tpu_audio_torch.ops.kernels import quant_matmul as qmm
 from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+from tpu_audio_torch.utils import pytree
 
 _I8_SKIP = re.compile(r"(ln\w*|norm|conv\w*|pos_embed)\.weight$")
 
@@ -127,7 +128,7 @@ def quantize_tree(tree: dict, bits: int = 4, group: int = 64, predicate=None) ->
     tree to the group-affine format (norms, convs and positional tables
     stay fp); predicate(path, tensor) can veto a leaf."""
     out = {}
-    for k, v in _flatten(tree).items():
+    for k, v in pytree.flatten(tree).items():
         if (k.endswith(".weight") and v.dim() in (2, 3) and v.shape[-1] % group == 0
                 and not _I8_SKIP.search(k)
                 and (predicate is None or predicate(k, v))):
@@ -136,7 +137,7 @@ def quantize_tree(tree: dict, bits: int = 4, group: int = 64, predicate=None) ->
                 out[f"{prefix}.{qk}"] = qv
         else:
             out[k] = v
-    return _unflatten(out)
+    return pytree.unflatten(out)
 
 
 # ------------------------------------------------------------ int8 (W8A8)
@@ -150,34 +151,13 @@ def quantize_array_int8(w: torch.Tensor) -> dict:
     return {"weight_i8": q, "scale_i8": s}
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
-
-
-def _unflatten(flat: dict) -> dict:
-    tree: dict = {}
-    for path, v in flat.items():
-        node = tree
-        *heads, last = path.split(".")
-        for k in heads:
-            node = node.setdefault(k, {})
-        node[last] = v
-    return tree
-
-
 def quantize_tree_int8(tree: dict, predicate=None) -> dict:
     """Quantise the matmul weights of a param tree (stacked (L, O, I)
     leaves and embedding tables included) to per-channel int8; norms,
     convs and positional tables stay fp. predicate(path, tensor) can veto
     a leaf; paths are dotted keys relative to `tree`."""
     out = {}
-    for k, v in _flatten(tree).items():
+    for k, v in pytree.flatten(tree).items():
         if (k.endswith(".weight") and v.dim() in (2, 3)
                 and v.shape[-1] % 128 == 0 and v.shape[-2] >= 64
                 and not _I8_SKIP.search(k)
@@ -187,7 +167,7 @@ def quantize_tree_int8(tree: dict, predicate=None) -> dict:
                 out[f"{prefix}.{qk}"] = qv
         else:
             out[k] = v
-    return _unflatten(out)
+    return pytree.unflatten(out)
 
 
 def requantize_int8(p: dict) -> dict:
