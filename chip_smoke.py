@@ -101,6 +101,42 @@ Phases (any failure raises and the script exits non-zero):
      on the golden texts of tests/data/tokenizer_golden/. Each run asserts
      its kernels' launches; the bytes written and each engine's write and
      load walls are printed beside the card line.
+ 12. (run last) OuteTTS at full width (the Llama-3.2-1B of
+     `benchmarks/engines.py`, vocab 134,400, and the published DAC) on
+     random weights through `TTS.oute()` → `OuteTTSEngine.from_params`,
+     unconditioned: on the w8a8 tree (the q4 tree requantised: the
+     whole-stack step at hd 64 and the int8 head) and the bf16 tree,
+     `generate_streaming` of two sentences and `generate_batch` of 4 texts
+     at 196 new tokens, with one whole-stack step launch a decode step at
+     B=1 and the head's `int8_matmul` a step asserted, and ms a token of the
+     LM alone; the LM's kernel route at f32 activations (the prefill and 8
+     steps, each fed the f32 path's token) against the per-op path in f32
+     through the logits, at B=1 on both trees and at B=4 on w8a8, the
+     plain versions of the route as the yardstick, planted faults in the
+     step (pad slots attended, RoPE backwards) and in `int8_matmul` (the
+     last 64 input features dropped) refused; DAC: 150 frames (2 s)
+     through `_decode_dac` and an `encode`
+     of 2 s of noise timed by CUDA events, the card's decode against the
+     host's f32 one (rel 1e-4), `extract_codes` → `_decode_dac` on a
+     string of known c1/c2 runs, the published layout written and read back
+     by `load_dir`, and a `convert_dac` that leaves the Snake alphas
+     (1, C, 1) refused.
+ 13. (run last) Marvis at full width (`MarvisConfig()`: the 250M backbone,
+     hd 64, and the depth decoder, hd 128, 32 codebooks of 2048;
+     `MimiConfig()`) through `TTS.marvis("max")` →
+     `MarvisEngine.from_params(max_frames=25)` on the bf16 and w8a8 trees:
+     FRAME streaming of one sentence, ms a frame against the 80 ms of
+     12.5 Hz and the first chunk's latency, the whole-stack step's launches
+     asserted (32 a frame for the depth decoder, 1 a frame for the backbone
+     after the prefill); on each tree the prefill and one frame on the
+     kernel route at f32 activations against the per-op path in f32
+     through the logits of all 64 draws (each forced to the f32 path's
+     code), the plain versions of the route as the yardstick, two planted
+     faults in the step refused and, on w8a8, one in the prefill's
+     `int8_matmul`;
+     the streaming Mimi decoder against the whole decode (rel 1e-4).
+     Phases 12 and 13 print their walls and their launches on lines of
+     their own.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
 seven planted faults (a partial last row tile among them), `attn_oproj_ln`
@@ -155,6 +191,8 @@ float64, a misaligned signal refused, four planted faults, a chunk and a
 `csrc/fused_mel.cu`.
 `python3 chip_smoke.py --load-only` runs phases 1, 2 and 11: a short check
 of the checkpoint, tokenizer and audio-file layer on the card (~30 s).
+`python3 chip_smoke.py --tts-only` runs phases 1, 2, 12 and 13: a short
+check of the OuteTTS and Marvis engines, DAC and Mimi.
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -227,6 +265,22 @@ SG_3B = dict(dim=3072, n_layers=28, n_heads=24, n_kv_heads=8, hidden_dim=8192,
 ORPHEUS_TEXTS = ["Hello from the card!", "A sentence to say.", "Twenty tokens a second?",
                  "Let us hear the voice.", "One, two, three.", "The weights are random.",
                  "Speak softly now.", "Last one of eight."]
+# phase 12: OuteTTS's Llama-3.2-1B (benchmarks/engines.py build_outetts: an
+# untied head, vocab 134,400, llama3 RoPE) and the published DAC
+OUTE_LLM = dict(dim=2048, n_layers=16, n_heads=32, n_kv_heads=8, hidden_dim=8192,
+                vocab_size=134400, rope_theta=500000.0,
+                rope_scaling={"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                              "high_freq_factor": 4.0, "original_max_position_embeddings": 8192})
+OUTE_MAX_NEW = 196           # phase 12's new tokens per generate
+OUTE_STREAM_TEXT = ("This first sentence is long enough to stand on its own. "
+                    "And a second one, to make two.")
+OUTE_TEXTS = ORPHEUS_TEXTS[:4]
+OUTE_HELD_STEPS = 8          # phase 12's steps held against f32, each fed the f32 path's token
+DAC_FRAMES = 150             # 2 s at 75 frames a second
+DAC_REL = 1e-4               # the card's f32 DAC decode against the host's
+MARVIS_MAX_FRAMES = 25       # phase 13's frames a sentence: 2 s at 12.5 Hz
+MARVIS_TEXT = "Hello from the card."  # "[0]" + 20 bytes: one prompt bucket of 32 rows
+MIMI_REL = 1e-4              # the streaming Mimi decode against the whole one, on the card
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -324,14 +378,20 @@ def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: 
     f32 plain path's `exact` (max|Δ|/max|ref|) as the plain bf16 path is
     (`p_err`), with cosine > 0.999, or, given the plain bf16 path's cosines
     `p_cos` (a stack whose plain path itself is under 0.999), with 1 −
-    cosine at most SLICE_RATIO times the plain path's. A control (`out`
-    from a planted fault) must land outside on at least one output."""
-    readings = [(measure(k, r)[1] / pe, measure(k, r)[2]) for k, r, pe in zip(out, exact, p_err)]
+    cosine at most SLICE_RATIO times the plain path's. Where the plain path
+    equals `exact` (p_err 0: no rounding of its own on that output), the
+    output must equal it too. A control (`out` from a planted fault) must
+    land outside on at least one output."""
+    readings = []
+    for k, r, pe in zip(out, exact, p_err):
+        _, e, c = measure(k, r)
+        readings.append((e / pe if pe else (0.0 if e == 0 else math.inf), c))
     text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
                      for name, (q, c) in zip(outputs, readings))
     floors = [0.999] * len(readings) if p_cos is None else [1 - SLICE_RATIO * (1 - c)
                                                             for c in p_cos]
-    inside = all(q <= SLICE_RATIO and c > f for (q, c), f in zip(readings, floors))
+    inside = all((q == 0.0) if pe == 0 else (q <= SLICE_RATIO and c > f)
+                 for (q, c), f, pe in zip(readings, floors, p_err))
     if inside == control:
         raise AssertionError(f"{tag} {label}: {text}: "
                              + ("the check cannot see it" if control else
@@ -3834,6 +3894,61 @@ def snac_torch_flat(tree: dict) -> dict:
     return out
 
 
+def dac_torch_flat(tree: dict) -> dict:
+    """A port DAC tree → the flat dict that `convert_dac` reads: torch DAC's
+    names (encoder.block.N…, decoder.model.N…, quantizer.quantizers.N…) and
+    layouts: conv kernels (O, I, K), transposed ones (I, O, K), Snake alphas
+    (1, C, 1)."""
+    from tpu_audio_torch.utils import pytree
+
+    res = {"snake1": 0, "conv1": 1, "snake2": 2, "conv2": 3}
+    enc_blk = {"snake": 3, "conv": 4}
+    dec_blk = {"snake": 0, "convT": 1}
+    out = {}
+    for k, v in pytree.flatten(tree).items():
+        if k.endswith(".alpha"):
+            v = v.permute(0, 2, 1)
+        side, name, rest = k.split(".", 2)
+        if side == "quantizer":
+            out[f"quantizer.quantizers.{name}.{rest}"] = v
+            continue
+        seq = "block" if side == "encoder" else "model"
+        top = {"conv_in": 0, "snake_out": 5, "conv_out": 6}
+        if name in top:
+            out[f"{side}.{seq}.{top[name]}.{rest}"] = v
+            continue
+        b, part, tail = rest.split(".", 2)  # blocks.<b>.<part>.<tail>
+        if part == "residuals":
+            j, unit, leaf = tail.split(".", 2)
+            inner = f"block.{int(j) + (0 if side == 'encoder' else 2)}.block.{res[unit]}.{leaf}"
+        else:
+            inner = f"block.{(enc_blk if side == 'encoder' else dec_blk)[part]}.{tail}"
+        out[f"{side}.{seq}.{int(b) + 1}.{inner}"] = v
+    return out
+
+
+def mimi_torch_flat(tree: dict) -> dict:
+    """A port Mimi tree → the flat dict that `convert_mimi` reads: each conv
+    under its `.conv.conv.` (transposed: `.convtr.convtr.`) wrapper,
+    encoder.model.N / decoder.model.N, the kernels in torch's layouts (the
+    port's own: (O, I, K), (I, O, K), the upsampler (C, 1, K))."""
+    from tpu_audio_torch.codecs.mimi.model import conv_layout
+    from tpu_audio_torch.utils import pytree
+
+    flat = pytree.flatten(tree)
+    out = {}
+    for k, v in flat.items():
+        base, leaf = k.rsplit(".", 1)
+        w = flat.get(base + ".weight")
+        if w is not None and w.dim() == 3 and ".input_proj" not in base \
+                and ".output_proj" not in base:
+            wrap = {"conv": ".conv.conv", "transposed": ".convtr.convtr",
+                    "depthwise": ".convtr.convtr"}[conv_layout(base + ".weight")]
+            k = f"{base}{wrap}.{leaf}"
+        out[re.sub(r"^(encoder|decoder)\.layers\.", r"\1.model.", k)] = v
+    return out
+
+
 def seed_cache(root: Path, repo_id: str, files: dict) -> tuple[Path, int]:
     """A Hugging Face cache entry for repo_id under root (refs/main and
     snapshots/<revision>/), files = {name: writer(path) → bytes}; returns
@@ -4263,6 +4378,553 @@ def _funasr_prompt(engine, clip):
     return engine.tokenizer.encode(pre), engine.tokenizer.encode(post), feats
 
 
+# ------------------------------------------------ 12. OuteTTS + DAC, 13. Marvis + Mimi
+
+def counted_run(tag: str, mods, total: dict, label: str, need, fn, absent=()):
+    """fn() with the launch counters of `mods` reset first: (its result, the
+    launches, the wall). Raises if a kernel of `need` never launched or one
+    of `absent` did; adds the launches into `total`."""
+    reset(*mods)
+    out, wall = timed(fn)
+    launches = launch_counts(*mods)
+    log(f"{tag} {label}: {wall:.3f} s wall, launches {launches}")
+    if not all(launches[n] for n in need) or any(launches[n] for n in absent):
+        raise AssertionError(f"{tag} {label}: a kernel of the path never launched, or one of "
+                             f"{absent} did: {launches}")
+    for n in total:
+        total[n] += launches[n]
+    return out, launches, wall
+
+
+def step_counter(gen) -> dict:
+    """Count the decode steps `gen` (a CausalLMGenerator) runs: {"n": …}."""
+    steps = {"n": 0}
+    make = gen._step
+
+    def counted(extra, off):
+        step = make(extra, off)
+
+        def run(tok, cache):
+            steps["n"] += 1
+            return step(tok, cache)
+        return run
+
+    gen._step = counted
+    return steps
+
+
+def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool) -> None:
+    """Phase 12, the OuteTTS LM on the kernel route held against f32 through
+    its logits: the prefill and OUTE_HELD_STEPS steps, each fed the f32
+    path's greedy token. At B=1 (`generate`'s route: the 32-slot prompt
+    bucket left-padded, one whole-stack step launch a token, the head's
+    `int8_matmul` on the int8 tree) and, on the int8 tree, at
+    B=len(prompts) (`generate_batch`'s per-layer route, every linear an
+    `int8_matmul` of 4 rows). The route runs with the stack in its serving
+    dtype and a bf16 cache, every other leaf in f32 (f32 activations); the
+    reference is the per-op path with every leaf in f32, an f32 cache and
+    the plain int8 products; the plain versions of the route are the
+    yardstick (`held_against_f32`). Planted faults must land outside: the
+    prompt's pad slots attended and RoPE turned backwards in the step, and
+    on the int8 tree the last 64 input features dropped in `int8_matmul`
+    (the head's, and at B=4 every linear's)."""
+    from tpu_audio_torch.nn import attention, transformer
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.utils import pytree
+
+    cfg, fused, steps = gen.cfg, gen.params, OUTE_HELD_STEPS
+    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
+                               for k, v in pytree.flatten(fused).items()})
+    tree_k = dict(tree32, layers=fused["layers"])
+
+    def decode(tree, cache, extra, off, tokens, forced):
+        """Prefill `tokens` (B, T), then `steps` steps: the logits (1 + steps, B, V)."""
+        lg, cache = transformer.forward(tree, cfg, tokens, cache, extra, pos_offset=off)
+        out = [lg[:, -1].float()]
+        for i in range(steps):
+            tok = out[-1].argmax(-1) if forced is None else forced[i]
+            lg, cache = transformer.forward(tree, cfg, tok[:, None], cache, extra, pos_offset=off)
+            out.append(lg[:, -1].float())
+        return torch.stack(out)
+
+    prompt, start = gen._prompt(prompts[0], 32)
+    if start == 0:
+        raise AssertionError(f"{tag}: the held prompt fills its bucket; the pad fault is blind")
+
+    def single(tree, route: bool, forced=None):
+        with torch.inference_mode():
+            cache, extra = transformer.decode_cache_and_mask(
+                cfg, prompt.shape[0] + steps + 1, start, route,
+                dtype=torch.bfloat16 if route else torch.float32, device=dev)
+            return decode(tree, cache, extra, torch.tensor([start], device=dev), prompt[None],
+                          forced)
+
+    def batch(tree, route: bool, forced=None):
+        b, pad = len(prompts), pad_b
+        arr = torch.full((b, pad), gen.pad_id, dtype=torch.int64)
+        for r, ids in enumerate(prompts):
+            arr[r, pad - len(ids):] = torch.as_tensor(ids)
+        off = torch.tensor([pad - len(p) for p in prompts], device=dev)
+        slot = torch.arange(pad + steps + 1, device=dev)
+        extra = torch.where(slot[None] >= off[:, None], 0.0,
+                            attention.NEG_INF)[:, None, None, :]
+        with torch.inference_mode():
+            cache = transformer.make_cache(cfg, b, slot.shape[0],
+                                           torch.bfloat16 if route else torch.float32,
+                                           device=dev)
+            return decode(tree, cache, extra, off, arr.to(dev), forced)
+
+    step, head = fs.fused_decode_step, i8mm.int8_matmul
+
+    def pads_attended(stack, x, pos, s0, *a, **kw):
+        return step(stack, x, pos, torch.zeros_like(s0), *a, **kw)
+
+    def rope_backwards(stack, x, pos, s0, cos, sin, *a, **kw):
+        return step(stack, x, pos, s0, cos, -sin, *a, **kw)
+
+    def k_tail_dropped(x, w, sc, bias=None, **kw):
+        x = x.clone()
+        x[..., -64:] = 0
+        return head(x, w, sc, bias, **kw)
+
+    step_faults = [("the prompt's pad slots attended in the step", fs, "fused_decode_step",
+                    pads_attended),
+                   ("RoPE turned backwards in the step", fs, "fused_decode_step",
+                    rope_backwards)]
+    int8_fault = [("the last 64 input features dropped in int8_matmul", i8mm, "int8_matmul",
+                   k_tail_dropped)]
+    def int8_calls(rows: int, linears: int) -> int:  # int8_matmul(_stacked) launches
+        return linears * (int8 and rows <= i8mm.MAX_ROWS)
+
+    every = 4 * cfg.n_layers + 1  # a layer's qkv, o, gateup and down, and the head
+    pad_b = -(-max(len(p) for p in prompts) // 32) * 32
+    cases = [("B=1", single, steps, int8_calls(prompt.shape[0], every) + steps * int8,
+              step_faults + (int8_fault if int8 else []))]
+    if int8:
+        b = len(prompts)
+        cases.append((f"B={b}", batch, 0, int8_calls(b * pad_b, every)
+                      + steps * int8_calls(b, every), int8_fault))
+    for label, run, n_fused, n_int8, faults in cases:
+        with plain_kernels(fs, i8mm):
+            exact = run(tree32, False)
+            forced = exact[:-1].argmax(-1)
+            plain = run(tree_k, True, forced)
+        b = exact.shape[1]
+        parts = [exact[:1].flatten(0, 1), exact[1:].flatten(0, 1)]
+        outputs = (f"prefill logits ({b}, {cfg.vocab_size})",
+                   f"step logits ({steps * b}, {cfg.vocab_size})")
+        p_err, p_cos = zip(*[measure(pl, ex)[1:] for pl, ex in zip(
+            (plain[:1].flatten(0, 1), plain[1:].flatten(0, 1)), parts)])
+        log(f"{tag} {label} plain route against f32: " + ", ".join(
+            f"{name.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+            for name, e, c in zip(outputs, p_err, p_cos)))
+        reset(fs, i8mm)
+        got = run(tree_k, True, forced)
+        launches = launch_counts(fs, i8mm)
+        n_got = (launches["fused_decode_step"],
+                 launches["int8_matmul"] + launches["int8_matmul_stacked"])
+        if n_got != (n_fused, n_int8):
+            raise AssertionError(f"{tag} {label} held: launches {launches}, want "
+                                 f"{n_fused} fused_decode_step, {n_int8} int8 matmuls")
+        held_against_f32(f"{tag} {label}", outputs, parts, p_err, "kernels",
+                         [got[:1].flatten(0, 1), got[1:].flatten(0, 1)], control=False,
+                         p_cos=p_cos)
+        for fault, mod, name, fn in faults:
+            with patched(mod, name, fn):
+                out = run(tree_k, True, forced)
+            held_against_f32(f"{tag} {label}", outputs, parts, p_err, fault,
+                             [out[:1].flatten(0, 1), out[1:].flatten(0, 1)], control=True,
+                             p_cos=p_cos)
+
+
+def oute_slice(dev, card: str) -> dict:
+    """Phase 12: OuteTTS at full width on random weights (Llama-3.2-1B of
+    `benchmarks/engines.py`, the published DAC) through `TTS.oute()` →
+    `OuteTTSEngine.from_params`, unconditioned, on the w8a8 tree (the q4
+    tree requantised: the whole-stack step at hd 64 and the int8 head) and
+    the bf16 tree: `generate_streaming` of two sentences and
+    `generate_batch` of 4 texts (196 new tokens each), one whole-stack step
+    launch a decode step at B=1 and the head's `int8_matmul` beside it
+    asserted, ms a token of the LM alone, the LM held against f32
+    (`oute_against_f32`); then DAC: 150 frames (2 s)
+    through `_decode_dac` and an `encode` of 2 s of noise by CUDA events,
+    the card's decode against the host's f32 one, `extract_codes` →
+    `_decode_dac` on a string with known c1/c2 runs, and the published
+    layout written and read back by `load_dir`, with a `convert_dac` that
+    leaves the alphas (1, C, 1) refused. Returns the launch counts."""
+    import tempfile
+
+    from tpu_audio_torch.api.errors import ModelLoadError
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.codecs.dac import load as dac_load
+    from tpu_audio_torch.codecs.dac import model as dac
+    from tpu_audio_torch.models.outetts import engine as oe
+    from tpu_audio_torch.nn.transformer import TransformerConfig
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.utils import pytree
+
+    mods = (fs, i8mm, w4mm, qmm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    others = tuple(n for m in (w4mm, qmm) for n in m.LAUNCHES)
+    int8 = tuple(i8mm.LAUNCHES)
+    cfg = TransformerConfig(**OUTE_LLM)
+    t0 = time.perf_counter()
+    bf16 = llama_params(cfg, dev, SEED)
+    trees = {"w8a8": quant.requantize_tree_int8(quant.quantize_tree(bf16, bits=4)),
+             "bf16": bf16}
+    dac_cfg = dac.DACConfig()
+    dac_params = dac.init_params(SEED + 1, dac_cfg, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"models: OuteTTS's Llama-3.2-1B random bf16 weights (seed {SEED}) and its w8a8 tree, "
+        f"the published DAC in f32, in {time.perf_counter() - t0:.1f} s")
+
+    for kind, tree in trees.items():
+        eng = TTS.oute(device=dev).from_params(tree, cfg, dac_params, dac_cfg)
+        eng.speaker = None
+        tag = f"oute {kind}"
+        steps = step_counter(eng.lm)
+        toks = []
+        gen = eng.lm.generate
+
+        def generate(*a, **k):
+            out = gen(*a, **k)
+            toks.append(out)
+            return out
+
+        eng.lm.generate = generate
+        need = ("fused_decode_step",) + (("int8_matmul",) if kind == "w8a8" else ())
+        first = {}
+
+        def stream():
+            t, chunks = time.perf_counter(), []
+            for c in eng.generate_streaming(OUTE_STREAM_TEXT, max_new_tokens=OUTE_MAX_NEW):
+                first.setdefault("s", time.perf_counter() - t)
+                chunks.append(c)
+            return chunks
+
+        chunks, launches, wall = counted_run(
+            tag, mods, total, "generate_streaming (2 sentences)", need, stream,
+            absent=others + (() if kind == "w8a8" else int8))
+        prompts = [eng.tokenizer.encode(oe.build_prompt(c.text, None)) for c in chunks]
+        small = sum(-(-len(p) // 32) * 32 <= i8mm.MAX_ROWS for p in prompts)
+        want = {"fused_decode_step": steps["n"]}
+        if kind == "w8a8":  # the head each step, and at a prefill of ≤ 32 rows
+            want["int8_matmul"] = steps["n"] + small
+        if (len(chunks) != 2 or not chunks[-1].is_final
+                or any(launches[n] != c for n, c in want.items())
+                or not all(len(t) <= OUTE_MAX_NEW for t in toks)
+                or steps["n"] < sum(len(t) - 1 for t in toks)):
+            raise AssertionError(f"{tag} stream: {len(chunks)} chunks, {steps['n']} decode "
+                                 f"steps, tokens {[len(t) for t in toks]}, launches "
+                                 f"{launches}, want {want}")
+        audio = np.concatenate([c.samples for c in chunks])
+        if not np.isfinite(audio).all() or len(audio) % dac_cfg.hop:
+            raise AssertionError(f"{tag} stream: {len(audio)} samples, non-finite or ragged")
+        log(f"{tag} stream: {[len(t) for t in toks]} tokens, {steps['n']} decode steps at B=1 "
+            f"= {launches['fused_decode_step']} fused_decode_step launches (one a step)"
+            + (f", {launches['int8_matmul']} int8_matmul (the head a step + {small} prefills "
+               "of ≤ 32 rows)" if kind == "w8a8" else "")
+            + f"; first chunk after {first['s']:.3f} s; {len(audio)} samples ({card})")
+        eng.lm.generate = gen
+        sampler = oe.SAMPLER
+        prompt = eng.tokenizer.encode(oe.build_prompt(OUTE_TEXTS[0], None))
+        call = (lambda n: eng.lm.generate(prompt, sampler=sampler, eos_ids=eng._eos_ids(),
+                                          max_new=n, seed=0))
+        reset(*mods)
+        call(2)
+        _, t_first = timed(lambda: call(1))
+        runs = []
+        for _ in range(2):
+            out, w = timed(lambda: call(OUTE_MAX_NEW))
+            runs.append(f"{1e3 * (w - t_first) / (OUTE_MAX_NEW - 1):.3f} ms a token "
+                        f"({len(out)} tokens)")
+        for n in total:
+            total[n] += launch_counts(*mods)[n]
+        log(f"{tag} LM alone, B=1: prefill + first token {1e3 * t_first:.1f} ms; "
+            f"{OUTE_MAX_NEW - 1} steps, two runs: {'; '.join(runs)} ({card})")
+        results, launches, wall = counted_run(
+            tag, mods, total, f"generate_batch x{len(OUTE_TEXTS)}",
+            ("int8_matmul",) if kind == "w8a8" else (),
+            lambda: eng.generate_batch(OUTE_TEXTS, max_new_tokens=OUTE_MAX_NEW),
+            absent=("fused_decode_step",) + others + (() if kind == "w8a8" else int8))
+        if len(results) != len(OUTE_TEXTS) or not all(np.isfinite(r.samples).all()
+                                                     for r in results):
+            raise AssertionError(f"{tag} generate_batch: non-finite or missing audio")
+        log(f"{tag} generate_batch: {wall / (OUTE_MAX_NEW - 1) * 1e3:.2f} ms a step at "
+            f"B={len(OUTE_TEXTS)} (wall over {OUTE_MAX_NEW - 1} steps, prefill and DAC "
+            f"included) ({card})")
+        oute_against_f32(tag, eng.lm, [eng.tokenizer.encode(oe.build_prompt(t, None))
+                                       for t in OUTE_TEXTS], dev, kind == "w8a8")
+        del eng
+
+    # ------------------------------------------------ DAC
+    eng = TTS.oute(device=dev)
+    eng.speaker, eng.dac_params, eng.dac_cfg = None, dac_params, dac_cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    codes = torch.randint(0, dac_cfg.codebook_size, (1, 2, DAC_FRAMES), generator=gen,
+                          device=dev)
+    c1, c2 = (codes[0, i].cpu().numpy() for i in range(2))
+    noise = torch.randn((1, DAC_FRAMES * dac_cfg.hop), generator=gen, device=dev) * 0.1
+    with torch.inference_mode():
+        eng._decode_dac(c1, c2)
+        ms_dec = events_ms(lambda: eng._decode_dac(c1, c2), 3)
+        dac.encode(dac_params, dac_cfg, noise)
+        ms_enc = events_ms(lambda: dac.encode(dac_params, dac_cfg, noise), 3)
+        got = torch.from_numpy(eng._decode_dac(c1, c2))
+        host = {k: v.cpu() for k, v in pytree.flatten(dac_params).items()}
+        ref = dac.decode_codes(pytree.unflatten(host), dac_cfg, codes.cpu())[0]
+        compare(f"DAC decode of {DAC_FRAMES} frames on the card against the host's f32 decode",
+                got, ref, rel=DAC_REL)
+        enc = dac.encode(dac_params, dac_cfg, noise)
+        if tuple(enc.shape) != (1, 2, DAC_FRAMES) or not 0 <= int(enc.min()) <= int(
+                enc.max()) < dac_cfg.codebook_size:
+            raise AssertionError(f"DAC encode: codes {tuple(enc.shape)} out of shape or range")
+    log(f"DAC: decode of {DAC_FRAMES} frames ({DAC_FRAMES * dac_cfg.hop / 24000:.1f} s) "
+        f"through _decode_dac {ms_dec:.2f} ms, encode of the same length of noise "
+        f"{ms_enc:.2f} ms (CUDA events, f32) ({card})")
+    text = "<|audio_start|>\n" + "\n".join(
+        "<|word_start|>w<|features|><|t_0.40|><|code|>" + "".join(
+            f"<|c1_{a}|><|c2_{b}|>" for a, b in zip(c1[i:i + 30], c2[i:i + 30]))
+        + "<|word_end|>" for i in range(0, DAC_FRAMES, 30))
+    e1, e2 = oe.extract_codes(text)
+    if not (np.array_equal(e1, c1) and np.array_equal(e2, c2)):
+        raise AssertionError("extract_codes: the code runs of the string came back otherwise")
+    held_exact("extract_codes → _decode_dac", torch.from_numpy(eng._decode_dac(e1, e2)), got)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dac_") as tmp:
+        path = Path(tmp)
+        n_bytes = write_safetensors(path / "model.safetensors", dac_torch_flat(dac_params))
+        (path / "config.json").write_text(json.dumps({}))  # the published DACConfig()
+        loaded, got_cfg = dac_load.load_dir(str(path), device=dev)
+        if got_cfg != dac_cfg:
+            raise AssertionError(f"DAC load_dir: {got_cfg}")
+        held_tree(f"DAC load_dir ({n_bytes / 1e6:.0f} MB written)", loaded, dac_params)
+        convert = dac_load.convert_dac
+
+        def alphas_left(flat):  # the JAX rule: every alpha stays (1, C, 1)
+            tree = pytree.flatten(convert(flat))
+            return pytree.unflatten({k: v.transpose(0, 2, 1) if k.endswith(".alpha") else v
+                                     for k, v in tree.items()})
+
+        try:
+            with patched(dac_load, "convert_dac", alphas_left):
+                dac_load.load_dir(str(path), device=dev)
+        except ModelLoadError as e:
+            log(f"control DAC load_dir, alphas left (1, C, 1): refused ({str(e)[:120]}…)")
+        else:
+            raise AssertionError("DAC load_dir took alphas in the (1, C, 1) layout")
+    return total
+
+
+def marvis_slice(dev, card: str) -> dict:
+    """Phase 13: Marvis at full width on random weights (`MarvisConfig()`:
+    the 250M backbone, the depth decoder, 32 codebooks of 2048;
+    `MimiConfig()`) through `TTS.marvis("max")` → `MarvisEngine.from_params`
+    (max_frames 25), on the bf16 and the w8a8 trees: FRAME streaming of one
+    sentence with ms a frame against the 80 ms budget at 12.5 Hz and the
+    first chunk's latency; the whole-stack step's launches asserted (the
+    backbone's one a frame after the prefill, the depth decoder's 32 a
+    frame); on each tree the prefill and one greedy frame on the kernel
+    path at f32 activations against the per-op path in f32, through the
+    logits of their 64 draws, with planted faults; the streaming Mimi
+    decode against the whole one.
+    Returns the launch counts."""
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.mimi import model as mimi
+    from tpu_audio_torch.codecs.mimi import streaming
+    from tpu_audio_torch.models.marvis import model as mm
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.utils import pytree, weights
+
+    mods = (fs, i8mm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    cfg = mm.MarvisConfig()
+    t0 = time.perf_counter()
+    params = card_params(mm.numpy_params(weights.ShapeRNG(), cfg), dev, SEED)
+    mimi_cfg = mimi.MimiConfig()
+    mimi_params = mimi.init_params(SEED + 1, mimi_cfg, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"models: Marvis 250M random bf16 weights (seed {SEED}), Mimi in f32, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    k = cfg.n_codebooks
+    for kind, quantization in (("bf16", None), ("w8a8", "w8a8")):
+        eng = TTS.marvis("max", device=dev).from_params(params, cfg, mimi_params, mimi_cfg,
+                                                        max_frames=MARVIS_MAX_FRAMES,
+                                                        quantization=quantization)
+        eng.quality = "max"
+        tag = f"marvis {kind}"
+        if not (eng._depth_fused and eng._bb_fused) or eng.n_codebooks != k:
+            raise AssertionError(f"{tag}: the whole-stack step does not serve both stacks")
+        spans = []
+        span = eng._span
+
+        def timed_span(*a, **kw):
+            t = time.perf_counter()
+            out = span(*a, **kw)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t)
+            return out
+
+        eng._span = timed_span
+        times = []
+
+        def stream():
+            t, chunks = time.perf_counter(), []
+            for c in eng.generate_streaming(MARVIS_TEXT, granularity=StreamingGranularity.FRAME):
+                times.append(time.perf_counter() - t)
+                chunks.append(c)
+            return chunks
+
+        # the w8a8 prefill's int8 linears: a layer of a stacked leaf at 32 rows
+        need = ("fused_decode_step",) + (("int8_matmul",) if kind == "w8a8" else ())
+        chunks, launches, wall = counted_run(
+            tag, mods, total, "FRAME streaming", need, stream,
+            absent=() if kind == "w8a8" else tuple(i8mm.LAUNCHES))
+        frames = 1 + eng.frame_span * len(spans)  # the prefill's, then the spans'
+        want = k * frames + (frames - 1)  # the depth decoder's k a frame, the backbone's after
+        audio = np.concatenate([c.samples for c in chunks])
+        if (launches["fused_decode_step"] != want or len(audio) != MARVIS_MAX_FRAMES
+                * mimi_cfg.hop or not np.isfinite(audio).all() or not chunks[-1].is_final):
+            raise AssertionError(f"{tag}: {frames} frames made, {len(audio)} samples, "
+                                 f"launches {launches}, want {want} fused_decode_step")
+        per_frame = 1e3 * sum(spans) / (eng.frame_span * len(spans))
+        log(f"{tag} FRAME streaming: {len(chunks)} chunks, {len(audio) / 24000:.2f} s of audio; "
+            f"{per_frame:.2f} ms a frame over {len(spans)} spans of {eng.frame_span} "
+            f"(budget 80 ms at 12.5 Hz: {per_frame / 80:.3f} of it); first chunk after "
+            f"{1e3 * times[0]:.1f} ms, wall {wall:.3f} s; fused_decode_step launches "
+            f"{launches['fused_decode_step']} = {k} a frame × {frames} + 1 a frame × "
+            f"{frames - 1} ({card})")
+        del eng
+
+    # ------------------------------------------------ one sentence's first frames against f32
+    # The kernel route (the prefill with the depth decoder's 32 launches,
+    # then the backbone's one-token step and the depth decoder's 32; the
+    # stacks in their serving dtype, bf16 caches, every other leaf f32)
+    # against the per-op path with every leaf f32 and an f32 cache, on the
+    # bf16 and the w8a8 trees (the prefill's 32 rows through int8_matmul);
+    # the plain versions of the route as the yardstick; each draw forced to
+    # the f32 path's code, so the logits of all 64 draws are held.
+    from tpu_audio_torch.models.marvis.engine import MarvisEngine
+
+    eng = MarvisEngine.from_params(params, cfg, mimi_params, mimi_cfg)
+    tokens, mask = eng._tokenize_text(MARVIS_TEXT)
+    n, pad = tokens.shape[0], 32
+    tok = torch.zeros((1, pad, k + 1), dtype=torch.int64, device=dev)
+    msk = torch.zeros((1, pad, k + 1), dtype=torch.bool, device=dev)
+    tok[0, pad - n:], msk[0, pad - n:] = torch.as_tensor(tokens), torch.as_tensor(mask)
+    s_max = mm.backbone_ring_len(pad, MARVIS_MAX_FRAMES, eng.frame_span)
+    slot = torch.arange(s_max, device=dev)
+    extra = torch.where(slot >= pad - n, 0.0, -1e30)[None, None, None, :]
+    start = torch.tensor(pad - n, device=dev)
+    greedy = dict(max_codebooks=k, temperature=0.0, top_k=0)
+    record = {"logits": [], "draws": [], "forced": None}
+    call = mm.Sampler.__call__
+
+    def sampler(self, logits):
+        i = len(record["logits"])
+        record["logits"].append(logits.float())
+        if record["forced"] is None:
+            record["draws"].append(call(self, logits))
+            return record["draws"][-1]
+        return record["forced"][i]
+
+    def frames(tree, kernel_route: bool):
+        record["logits"] = []
+        with torch.inference_mode(), patched(mm.Sampler, "__call__", sampler):
+            cache = transformer.make_cache(cfg.backbone, 1, s_max, torch.float32, device=dev)
+            f0, cache = mm.frame_step(tree, cfg, tok, msk, cache, extra_mask=extra,
+                                      depth_fused=kernel_route, **greedy)
+            step_in = eng._frame_input(f0)
+            if kernel_route:
+                kc, vc, pos = mm.cache_to_fused(cache, torch.bfloat16)
+                mm.frame_step_fused_bb(tree, cfg, *step_in, kc, vc, pos, start, **greedy)
+            else:
+                mm.frame_step(tree, cfg, *step_in, cache, extra_mask=extra, **greedy)
+        lg = torch.cat(record["logits"])
+        return [lg[:1], lg[1:k], lg[k:k + 1], lg[k + 1:]]
+
+    outputs = ("prefill codebook 0 logits (1, 2048)", f"prefill depth logits ({k - 1}, 2048)",
+               "frame codebook 0 logits (1, 2048)", f"frame depth logits ({k - 1}, 2048)")
+    step, bcfg, dcfg = fs.fused_decode_step, cfg.backbone, cfg.decoder
+    int8_mm = i8mm.int8_matmul
+
+    def unmasked(stack, x, pos, s0, *a, **kw):  # the prompt's pad slots attended
+        backbone = stack["wqkv"].shape[0] == bcfg.n_layers
+        return step(stack, x, pos, torch.zeros_like(s0) if backbone else s0, *a, **kw)
+
+    def h_dropped(stack, x, pos, s0, *a, **kw):  # the depth ring's first slot unread
+        depth = stack["wqkv"].shape[0] == dcfg.n_layers
+        return step(stack, x, pos, s0 + int(depth and int(pos) > 1), *a, **kw)
+
+    def k_tail_dropped(x, w, sc, bias=None, **kw):  # the last 64 input features unread
+        x = x.clone()
+        x[..., -64:] = 0
+        return int8_mm(x, w, sc, bias, **kw)
+
+    faults = [("the prompt's pad slots unmasked in the backbone step", fs, "fused_decode_step",
+               unmasked),
+              ("the backbone's state (depth slot 0) unread by later codebooks", fs,
+               "fused_decode_step", h_dropped)]
+    for kind, quantization in (("bf16", None), ("w8a8", "w8a8")):
+        tag = f"marvis {kind} frames"
+        fused = MarvisEngine._fuse(MarvisEngine._quantize(params, quantization))
+        tree32 = pytree.unflatten({name: v.float() if v.is_floating_point() else v
+                                   for name, v in pytree.flatten(fused).items()})
+        tree_k = dict(tree32, backbone=fused["backbone"], decoder=fused["decoder"])
+        record["forced"] = None
+        with plain_kernels(fs, i8mm):
+            exact = frames(tree32, False)
+            record["forced"] = list(record["draws"])
+            record["draws"] = []
+            plain_out = frames(tree_k, True)
+        p_err, p_cos = zip(*[measure(g, r)[1:] for g, r in zip(plain_out, exact)])
+        log(f"{tag}: plain route against f32: " + ", ".join(
+            f"{name.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+            for name, e, c in zip(outputs, p_err, p_cos)))
+        reset(fs, i8mm)
+        kernel_out = frames(tree_k, True)
+        launches = launch_counts(fs, i8mm)
+        n_int8 = 4 * bcfg.n_layers if quantization else 0  # qkv, o, gateup, down at 32 rows
+        if (launches["fused_decode_step"] != 2 * k + 1
+                or launches["int8_matmul"] + launches["int8_matmul_stacked"] != n_int8):
+            raise AssertionError(f"{tag}: launches {launches}, want {2 * k + 1} "
+                                 f"fused_decode_step, {n_int8} int8 matmuls")
+        held_against_f32(tag, outputs, exact, p_err, "kernels", kernel_out, control=False,
+                         p_cos=p_cos)
+        planted = faults + ([("the last 64 input features dropped in the prefill's "
+                              "int8_matmul", i8mm, "int8_matmul", k_tail_dropped)]
+                            if quantization else [])
+        for label, mod, name, fault in planted:
+            with patched(mod, name, fault):
+                out = frames(tree_k, True)
+            held_against_f32(tag, outputs, exact, p_err, label, out, control=True,
+                             p_cos=p_cos)
+        del fused, tree32, tree_k
+    del eng
+
+    # ------------------------------------------------ the streaming Mimi decoder
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    codes = torch.randint(0, mimi_cfg.bins, (1, k, MARVIS_MAX_FRAMES), generator=gen,
+                          device=dev)
+    with torch.inference_mode():
+        whole = mimi.decode(mimi_params, mimi_cfg, codes)
+        ms_whole = events_ms(lambda: mimi.decode(mimi_params, mimi_cfg, codes), 3)
+        state = streaming.init_state(mimi_params, mimi_cfg, 1, 6)
+        parts = [streaming.decode_stream(mimi_params, mimi_cfg, codes[:, :, s:s + 6], state)[0]
+                 for s in range(0, MARVIS_MAX_FRAMES, 6)]
+    compare(f"Mimi decode_stream in chunks of 6 frames against the whole decode of "
+            f"{MARVIS_MAX_FRAMES}", torch.cat(parts, -1), whole, rel=MIMI_REL)
+    log(f"Mimi: whole decode of {MARVIS_MAX_FRAMES} frames (2 s) {ms_whole:.2f} ms "
+        f"(CUDA events, f32) ({card})")
+    return total
+
+
 # the TMA + wgmma kernels of csrc/ (hopper.cuh) and the passes that feed
 # them, the two decode kernels and the functions the whole-decoder step
 # calls, the W4A8 rows kernel and products, the whole-stack Llama/Qwen
@@ -4335,6 +4997,21 @@ def randn_on(dev, seed: int = SEED):
     return randn
 
 
+def tts_slices(dev, card: str) -> dict:
+    """Phases 12 and 13, each with its wall and its launches on a line of
+    its own; returns their launches summed."""
+    total = {}
+    for phase, run in ((12, oute_slice), (13, marvis_slice)):
+        t_phase = time.perf_counter()
+        counts = run(dev, card)
+        log(f"phase {phase} launches: { {n: c for n, c in counts.items() if c} }")
+        log(f"phase {phase} wall: {time.perf_counter() - t_phase:.1f} s ({card})")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        torch.cuda.empty_cache()
+    return total
+
+
 def print_result(rows: list, launches: dict) -> None:
     """The last two lines: the per-kernel JSON and the ok line."""
     print(json.dumps({"kernels": [{**r, "launches": launches[r["name"]]} for r in rows]}),
@@ -4392,6 +5069,9 @@ def main() -> None:
         rows, n_mels = [], PRESETS["large-v3-turbo"].n_mels
         check_mel(n_mels, dev, randn_on(dev), rows, card)
         print_result(rows, mel_slice(clips, n_mels, dev, card))
+        return
+    if "--tts-only" in sys.argv[1:]:  # phases 1, 2, 12 and 13
+        print_result([], tts_slices(dev, card))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -4560,6 +5240,11 @@ def main() -> None:
     # their own line
     log(f"phase 11 launches: { {n: c for n, c in loaded.items() if c} }")
     log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 12. OuteTTS, 13. Marvis
+    # their launches, too, go on lines of their own
+    tts_slices(dev, card)
     print_result(rows, launches)
 
 

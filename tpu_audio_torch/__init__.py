@@ -21,7 +21,11 @@ tree and the whole B=1 decoder step; Fun-ASR-Nano through
 with bf16, group-affine q4 and int8 LLM weights; and Orpheus TTS through
 `api/tts.py` (`models/orpheus/`: `CausalLMGenerator` on a Llama-3.2-3B
 stack, the SNAC codec in `codecs/snac/`) on the bf16, int8 and W4A8
-(pair-packed and super-group int4) trees. Each engine's `load()` reads its
+(pair-packed and super-group int4) trees; OuteTTS (`models/outetts/`, the
+DAC codec in `codecs/dac/`) on the same generator, and Marvis
+(`models/marvis/`: a Llama backbone and a depth decoder, both through the
+whole-stack step, the Mimi codec and its exact streaming decoder in
+`codecs/mimi/`). Each engine's `load()` reads its
 checkpoint from a local directory or a pre-seeded Hugging Face cache
 (`utils/hub.py`): the safetensors reader and key remaps (`utils/weights.py`,
 `models/*/load.py`, `nn/load_llama.py`), the Whisper and `tokenizer.json`

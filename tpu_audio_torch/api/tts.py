@@ -7,8 +7,10 @@ generate, generate_streaming and warmup are serialised per engine by a
 lock (held for the whole life of a stream); stop() is lock-free and
 cancels the generation in flight, and a new stream starts afresh.
 
-Ported engines: Orpheus. The other factories raise naming their ROADMAP
-items; playback (`say`) is A18.
+Ported engines: Orpheus (`models/orpheus/`), OuteTTS (`models/outetts/`,
+with DAC) and Marvis (`models/marvis/`, with Mimi). The other factories
+(Kokoro A14, Chatterbox and Chatterbox Turbo A13, CosyVoice2 A11,
+CosyVoice3 A12) raise naming their ROADMAP items; playback (`say`) is A18.
 """
 
 from __future__ import annotations
@@ -182,12 +184,23 @@ class TTS:
         _not_ported("Kokoro", "A14")
 
     @staticmethod
-    def marvis(quality: str = "high"):
-        _not_ported("Marvis", "A17")
+    def marvis(quality: str = "high", device="cuda"):
+        """quality: codebooks a frame ("low" 8, "medium" 16, "high" 24,
+        "max" 32); device: the card unless the caller asks for the CPU.
+        For `load()`: `MarvisEngine.from_params` is a classmethod that
+        builds its own engine and ignores both arguments."""
+        from tpu_audio_torch.models.marvis.engine import MarvisEngine
+
+        return MarvisEngine(quality=quality, device=device)
 
     @staticmethod
-    def oute():
-        _not_ported("OuteTTS", "A16")
+    def oute(device="cuda"):
+        """device: the card unless the caller asks for the CPU. For
+        `load()`: `OuteTTSEngine.from_params` is a classmethod that builds
+        its own engine and ignores it."""
+        from tpu_audio_torch.models.outetts.engine import OuteTTSEngine
+
+        return OuteTTSEngine(device=device)
 
     @staticmethod
     def chatterbox():

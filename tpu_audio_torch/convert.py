@@ -19,7 +19,8 @@ and `scales_sg` float32. FunASR's FSMN memory weight (`fsmn_block`, (K, 1, C)
 in the JAX tree) becomes torch's depthwise (C, 1, K). The weight-normalised
 convolutions of SNAC ("weight_v", "weight_g") go from (K, I, O) to torch's
 (O, I, K), and under "convT", a transposed convolution, to torch's
-(I, O, K).
+(I, O, K). Mimi, whose conv kernels sit under other names, applies its own
+rule (`codecs/mimi/model.params_from_numpy`).
 """
 
 from __future__ import annotations
