@@ -135,8 +135,23 @@ Phases (any failure raises and the script exits non-zero):
      faults in the step refused and, on w8a8, one in the prefill's
      `int8_matmul`;
      the streaming Mimi decoder against the whole decode (rel 1e-4).
-     Phases 12 and 13 print their walls and their launches on lines of
-     their own.
+ 14. (run last) CosyVoice2 at full width on random weights
+     (`CosyLMConfig()`'s Qwen2-0.5B, `S3GenConfig()`,
+     `S3TokenizerConfig()`, `CAMPPlusConfig()`; a word-level stand-in for
+     the text tokenizer) through `TTS.cosyvoice2()` →
+     `CosyVoice2Engine.from_params` on the w8a8 and bf16 trees:
+     `prepare_conditionals` on 3 s of noise, `generate_streaming` of two
+     sentences at TOKEN granularity (first audio, × real time),
+     `generate` of one sentence, `voice_conversion` of 2 s, one
+     whole-stack step launch a T=1 step and on w8a8 one head
+     `int8_matmul` a step asserted, the LM's ms a token, its kernel route
+     at f32 activations against the per-op path in f32 through the speech
+     logits with four planted faults at least 5× the plain route's
+     distance (the qkv bias, the GQA group, RoPE, the head's bias); a
+     short W4A8 `generate`; the flow's ms a window and HiFT's ms a chunk;
+     HiFT's streamed windows against one pass (rel 1e-4, f32).
+     Phases 12, 13 and 14 print their walls and their launches on lines
+     of their own.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
 seven planted faults (a partial last row tile among them), `attn_oproj_ln`
@@ -193,6 +208,8 @@ float64, a misaligned signal refused, four planted faults, a chunk and a
 of the checkpoint, tokenizer and audio-file layer on the card (~30 s).
 `python3 chip_smoke.py --tts-only` runs phases 1, 2, 12 and 13: a short
 check of the OuteTTS and Marvis engines, DAC and Mimi.
+`python3 chip_smoke.py --cosyvoice-only` runs phases 1, 2 and 14: a short
+check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -281,6 +298,19 @@ DAC_REL = 1e-4               # the card's f32 DAC decode against the host's
 MARVIS_MAX_FRAMES = 25       # phase 13's frames a sentence: 2 s at 12.5 Hz
 MARVIS_TEXT = "Hello from the card."  # "[0]" + 20 bytes: one prompt bucket of 32 rows
 MIMI_REL = 1e-4              # the streaming Mimi decode against the whole one, on the card
+# phase 14: CosyVoice2 (Qwen2-0.5B, S3Gen, the S3 tokenizer, CAMPPlus) at full width
+CV_TEXTS = ("This first sentence is long enough to stand on its own here.",
+            "And the second one follows it in the same request today.")
+CV_REF_TEXT = "A reference speaker reads these words aloud."
+CV_REF_SECONDS, CV_VC_SECONDS = 3, 2  # prepare_conditionals' audio, voice_conversion's
+CV_HELD_STEPS = 8            # steps held against f32, each fed the f32 path's token
+CV_FAULT_RATIO = 5.0         # a planted fault's distance from f32 over the plain route's
+CV_QK_BIAS = 3.0             # the random LM's q and k biases, uniform in ±this
+CV_W4A8_NEW = 32             # the short w4a8 generate's tokens (one 32-token bucket)
+CV_TIMED_NEW = (32, 160)     # the LM alone: generate at these max_new; ms a token between
+CV_VOC_ENDS = (40, 80, 120)  # the streamed HiFT windows' right edges (mel frames)
+CV_VOC_EDGE = 16             # frames before a window's edge outside its right context
+CV_VOC_REL = 1e-4            # the streamed HiFT windows against one generate, f32
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -668,6 +698,48 @@ def plain_kernels(*modules):
             setattr(mod, name, fn)
 
 
+@contextmanager
+def held_calls(tag: str, mod, names, rel: float):
+    """Inside the block, each call of the wrappers `names` of `mod` runs
+    its kernel and then the plain version on the same inputs (no launch
+    counted); each call's rel (max|got - ref| / max|ref|) and cosine stay
+    on the card until the block ends. Then, for each wrapper that ran, one
+    read: raises if a call's output was not finite or a call lies outside
+    rel / cosine 0.999, else logs the worst call and its shapes."""
+    readings = {n: [] for n in names}
+
+    def held(name, kernel, plain):
+        def run(*args):
+            got = kernel(*args)
+            g, r = got.double(), plain(*args).double()
+            finite = torch.isfinite(g).all().double()
+            rel_err = (g - r).abs().max() / r.abs().max()
+            cos = (g.flatten() @ r.flatten()) / (g.norm() * r.norm())
+            shapes = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+            readings[name].append((torch.stack([finite, rel_err, cos]), shapes))
+            return got
+        return run
+
+    saved = {n: getattr(mod, n) for n in names}
+    for n in names:
+        setattr(mod, n, held(n, saved[n], getattr(mod, n + "_plain")))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+    for n, calls in readings.items():
+        if not calls:
+            continue
+        got = torch.stack([c[0] for c in calls]).cpu()
+        worst = int(got[:, 1].argmax())
+        text = (f"{tag} {n}: {len(calls)} calls held against {n}_plain, worst rel "
+                f"{got[worst, 1]:.3e} at {calls[worst][1]}, least cosine {got[:, 2].min():.6f}")
+        if not (got[:, 0].all() and got[:, 1].max() <= rel and got[:, 2].min() > 0.999):
+            raise AssertionError(f"{text}: a call non-finite or outside rel {rel} / cosine 0.999")
+        log(text)
+
+
 def held_exact(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
     """got equal to ref bit for bit (max |diff| 0), or raise."""
     if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
@@ -711,6 +783,46 @@ def int8_faulty(x, w, sc, bias, out_dtype, *, cols=None, acc_cols=None, acc_fact
     return y if bias is None else y + bias.to(out_dtype)
 
 
+C17_CALLS = 16  # calls under the profiler in `one_kernel_a_call`
+
+
+def one_kernel_a_call(label: str, fn, module, key: str, calls: int = C17_CALLS,
+                      quiet: bool = False, kernel: str = "int8_mm_kernel") -> str | None:
+    """ROADMAP C17's check that fn() is one device kernel a call: `calls`
+    calls of it under `torch.profiler` are `calls` launches by the
+    wrapper's count (`module.LAUNCHES[key]`) and `calls` device kernels
+    whose name holds `kernel`, and no other device kernel. The
+    profiler's first session in a process can miss a short kernel (CUPTI
+    starts lazily; one whole run saw none), so a session over the same
+    loop warms it first, up to three times until it sees a device event;
+    that session is not read. Returns what went wrong, or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def census():
+        torch.cuda.synchronize()
+        before = module.LAUNCHES[key]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return module.LAUNCHES[key] - before, names
+
+    for _ in range(3):
+        if census()[1]:
+            break
+    launched, names = census()
+    mine = [n for n in names if kernel in n]
+    others = sorted({n for n in names if kernel not in n})
+    if launched != calls or len(mine) != calls or others:
+        return (f"{label}: {calls} calls, {launched} launches counted, {len(mine)} {kernel} "
+                f"kernels, other device kernels {others}: expected one kernel a call")
+    if not quiet:
+        log(f"{label}: {calls} calls = {launched} launches = {len(mine)} device kernels "
+            f"({mine[0]}), no other kernel")
+    return None
+
+
 def check_int8_matmul(model_i8, randn, rows: list) -> None:
     """Phase 3, the W8A8 weight-streaming matmuls, bit for bit against their
     plain versions (exact int32 sums, the same f32 epilogue in the same
@@ -725,12 +837,12 @@ def check_int8_matmul(model_i8, randn, rows: list) -> None:
     rank's slice only, the last rank's partial sum dropped or merged twice
     (where the launch splits the columns), the wrong layer, the bias added
     before the cast, the rows past B computed and stored. One
-    `int8_linear` on the bf16 tree is one device kernel (the profiler).
+    `int8_linear` on the bf16 tree is one device kernel
+    (`one_kernel_a_call`: a loop of calls under the profiler, with a cast
+    kernel and a bias kernel planted as controls).
     Times, the weights cold (copies in turn): the head at 1 row (row 12),
     fc1 at 16 rows (row 13), each at 32 rows beside `torch._int_mm` (the
     product alone) and `int8_matmul_bigm`."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 
@@ -823,20 +935,31 @@ def check_int8_matmul(model_i8, randn, rows: list) -> None:
                                       cases[name][0].shape[-2], x_dtype=torch.bfloat16)]))
     del cases
 
-    # one int8_linear on the bf16 tree, with its bias, and the head: one device kernel each
+    # one int8_linear on the bf16 tree, with its bias, and the head: one device
+    # kernel each (ROADMAP C17: counted over a loop, the profiler warmed first)
     for label, leaf, n in (("fc1", lp["mlp"]["fc1"], 16), ("head", head, 1)):
         x = randn(n, head["weight_i8"].shape[1], dtype=torch.bfloat16)
-        quant.int8_linear(leaf, x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            y = quant.int8_linear(leaf, x)
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(kernels) != 1 or y.dtype != torch.bfloat16:
-            raise AssertionError(f"int8_linear {label} ({n} rows, bf16): device kernels "
-                                 f"{kernels}, output {y.dtype}: expected one kernel, bf16")
-        log(f"int8_linear {label} ({n} rows, bf16 tree): one device kernel ({kernels[0]})")
+        key = "int8_matmul" if "weight_i8" in leaf else "int8_matmul_stacked"
+        if quant.int8_linear(leaf, x).dtype != torch.bfloat16:
+            raise AssertionError(f"int8_linear {label}: the output is not bf16")
+        fault = one_kernel_a_call(f"int8_linear {label} ({n} rows, bf16 tree)",
+                                  lambda leaf=leaf, x=x: quant.int8_linear(leaf, x), i8mm, key)
+        if fault:
+            raise AssertionError(fault)
+        w = leaf["weight_i8"] if "weight_i8" in leaf else leaf["weight_i8_stacked"]
+        bias = leaf["bias"] if "bias" in leaf else torch.zeros(
+            w.shape[-2], dtype=torch.bfloat16, device=x.device)
+        no_bias = {k: leaf[k] for k in ("weight_i8", "weight_i8_stacked", "layer_idx",
+                                        "scale_i8") if k in leaf}
+        for control, planted in (
+                ("a cast kernel after it", lambda leaf=leaf, x=x: quant.int8_linear(
+                    leaf, x).float()),
+                ("the bias added in a kernel of its own", lambda x=x, nb=no_bias, b=bias:
+                 quant.int8_linear(nb, x) + b)):
+            if not one_kernel_a_call(f"control int8_linear {label}, {control}", planted, i8mm,
+                                     key, quiet=True):
+                raise AssertionError(f"int8_linear {label}: the check cannot see {control}")
+            log(f"control int8_linear {label}, {control}: refused")
 
     # times, the weights from device memory: copies enough that the calls,
     # made on the copies in turn, miss L2
@@ -3949,6 +4072,39 @@ def mimi_torch_flat(tree: dict) -> dict:
     return out
 
 
+def cosyvoice2_flat(lm_tree: dict, s3_tree: dict) -> dict:
+    """A port CosyVoice2 LM tree and a JAX-layout S3Gen numpy tree → the
+    flat dict that `models/cosyvoice2/load.convert` reads: the Qwen2 stack
+    under llm.llm.model.*, the heads under their names; S3Gen's groups
+    under flow.*, hift.* and campplus.*, each 3-D kernel turned back by the
+    inverse of the loader's rule ((O, I, K), and (I, O, K) under ups and
+    up_layer), the 4-D ones as they are."""
+    from tpu_audio_torch.utils import pytree
+
+    flat = llama_flat(lm_tree["llm"], "llm.llm.")
+    flat.update({k: v for k, v in pytree.flatten(
+        {n: lm_tree[n] for n in lm_tree if n != "llm"}).items()})
+    groups = {"flow": "flow", "mel2wav": "hift", "speaker_encoder": "campplus"}
+    for k, v in pytree.flatten(s3_tree).items():
+        side, rest = k.split(".", 1)
+        v = np.asarray(v)
+        if v.ndim == 3:
+            v = v.transpose(1, 2, 0) if re.search(r"\.(ups|convT|up_layer)\.",
+                                                  "." + rest) else v.transpose(2, 1, 0)
+        flat[f"{groups[side]}.{rest}"] = np.ascontiguousarray(v)
+    return flat
+
+
+def s3tokenizer_mlx_flat(tree: dict) -> dict:
+    """A JAX-layout S3 tokenizer numpy tree → an mlx-community file's flat
+    dict: 3-D kernels as MLX's (O, K, I)."""
+    from tpu_audio_torch.utils import pytree
+
+    return {k: np.ascontiguousarray(np.asarray(v).transpose(2, 0, 1) if np.ndim(v) == 3
+                                    else np.asarray(v))
+            for k, v in pytree.flatten(tree).items()}
+
+
 def seed_cache(root: Path, repo_id: str, files: dict) -> tuple[Path, int]:
     """A Hugging Face cache entry for repo_id under root (refs/main and
     snapshots/<revision>/), files = {name: writer(path) → bytes}; returns
@@ -4942,6 +5098,360 @@ HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
                   "slot_mma": False, "final_norm": False}
 
 
+class WordTokenizer:
+    """Stands in for CosyVoice2's Qwen2 tokenizer.json (not in the
+    repository): one id a word, from its CRC, below Qwen2's 151,643 text
+    ids, about the count a BPE gives English."""
+
+    def encode(self, text: str) -> list[int]:
+        import zlib
+
+        return [zlib.crc32(w.encode()) % 151643 for w in text.split()]
+
+
+def s3_card_params(schema: dict, dev, seed: int, dtype=torch.bfloat16) -> dict:
+    """An S3-family `numpy_params` schema (from a ShapeRNG) filled on the
+    card: each drawn leaf uniform in ±1/√fan_in (a kernel's (K, I) or
+    (KH, KW, I), a linear's I, a vector's length), the norms, BN stats and
+    alphas as the schema has them; in the port's layouts in `dtype` (the BN
+    stats and alphas in f32, as `s3_params_from_numpy` keeps them)."""
+    from tpu_audio_torch.convert import s3_params_from_numpy
+    from tpu_audio_torch.utils import pytree, weights
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = {}
+    for k, v in pytree.flatten(schema).items():
+        if isinstance(v, weights.AbstractLeaf):
+            fan = v.shape[-1] if len(v.shape) <= 2 else math.prod(v.shape[:-1])
+            flat[k] = (torch.rand(v.shape, generator=gen, device=dev) * 2 - 1) / math.sqrt(fan)
+        else:
+            flat[k] = torch.as_tensor(v, device=dev)
+    return s3_params_from_numpy(pytree.unflatten(flat), dev, dtype)
+
+
+def cv_against_f32(tag: str, tree: dict, cfg, dev, int8: bool, prompt) -> None:
+    """Phase 14, the CosyVoice2 LM on the kernel route held against f32
+    through the speech logits: the roll-packed prefill and CV_HELD_STEPS
+    T=1 steps, each fed the f32 path's greedy token. The route runs the
+    stack in its serving dtype (one whole-stack step launch a step, the qkv
+    bias folded in) with a bf16 cache, every other float leaf in f32 (f32
+    activations; on the w8a8 tree the speech head's `int8_matmul` with its
+    bias); the reference is the per-op path with every float leaf in f32,
+    an f32 cache and the plain int8 products; the plain versions of the
+    route are the yardstick. Planted faults must land at least
+    CV_FAULT_RATIO times as far from f32 as the yardstick on some output:
+    the qkv bias dropped in the step, query head j reading KV head j // 2
+    (clamped) instead of j // 7, RoPE turned backwards in the step, and on
+    the w8a8 tree the head's bias dropped in `int8_matmul`."""
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.utils import pytree
+
+    steps = CV_HELD_STEPS
+    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
+                               for k, v in pytree.flatten(tree).items()})
+    exact_gen = cvlm.CosyLMGenerator(tree32, cfg, cache_dtype=torch.float32)
+    route_gen = cvlm.CosyLMGenerator(dict(tree32, llm=dict(tree32["llm"],
+                                                            layers=tree["llm"]["layers"])), cfg)
+    if not route_gen.fused_ok():
+        raise AssertionError(f"{tag}: the whole-stack step does not serve the tree")
+
+    def decode(gen, fused: bool, forced=None):
+        with torch.inference_mode():
+            logits, cache, extra = gen.prefill(*prompt, steps + 1, fused=fused)
+            out, step = [logits], gen.step_fn(extra)
+            for i in range(steps):
+                tok = out[-1].argmax(-1) if forced is None else forced[i]
+                logits, cache = step(tok[:, None], cache)
+                out.append(logits)
+            return torch.cat(out)
+
+    with plain_kernels(fs, i8mm):
+        exact = decode(exact_gen, False)
+        forced = exact[:-1].argmax(-1)[:, None]
+        plain = decode(route_gen, True, forced)
+    parts = [exact[:1], exact[1:]]
+    outputs = (f"prefill logits (1, {exact.shape[-1]})",
+               f"step logits ({steps}, {exact.shape[-1]})")
+    p_err, p_cos = zip(*[measure(pl, ex)[1:] for pl, ex in zip((plain[:1], plain[1:]), parts)])
+    log(f"{tag} plain route against f32: " + ", ".join(
+        f"{n.split(' (')[0]} rel {e:.3e} cosine {c:.6f}" for n, e, c in zip(outputs, p_err,
+                                                                             p_cos)))
+    reset(fs, i8mm)
+    got = decode(route_gen, True, forced)
+    launches = launch_counts(fs, i8mm)
+    want = (steps, (1 + steps) * int8)  # a step each; the head at the prefill and each step
+    if (launches["fused_decode_step"], launches["int8_matmul"]) != want or launches[
+            "int8_matmul_stacked"]:
+        raise AssertionError(f"{tag} held: launches {launches}, want {want[0]} "
+                             f"fused_decode_step, {want[1]} int8_matmul")
+    held_against_f32(tag, outputs, parts, p_err, "kernels", [got[:1], got[1:]], control=False,
+                     p_cos=p_cos)
+
+    step, head = fs.fused_decode_step, i8mm.int8_matmul
+
+    def bias_dropped(stack, *a, **kw):
+        return step({k: v for k, v in stack.items() if k != "bqkv"}, *a, **kw)
+
+    def kv_head_by_2(stack, x, pos, s0, cos, sin, kc, vc, **kw):
+        def by_2(t, n_heads):
+            return t[torch.clamp(torch.arange(n_heads, device=t.device) // 2,
+                                 max=t.shape[0] - 1)]
+        with patched(fs, "_kv_heads", by_2):
+            return fs.fused_decode_step_plain(stack, x, pos, s0, cos, sin, kc, vc, **kw)
+
+    def rope_backwards(stack, x, pos, s0, cos, sin, *a, **kw):
+        return step(stack, x, pos, s0, cos, -sin, *a, **kw)
+
+    def head_bias_dropped(x, w, sc, bias=None, **kw):
+        return head(x, w, sc, None, **kw)
+
+    faults = [("the qkv bias dropped in the step", fs, "fused_decode_step", bias_dropped),
+              ("KV head = head / 2 (clamped), not head / 7, in the step", fs,
+               "fused_decode_step", kv_head_by_2),
+              ("RoPE turned backwards in the step", fs, "fused_decode_step", rope_backwards)]
+    if int8:
+        faults.append(("the head's bias dropped in int8_matmul", i8mm, "int8_matmul",
+                       head_bias_dropped))
+    for fault, mod, name, fn in faults:
+        with patched(mod, name, fn):
+            out = decode(route_gen, True, forced)
+        held_against_f32(tag, outputs, parts, p_err, fault, [out[:1], out[1:]], control=True,
+                         p_cos=p_cos)
+        ratio = max(measure(o, ex)[1] / pe for o, ex, pe in zip((out[:1], out[1:]), parts,
+                                                                p_err))
+        if ratio < CV_FAULT_RATIO:
+            raise AssertionError(f"{tag} {fault}: {ratio:.3f}× the plain route's distance "
+                                 f"from f32, under {CV_FAULT_RATIO}×")
+        log(f"control {tag} {fault}: {ratio:.3f}× the plain route's distance from f32 "
+            f"(≥ {CV_FAULT_RATIO}×)")
+
+
+def cv_vocoder_stream(s3, s3cfg, mel: torch.Tensor, card: str) -> None:
+    """HiFT streamed (`vocode_window` over windows ending at CV_VOC_ENDS,
+    the phase and the source tail carried) against one `generate` of the
+    same mel, both in f32 on the card with `Noise(SEED)`: within
+    CV_VOC_REL outside the CV_VOC_EDGE frames before each window's right
+    edge (a window lacks the mel after it there, as the reference's
+    streaming does)."""
+    from tpu_audio_torch.codecs.s3gen import hift
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.utils import pytree
+
+    p32 = pytree.unflatten({k: v.float() for k, v in pytree.flatten(s3["mel2wav"]).items()})
+    cfg, noise, ups = s3cfg.hift, Noise(SEED), s3cfg.hift.upsample_scale
+    mel = mel[:, : CV_VOC_ENDS[-1]].float()
+    with torch.inference_mode():
+        full, _ = hift.generate(p32, cfg, mel, noise)
+        phase = torch.zeros((1, cfg.nb_harmonics + 1), dtype=torch.float64, device=mel.device)
+        tail, done, parts = mel.new_zeros((1, 0)), 0, []
+        for end in CV_VOC_ENDS:
+            lb = min(hift.LOOKBACK_FRAMES, done)
+            audio, phase, src = hift.vocode_window(p32, cfg, mel[:, done - lb: end], noise,
+                                                   phase, tail[:, tail.shape[1] - lb * ups:],
+                                                   done)
+            parts.append(audio[0, lb * ups:])
+            tail = src[:, (lb + end - done - min(hift.LOOKBACK_FRAMES, end)) * ups:]
+            done = end
+    got = torch.cat(parts)
+    starts = (0,) + CV_VOC_ENDS[:-1]
+    for a, b in zip(starts, CV_VOC_ENDS[:-1] + (CV_VOC_ENDS[-1] + CV_VOC_EDGE,)):
+        b -= CV_VOC_EDGE
+        compare(f"HiFT streamed windows, frames {a}-{b}, against one generate (f32, {card})",
+                got[a * ups: b * ups], full[0, a * ups: b * ups], rel=CV_VOC_REL)
+
+
+def cosyvoice_slice(dev, card: str) -> dict:
+    """Phase 14: CosyVoice2 at full width on random weights (seed 0:
+    `CosyLMConfig()`'s Qwen2-0.5B, `S3GenConfig()`, `S3TokenizerConfig()`,
+    `CAMPPlusConfig()`; q's and k's biases at ±CV_QK_BIAS and the speech
+    head's at ±1; the text tokenizer a word-level stand-in) through
+    `TTS.cosyvoice2()` → `CosyVoice2Engine.from_params`, on the w8a8 tree
+    (the q4 tree requantised: the whole-stack step with the qkv bias and
+    the int8 speech head) and the bf16 tree: `prepare_conditionals` on 3 s
+    of noise with its text, `generate_streaming` of two sentences at TOKEN
+    granularity (the first chunk's latency, × real time), `generate` of one
+    sentence, `voice_conversion` of 2 s; one whole-stack step launch a T=1
+    step and on w8a8 one head `int8_matmul` a step asserted; the LM alone
+    in ms a token; the LM held against f32 (`cv_against_f32`); one short
+    `generate` on the W4A8 tree (its kernels, no step kernel; each of its
+    calls held against its plain version at rel 1e-5, `held_calls`); the flow's
+    ms a window and HiFT's ms a chunk by CUDA events; the streamed vocoder
+    against one pass (`cv_vocoder_stream`). Returns the launch counts."""
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.s3gen import hift
+    from tpu_audio_torch.codecs.s3gen import model as s3gen
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    mods = (fs, i8mm, w4mm, qmm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    others = tuple(n for m in (w4mm, qmm) for n in m.LAUNCHES)
+    int8 = tuple(i8mm.LAUNCHES)
+    lm_cfg, s3cfg, tokcfg = cvlm.CosyLMConfig(), s3gen.S3GenConfig(), s3tok.S3TokenizerConfig()
+    t0 = time.perf_counter()
+    bf16 = card_params(cvlm.numpy_params(ShapeRNG(), lm_cfg), dev, SEED)
+    # q's and k's biases at ±CV_QK_BIAS and the head's at ±1: the init's
+    # ±1/√fan_in would leave them ~3 % of what they add to (a trained
+    # Qwen2's q and k biases are of the order of its projections, or
+    # larger); with them the random stack's attention depends on its
+    # positions and its head, so that a fault there shows (v's stays the
+    # init's: a large v bias would make every key's value alike)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def uniform(t, scale):
+        return ((torch.rand(t.shape, generator=gen, device=dev) * 2 - 1) * scale).to(t.dtype)
+    for name in ("q", "k"):
+        leaf = bf16["llm"]["layers"]["attn"][name]
+        leaf["bias"] = uniform(leaf["bias"], CV_QK_BIAS)
+    bf16["llm_decoder"]["bias"] = uniform(bf16["llm_decoder"]["bias"], 1.0)
+    q4 = quant.quantize_tree(bf16, bits=4)
+    trees = {"w8a8": quant.requantize_tree_int8(q4), "bf16": bf16}
+    s3 = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1)
+    tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+    torch.cuda.synchronize()
+    log(f"models: CosyVoice2's Qwen2-0.5B random bf16 weights (seed {SEED}), its w8a8 tree; "
+        f"S3Gen, the S3 tokenizer and CAMPPlus at full width in bf16, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    ref24 = (0.1 * rng.standard_normal(CV_REF_SECONDS * 24000)).astype(np.float32)
+    src16 = (0.1 * rng.standard_normal(CV_VC_SECONDS * 16000)).astype(np.float32)
+    text = " ".join(CV_TEXTS)
+
+    for kind, tree in trees.items():
+        tag = f"cosyvoice2 {kind}"
+        eng = TTS.cosyvoice2(device=dev).from_params(tree, lm_cfg, s3, s3cfg, tokp, tokcfg,
+                                                     tokenizer=WordTokenizer())
+        spk, _, wall = counted_run(
+            tag, mods, total, f"prepare_conditionals ({CV_REF_SECONDS} s)", (),
+            lambda: eng.prepare_conditionals(ref24, 24000, ref_text=CV_REF_TEXT),
+            absent=tuple(total))
+        if not (len(spk.speech_tokens) == 25 * CV_REF_SECONDS and spk.prompt_mel.shape[1]
+                == 2 * len(spk.speech_tokens) and torch.isfinite(spk.embedding).all()):
+            raise AssertionError(f"{tag} speaker: {len(spk.speech_tokens)} tokens, mel "
+                                 f"{tuple(spk.prompt_mel.shape)}")
+        steps = {"n": 0}
+        make = eng.lm.step_fn
+
+        def counted(extra, make=make):
+            step = make(extra)
+
+            def run(tok, cache):
+                steps["n"] += 1
+                return step(tok, cache)
+            return run
+
+        eng.lm.step_fn = counted
+        need = ("fused_decode_step",) + (("int8_matmul",) if kind == "w8a8" else ())
+        first = {}
+
+        def stream():
+            t, chunks = time.perf_counter(), []
+            for c in eng.generate_streaming(text):
+                first.setdefault("s", time.perf_counter() - t)
+                chunks.append(c)
+            return chunks
+
+        chunks, launches, wall = counted_run(
+            tag, mods, total, "generate_streaming (2 sentences, TOKEN)", need, stream,
+            absent=others + (() if kind == "w8a8" else int8))
+        want = {"fused_decode_step": steps["n"]}
+        if kind == "w8a8":  # the head a step, and at each sentence's prefill
+            want["int8_matmul"] = steps["n"] + 2
+        audio = np.concatenate([c.samples for c in chunks])
+        seconds = len(audio) / 24000
+        if (not chunks[-1].is_final or len(chunks) < 4 or not np.isfinite(audio).all()
+                or any(launches[n] != c for n, c in want.items())):
+            raise AssertionError(f"{tag} stream: {len(chunks)} chunks, {steps['n']} T=1 steps, "
+                                 f"launches {launches}, want {want}")
+        log(f"{tag} stream: {len(chunks)} chunks, {steps['n']} T=1 steps = "
+            f"{launches['fused_decode_step']} fused_decode_step launches (one a step)"
+            + (f", {launches['int8_matmul']} int8_matmul (the head a step + 2 prefills)"
+               if kind == "w8a8" else "")
+            + f"; first audio after {first['s']:.3f} s; {seconds:.2f} s of audio in "
+              f"{wall:.3f} s: {seconds / wall:.2f}× real time ({card})")
+        steps["n"] = 0
+        res, launches, wall = counted_run(
+            tag, mods, total, "generate (1 sentence, SENTENCE)", need,
+            lambda: eng.generate(CV_TEXTS[0]), absent=others + (() if kind == "w8a8" else int8))
+        want = {"fused_decode_step": steps["n"]}
+        if kind == "w8a8":
+            want["int8_matmul"] = steps["n"] + 1
+        if (not len(res.samples) or not np.isfinite(res.samples).all()
+                or any(launches[n] != c for n, c in want.items())):
+            raise AssertionError(f"{tag} generate: {len(res.samples)} samples, launches "
+                                 f"{launches}, want {want}")
+        log(f"{tag} generate: {len(res.samples) / 24000:.2f} s of audio, {steps['n']} T=1 steps, "
+            f"{wall:.3f} s: {len(res.samples) / 24000 / wall:.2f}× real time ({card})")
+        vc, _, wall = counted_run(tag, mods, total, f"voice_conversion ({CV_VC_SECONDS} s)", (),
+                                  lambda: eng.voice_conversion(src16, 16000),
+                                  absent=tuple(total))
+        if len(vc) != CV_VC_SECONDS * 24000 or not np.isfinite(vc).all():
+            raise AssertionError(f"{tag} voice_conversion: {len(vc)} samples")
+        eng.lm.step_fn = make
+        prompt = (eng.tokenizer.encode(CV_TEXTS[0]), spk.prompt_text_ids, spk.speech_tokens)
+        reset(*mods)
+        walls = {}
+        for n in CV_TIMED_NEW + CV_TIMED_NEW:
+            _, w = timed(lambda n=n: eng.lm.generate(*prompt, max_new=n))
+            walls.setdefault(n, []).append(w)
+        for n in total:
+            total[n] += launch_counts(*mods)[n]
+        lo, hi = CV_TIMED_NEW
+        runs = [1e3 * (b - a) / (hi - lo) for a, b in zip(walls[lo], walls[hi])]
+        log(f"{tag} LM alone, B=1: ms a token {', '.join(f'{r:.3f}' for r in runs)} "
+            f"(generate of {hi} against {lo} tokens, twice) ({card})")
+        cv_against_f32(tag, tree, lm_cfg, dev, kind == "w8a8", prompt)
+        del eng
+
+    # ------------------------------------------------ W4A8, the flow, HiFT
+    w4 = cvlm.CosyLMGenerator(quant.repack_tree_w4a8(q4), lm_cfg)
+    with held_calls("cosyvoice2 w4a8", w4mm, ("w4a8_matmul", "w4a8_matmul_stacked"), 1e-5):
+        toks, launches, _ = counted_run(
+            "cosyvoice2 w4a8", mods, total, f"generate ({CV_W4A8_NEW} tokens)",
+            ("w4a8_matmul", "w4a8_matmul_stacked"),
+            lambda: w4.generate(WordTokenizer().encode(CV_TEXTS[0]), [], [1, 2, 3],
+                                max_new=CV_W4A8_NEW),
+            absent=("fused_decode_step", "w4a8_sg_matmul", "w4a8_sg_matmul_stacked") + int8)
+    if not toks:
+        raise AssertionError("cosyvoice2 w4a8 generate: no tokens")
+    del w4, q4, trees
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    p_len, n_tok = 75, 53  # a 3 s speaker, a window of 50 tokens + the lookahead
+    pt = torch.randint(0, s3cfg.vocab_size, (1, p_len), generator=gen, device=dev)
+    toks = torch.zeros((1, 64), dtype=torch.int64, device=dev)
+    toks[0, :n_tok] = torch.randint(0, s3cfg.vocab_size, (n_tok,), generator=gen, device=dev)
+    pm = torch.randn((1, 2 * p_len, s3cfg.mel_dim), generator=gen, device=dev).to(torch.bfloat16)
+    emb = torch.randn((1, s3cfg.spk_dim), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        def flow():
+            return s3gen.flow_inference(s3, s3cfg, toks, n_tok, pt, p_len, pm, 2 * p_len, emb,
+                                        Noise(SEED), streaming=True)[0]
+        mel = flow()
+        ms_flow = events_ms(flow, 2)
+        lb, new = hift.LOOKBACK_FRAMES, 50
+        win = mel[:, : lb + new]
+        phase = torch.zeros((1, s3cfg.hift.nb_harmonics + 1), dtype=torch.float64, device=dev)
+        tail = torch.zeros((1, lb * s3cfg.hift.upsample_scale), dtype=win.dtype, device=dev)
+        ms_voc = events_ms(lambda: hift.vocode_window(s3["mel2wav"], s3cfg.hift, win,
+                                                      Noise(SEED), phase, tail, 100), 2)
+    log(f"S3Gen: flow {ms_flow:.2f} ms a window ({p_len} prompt + 64 tokens, "
+        f"{s3cfg.cfm.n_timesteps} CFG Euler steps, streaming masks), HiFT {ms_voc:.2f} ms a "
+        f"chunk ({lb} + {new} frames, 1 s of new audio) (CUDA events, bf16) ({card})")
+    if not torch.isfinite(mel).all():
+        raise AssertionError("cosyvoice2 flow: non-finite mel")
+    cv_vocoder_stream(s3, s3cfg, mel[:, 2 * p_len:], card)
+    return total
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -4997,11 +5507,11 @@ def randn_on(dev, seed: int = SEED):
     return randn
 
 
-def tts_slices(dev, card: str) -> dict:
-    """Phases 12 and 13, each with its wall and its launches on a line of
-    its own; returns their launches summed."""
+def tts_slices(dev, card: str, phases=((12, oute_slice), (13, marvis_slice))) -> dict:
+    """Phases 12 and 13 (or `phases`), each with its wall and its launches
+    on a line of its own; returns their launches summed."""
     total = {}
-    for phase, run in ((12, oute_slice), (13, marvis_slice)):
+    for phase, run in phases:
         t_phase = time.perf_counter()
         counts = run(dev, card)
         log(f"phase {phase} launches: { {n: c for n, c in counts.items() if c} }")
@@ -5072,6 +5582,9 @@ def main() -> None:
         return
     if "--tts-only" in sys.argv[1:]:  # phases 1, 2, 12 and 13
         print_result([], tts_slices(dev, card))
+        return
+    if "--cosyvoice-only" in sys.argv[1:]:  # phases 1, 2 and 14
+        print_result([], tts_slices(dev, card, ((14, cosyvoice_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -5242,9 +5755,9 @@ def main() -> None:
     log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
     torch.cuda.empty_cache()
 
-    # ------------------------------------------- 12. OuteTTS, 13. Marvis
+    # ------------------------------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2
     # their launches, too, go on lines of their own
-    tts_slices(dev, card)
+    tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice)))
     print_result(rows, launches)
 
 

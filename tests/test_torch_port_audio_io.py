@@ -16,6 +16,7 @@ from tpu_audio_torch.api.results import AudioResult
 from tpu_audio_torch.api.stt import STTEngineBase
 from tpu_audio_torch.ops import resample as tresample
 from tpu_audio_torch.utils import audio_io
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 
 def signal(n: int, channels: int = 1, seed: int = 0) -> np.ndarray:

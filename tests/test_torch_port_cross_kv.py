@@ -21,6 +21,7 @@ import torch
 from tests.test_cross_kv_attention import ref_attention
 from tpu_audio.ops.pallas import cross_kv_attention as jckv
 from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -33,6 +33,7 @@ from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.outetts.engine import OuteTTSEngine
 from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.utils import pytree, weights
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 TINY = dict(encoder_dim=8, encoder_rates=(2, 4, 5, 8), decoder_dim=64, decoder_rates=(8, 5, 4, 2),
             n_codebooks=2, codebook_size=32, codebook_dim=4, latent_dim=128)

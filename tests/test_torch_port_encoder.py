@@ -20,6 +20,7 @@ from tpu_audio.ops.pallas import fused_encoder as jfe
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.nn import attention, layers
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -33,6 +33,7 @@ from tpu_audio_torch.models.whisper.config import WhisperConfig
 from tpu_audio_torch.nn import attention as tattention
 from tpu_audio_torch.nn import transformer
 from tpu_audio_torch.ops.kernels import encoder_attention as ea
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -19,6 +19,7 @@ from tpu_audio.ops import windows as jwindows
 from tpu_audio_torch.models.whisper import pipeline as tpipeline
 from tpu_audio_torch.ops import frontends, mel_filters, stft, windows
 from tpu_audio_torch.ops.kernels import fused_mel
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

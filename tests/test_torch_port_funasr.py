@@ -39,6 +39,7 @@ from tpu_audio_torch.nn import transformer as tt
 from tpu_audio_torch.ops import frontends as tfront
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.utils.tokenizer import load_tokenizer
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 ENC = dict(input_dim=560, encoder_dim=32, num_heads=4, ffn_dim=64, num_encoders0=1,
            num_encoders=2, num_tp_encoders=1, kernel_size=5)

@@ -33,6 +33,7 @@ from tpu_audio_torch.models.funasr.model import QWEN3_06B
 from tpu_audio_torch.models.orpheus.model import LLAMA_3B
 from tpu_audio_torch.ops.kernels import fused_step as fs
 from tpu_audio_torch.tools import fused_step_split
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 PARENT = Path(__file__).resolve().parent / "data" / "fused_step_parent"
 GRIDS = (114, 132)

@@ -41,6 +41,7 @@ from tpu_audio_torch.ops.kernels import _build
 from tpu_audio_torch.ops.kernels import encoder_attention as ea
 from tpu_audio_torch.ops.kernels import fused_encoder as fe
 from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 B, H, HD = 2, 4, 64
 

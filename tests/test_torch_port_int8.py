@@ -29,6 +29,7 @@ from tpu_audio_torch.models.whisper import load as tload
 from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

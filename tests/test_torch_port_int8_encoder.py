@@ -53,6 +53,7 @@ from tpu_audio_torch.ops.kernels import fused_encoder as fe
 from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
 from tpu_audio_torch.ops.kernels.int8_matmul import quantize_rows
 from tpu_audio_torch.ops.kvcache import KVCache
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

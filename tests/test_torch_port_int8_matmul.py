@@ -22,6 +22,7 @@ from tpu_audio.ops.pallas import int8_matmul as ji8
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
 from tpu_audio_torch.tools import int8_split
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 PARENT = Path(__file__).resolve().parent / "data" / "int8_matmul_parent"
 H100_SMS = (132, 114)  # SXM, PCIe

@@ -37,6 +37,7 @@ from tpu_audio_torch.ops import decoding as tdec
 from tpu_audio_torch.ops import sampling as tsamp
 from tpu_audio_torch.ops.kernels import fused_step as fs
 from tpu_audio_torch.ops.kvcache import FusedKVCache
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 LLM = dict(dim=128, n_layers=2, n_heads=2, n_kv_heads=1, hidden_dim=512, vocab_size=300,
            qk_norm=True, tie_word_embeddings=True, norm_eps=1e-6, rope_theta=1e6)
@@ -355,5 +356,6 @@ def test_unported_parts_raise():
     cache = tt.make_cache(tcfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tt.forward_hidden({}, tcfg, torch.zeros(1, 1, 128), cache, axis_name="tp")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tsamp.sample(torch.zeros(1, 10), tsamp.SamplerConfig(ras=True))
+    # RAS is ported (ROADMAP A11); its options without a recent window draw plainly
+    assert tsamp.sample(torch.zeros(1, 10), tsamp.SamplerConfig(ras=True),
+                        noise=torch.arange(10.0)[None]).tolist() == [9]

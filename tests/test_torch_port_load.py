@@ -57,6 +57,7 @@ from tpu_audio_torch.nn.transformer import TransformerConfig
 from tpu_audio_torch.ops import quant
 from tpu_audio_torch.ops.sampling import SamplerConfig
 from tpu_audio_torch.utils import pytree, weights
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

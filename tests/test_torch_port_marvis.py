@@ -41,6 +41,7 @@ from tpu_audio_torch.models.marvis import model as tmodel
 from tpu_audio_torch.models.marvis.engine import MarvisEngine
 from tpu_audio_torch.nn import transformer as tt
 from tpu_audio_torch.utils import pytree, weights
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 MIMI = dict(dimension=32, n_filters=4, ratios=(4, 3, 2), t_layers=2, t_heads=4, t_ff=64, n_q=4,
             bins=16, q_dim=8)

@@ -25,6 +25,7 @@ from tpu_audio_torch.models.whisper import pipeline as tpipeline
 from tpu_audio_torch.ops import frontends, mel_filters, windows
 from tpu_audio_torch.ops.kernels import _build, fused_mel
 from tpu_audio_torch.tools import mel_split
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 PARENT = Path(__file__).resolve().parent / "data" / "fused_mel_parent"
 CPU = torch.device("cpu")

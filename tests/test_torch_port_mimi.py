@@ -28,6 +28,7 @@ from tpu_audio_torch.codecs.mimi import model as tmimi
 from tpu_audio_torch.codecs.mimi import streaming as tstreaming
 from tpu_audio_torch.models.marvis import load as tload
 from tpu_audio_torch.utils import pytree, weights
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 TINY = dict(dimension=32, n_filters=4, ratios=(4, 3, 2), t_layers=2, t_heads=4, t_ff=64, n_q=4,
             bins=16, q_dim=8)

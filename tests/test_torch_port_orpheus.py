@@ -43,6 +43,7 @@ from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.nn import transformer as tt
 from tpu_audio_torch.ops import sampling
 from tpu_audio_torch.ops.sampling import SamplerConfig
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 LLM = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64, hidden_dim=512,
            vocab_size=640, rope_theta=500000.0, rope_scaling=dict(jm.LLAMA_3B.rope_scaling),
@@ -237,8 +238,8 @@ def test_frames_prompts_and_unported_paths(tmp_path, monkeypatch):
         TTS.orpheus().load()
     with pytest.raises(NotImplementedError, match="A9"):
         TTS.orpheus(mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        TTS.cosyvoice2()
+    with pytest.raises(NotImplementedError, match="A12"):
+        TTS.cosyvoice3()
     assert isinstance(TTS.orpheus(), OrpheusEngine)
 
 

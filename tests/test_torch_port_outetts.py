@@ -52,6 +52,7 @@ from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops import sampling
 from tpu_audio_torch.ops.sampling import SamplerConfig
 from tpu_audio_torch.utils import pytree
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 LLM = dict(dim=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64, hidden_dim=512,
            vocab_size=512, rope_theta=500000.0, tie_word_embeddings=True,
@@ -409,8 +410,7 @@ def test_unported_options_and_factories(tmp_path, monkeypatch):
         eng.load()
     with pytest.raises(ModelLoadError, match="whisper"):
         eng.create_speaker(np.zeros(1600, np.float32), 16000)
-    for name, item in (("cosyvoice2", "A11"), ("cosyvoice3", "A12"), ("chatterbox", "A13"),
-                       ("kokoro", "A14")):
+    for name, item in (("cosyvoice3", "A12"), ("chatterbox", "A13"), ("kokoro", "A14")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(TTS, name)()
 

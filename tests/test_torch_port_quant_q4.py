@@ -32,6 +32,7 @@ from tpu_audio_torch.nn import layers as tlayers
 from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import quant_matmul as qmm
 from tpu_audio_torch.tools import quant_split, quant_timeline
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 PARENT = Path(__file__).resolve().parent / "data" / "quant_matmul_parent"
 
@@ -204,6 +205,21 @@ def test_wrapper_launches_nothing_on_cpu_and_refuses_other_devices(rng):
     assert qmm.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         qmm.quant_matmul(x.to("meta"), q["weight_q4"], q["scales"], q["biases"])
+
+
+def test_leaf_made_under_inference_mode_runs_on_cpu(rng):
+    """A q4 leaf quantised under `torch.inference_mode()` (inference
+    tensors carry no version counter) goes through `linear` on the CPU, in
+    and out of that mode, equal to the plain product bit for bit."""
+    w = torch.from_numpy((rng.standard_normal((96, 128)) * 0.05).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, 128)).astype(np.float32))
+    with torch.inference_mode():
+        q = tquant.quantize_tree({"w": {"weight": w}}, bits=4)["w"]
+        assert q["weight_q4"].is_inference()
+        inside = tlayers.linear(q, x)
+    ref = qmm.quant_matmul_plain(x, q["weight_q4"], q["scales"], q["biases"])
+    assert torch.equal(inside, ref)
+    assert torch.equal(tlayers.linear(q, x), ref)
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -31,6 +31,7 @@ from tpu_audio.utils import pytree as jpytree
 from tpu_audio.utils import weights as jweights
 from tpu_audio_torch.api.errors import ModelLoadError
 from tpu_audio_torch.utils import hub, pytree, weights
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,6 +30,7 @@ from tpu_audio.models.whisper.tokenizer import WhisperTokenizer as JWhisperToken
 from tpu_audio_torch.models.whisper import tokenizer as ttokenizer
 from tpu_audio_torch.utils import _unicode
 from tpu_audio_torch.utils.tokenizer import ByteFallbackTokenizer, HFTokenizer, load_tokenizer
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLD = ROOT / "tests" / "data" / "tokenizer_golden"

@@ -33,6 +33,7 @@ from tpu_audio_torch.ops import quant as tquant
 from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
 from tpu_audio_torch.tools import w4a8_order, w4a8_split
 from tpu_audio_torch.utils import pytree
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 ENTRIES = ("w4a8_matmul", "w4a8_matmul_stacked", "w4a8_sg_matmul", "w4a8_sg_matmul_stacked")
 

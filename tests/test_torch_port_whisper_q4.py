@@ -45,6 +45,7 @@ from tpu_audio_torch.models.whisper import timing as ttiming
 from tpu_audio_torch.models.whisper.config import WhisperConfig
 from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
 from tpu_audio_torch.ops.kernels import fused_whisper_step as fws
+from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

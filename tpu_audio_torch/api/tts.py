@@ -8,9 +8,10 @@ lock (held for the whole life of a stream); stop() is lock-free and
 cancels the generation in flight, and a new stream starts afresh.
 
 Ported engines: Orpheus (`models/orpheus/`), OuteTTS (`models/outetts/`,
-with DAC) and Marvis (`models/marvis/`, with Mimi). The other factories
-(Kokoro A14, Chatterbox and Chatterbox Turbo A13, CosyVoice2 A11,
-CosyVoice3 A12) raise naming their ROADMAP items; playback (`say`) is A18.
+with DAC), Marvis (`models/marvis/`, with Mimi) and CosyVoice2
+(`models/cosyvoice2/`, with S3Gen and the S3 tokenizer). The other
+factories (Kokoro A14, Chatterbox and Chatterbox Turbo A13, CosyVoice3
+A12) raise naming their ROADMAP items; playback (`say`) is A18.
 """
 
 from __future__ import annotations
@@ -211,8 +212,17 @@ class TTS:
         _not_ported("Chatterbox Turbo", "A13")
 
     @staticmethod
-    def cosyvoice2():
-        _not_ported("CosyVoice2", "A11")
+    def cosyvoice2(quantization: str = "w8a8", mesh=None, speculative=None,
+                   device="cuda"):
+        """quantization: how `load()` serves the 4-bit LM ("w8a8", "w4a8"
+        or "q4"); mesh= and speculative= are ROADMAP A9 and raise; device:
+        the card unless the caller asks for the CPU. For `load()`:
+        `CosyVoice2Engine.from_params` is a classmethod that builds its own
+        engine on its trees' device."""
+        from tpu_audio_torch.models.cosyvoice2.engine import CosyVoice2Engine
+
+        return CosyVoice2Engine(quantization=quantization, mesh=mesh, speculative=speculative,
+                                device=device)
 
     @staticmethod
     def cosyvoice3():

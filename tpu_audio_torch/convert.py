@@ -20,13 +20,18 @@ in the JAX tree) becomes torch's depthwise (C, 1, K). The weight-normalised
 convolutions of SNAC ("weight_v", "weight_g") go from (K, I, O) to torch's
 (O, I, K), and under "convT", a transposed convolution, to torch's
 (I, O, K). Mimi, whose conv kernels sit under other names, applies its own
-rule (`codecs/mimi/model.params_from_numpy`).
+rule (`codecs/mimi/model.params_from_numpy`). The S3 family (the S3
+tokenizer, S3Gen, CAMPPlus), whose kernels sit under many names, goes
+through `s3_params_from_numpy`, which reads a kernel by its rank
+(`s3_perm`) and keeps BatchNorm statistics and Snake alphas in float32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpu_audio_torch.utils import pytree
 
 
 KEEP_F32 = ("scale_i8", "scales", "biases", "scales_sg")  # f32 at any dtype
@@ -36,7 +41,7 @@ WN_KEYS = ("weight_v", "weight_g")  # weight-normalised conv kernels, under any 
 
 def _leaf(a, perm, device, dtype) -> torch.Tensor:
     if isinstance(a, torch.Tensor):  # a tensor already (on any device)
-        t = a.permute(*perm) if perm is not None and a.dim() == 3 else a
+        t = a.permute(*perm) if perm is not None and a.dim() == len(perm) else a
         t = t.contiguous()
         if t.is_floating_point():
             t = t.to(dtype)
@@ -46,7 +51,7 @@ def _leaf(a, perm, device, dtype) -> torch.Tensor:
         a = np.ascontiguousarray(a).view(np.int32)
     elif a.dtype.kind not in "iub":
         a = a.astype(np.float32)  # also widens bfloat16 leaves, unknown to torch
-    if perm is not None and a.ndim == 3:
+    if perm is not None and a.ndim == len(perm):
         a = a.transpose(*perm)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if t.is_floating_point():
@@ -91,3 +96,35 @@ def params_from_numpy(tree: dict, device: torch.device | str = "cuda",
             out[name] = _leaf(value, perm, device,
                               torch.float32 if name in KEEP_F32 else dtype)
     return out
+
+
+S3_CONV_T_KEYS = ("ups",)  # the S3 family's transposed convolutions
+S3_KEEP_F32 = KEEP_F32 + ("running_mean", "running_var", "alpha")  # BatchNorm stats, Snake
+
+
+def s3_perm(key: str, rank: int) -> tuple | None:
+    """The permutation that takes the leaf at dotted `key` of an S3-family
+    tree, of rank `rank`, from the JAX layout to torch's. Every 3-D "weight"
+    there is a convolution kernel (K, I, O) and no linear weight is 3-D: it
+    becomes (O, I, K), or (I, O, K) under "ups" (HiFT's transposed
+    convolutions, ups.{i}.weight); a 4-D one (CAMPPlus's (KH, KW, I, O))
+    becomes (O, I, KH, KW)."""
+    parts = key.split(".")
+    if parts[-1] != "weight" or rank not in (3, 4):
+        return None
+    if rank == 4:
+        return (3, 2, 0, 1)
+    parent = next((p for p in reversed(parts[:-1]) if not p.isdigit()), "")
+    return (1, 2, 0) if parent in S3_CONV_T_KEYS else (2, 1, 0)
+
+
+def s3_params_from_numpy(tree: dict, device: torch.device | str = "cuda",
+                         dtype: torch.dtype = torch.float32) -> dict:
+    """A JAX-layout tree of the S3 family (S3 tokenizer, S3Gen, CAMPPlus;
+    numpy arrays, anything `np.asarray` takes, or tensors) → the port's
+    tree on `device` (the card unless the caller asks for the CPU), by
+    `s3_perm`, floating leaves in `dtype` but those of S3_KEEP_F32."""
+    return pytree.unflatten({
+        k: _leaf(v, s3_perm(k, np.ndim(v)), device,
+                 torch.float32 if k.rsplit(".", 1)[-1] in S3_KEEP_F32 else dtype)
+        for k, v in pytree.flatten(tree).items()})

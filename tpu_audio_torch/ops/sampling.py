@@ -1,6 +1,7 @@
 """Token sampling on the device (port of tpu_audio/ops/sampling.py:
 SamplerConfig, sample, warp_logits, apply_top_k, apply_top_p, apply_min_p,
-apply_repetition_penalty, update_recent).
+apply_repetition_penalty, update_recent, and repetition-aware sampling;
+`warped_probs` comes with speculative decoding, its only user).
 
 Every operation stays on the logits' device, so a decode loop never reads
 them back. Top-k and top-p are exact (a sort or `torch.topk`); the JAX
@@ -10,8 +11,12 @@ with g = -log(-log(u)), u uniform in (0, 1), drawn from the caller's
 `torch.Generator`, or g handed in as `noise`, so that a test can feed the
 JAX package's own draws (`jax.random.gumbel` of the same key).
 
-Not ported yet: repetition-aware sampling (RAS) and `warped_probs`, which
-come with CosyVoice2 (ROADMAP A11); a config asking for RAS raises.
+Repetition-aware sampling (CosyVoice's RAS, `cfg.ras`): when the drawn
+token occurs more than `ras_max_repeats` times in the last `ras_window`
+tokens of `recent`, it is redrawn from the warped logits with that token
+excluded. A RAS step takes two Gumbel draws, both made every step as the
+JAX sampler makes both: noise (2, B, V), the second for the redraw (JAX:
+`gumbel(key)` and `gumbel(fold_in(key, 1))`).
 """
 
 from __future__ import annotations
@@ -112,19 +117,34 @@ def sample(logits: torch.Tensor, cfg: SamplerConfig, recent: torch.Tensor | None
            noise: torch.Tensor | None = None) -> torch.Tensor:
     """logits (B, V) → token ids (B,) int64. Greedy when temperature == 0;
     otherwise argmax of the warped logits plus Gumbel noise (`noise`, or
-    drawn from `generator`)."""
-    if cfg.ras:
-        raise NotImplementedError("repetition-aware sampling is not ported yet (ROADMAP A11)")
+    drawn from `generator`). With RAS (and `recent`), noise is (2, B, V):
+    the draw, then the redraw of a token repeated too often."""
     if cfg.temperature == 0.0:
         if cfg.repetition_penalty != 1.0 and recent is not None:
             logits = apply_repetition_penalty(logits, recent, cfg.repetition_penalty)
         return logits.argmax(dim=-1)
     logits = warp_logits(logits, cfg, recent)
+    ras = cfg.ras and recent is not None
     if noise is None:
         if generator is None:
             raise ValueError("sampling at temperature > 0 needs a generator or noise")
-        noise = gumbel(logits.shape, generator, logits.device)
-    return (logits + noise).argmax(dim=-1)
+        noise = gumbel(((2,) if ras else ()) + tuple(logits.shape), generator, logits.device)
+    if not ras:
+        return (logits + noise).argmax(dim=-1)
+    tok = (logits + noise[0]).argmax(dim=-1)
+    return ras_resample(logits, tok, recent, cfg, noise[1])
+
+
+def ras_resample(logits: torch.Tensor, tok: torch.Tensor, recent: torch.Tensor,
+                 cfg: SamplerConfig, noise: torch.Tensor) -> torch.Tensor:
+    """The RAS redraw: where tok occurs more than ras_max_repeats times in
+    the last ras_window entries of recent (B, W), argmax(logits + noise)
+    over the warped logits with tok excluded; tok elsewhere."""
+    window = recent[:, -cfg.ras_window:]
+    need = (window == tok[:, None].to(window.dtype)).sum(dim=-1) > cfg.ras_max_repeats
+    excl = logits.scatter(1, tok[:, None], NEG_INF)
+    alt = (excl + noise).argmax(dim=-1)
+    return torch.where(need, alt, tok)
 
 
 def update_recent(recent: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
