@@ -114,7 +114,10 @@ Phases (any failure raises and the script exits non-zero):
      through the logits, at B=1 on both trees and at B=4 on w8a8, the
      plain versions of the route as the yardstick, planted faults in the
      step (pad slots attended, RoPE backwards) and in `int8_matmul` (the
-     last 64 input features dropped) refused; DAC: 150 frames (2 s)
+     last 64 input features dropped) refused, each at least
+     CV_FAULT_RATIO (5×) the plain route's distance, the stack's q and k
+     scaled by 3 for it; one `generate` with speculative="ngram" (its int8
+     matmuls at 5 rows held against their plain versions); DAC: 150 frames (2 s)
      through `_decode_dac` and an `encode`
      of 2 s of noise timed by CUDA events, the card's decode against the
      host's f32 one (rel 1e-4), `extract_codes` → `_decode_dac` on a
@@ -133,7 +136,9 @@ Phases (any failure raises and the script exits non-zero):
      through the logits of all 64 draws (each forced to the f32 path's
      code), the plain versions of the route as the yardstick, two planted
      faults in the step refused and, on w8a8, one in the prefill's
-     `int8_matmul`;
+     `int8_matmul`; `kv_quantized=True` on w8a8 (the backbone per layer
+     over the int8 cache: FRAME streaming, its codebook-0 logits against
+     the bf16 cache's, the scales dropped on read refused);
      the streaming Mimi decoder against the whole decode (rel 1e-4).
  14. (run last) CosyVoice2 at full width on random weights
      (`CosyLMConfig()`'s Qwen2-0.5B, `S3GenConfig()`,
@@ -150,8 +155,25 @@ Phases (any failure raises and the script exits non-zero):
      distance (the qkv bias, the GQA group, RoPE, the head's bias); a
      short W4A8 `generate`; the flow's ms a window and HiFT's ms a chunk;
      HiFT's streamed windows against one pass (rel 1e-4, f32).
-     Phases 12, 13 and 14 print their walls and their launches on lines
-     of their own.
+ 15. (run last) Speculative decoding: Orpheus at Llama-3.2-3B width on
+     the w8a8 and W4A8 trees through `TTS.orpheus(speculative=…)`, by
+     prompt lookup and by a Llama-3.2-1B `DraftModel` (w8a8), and
+     CosyVoice2's speculative token stream: every int8 and W4A8 matmul call
+     (the verify's 5 rows) held against its plain version, launches, ms
+     and tokens an iteration; each route's loop (sampled) held against f32
+     (verify and draft logits against a fresh prefill of the true prefix)
+     with the target rewound one short and the draft not rewound planted;
+     the accept step's marginal (χ²) with the residual taken from p.
+ 16. (run last) CosyVoice3 at the published widths (the Qwen2-0.5B LM on
+     w8a8, `CV3FlowConfig()`'s DiT 1024 × 22 and HiFT in bf16,
+     `S3TokenizerConfig()`) through `TTS.cosyvoice3()`: the speaker, two
+     sentences streamed at TOKEN granularity, voice conversion, the LM
+     against f32 with its faults, the O(1) flow against the full window
+     (f32), the flow's and HiFT's ms a chunk, the O(1) flow's drift over
+     40 chunks.
+     Phases 12 to 16 print their walls and their launches on lines of
+     their own. Every end-to-end control must read at least 5× the plain
+     route's distance from f32; each prints its ratio.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
 seven planted faults (a partial last row tile among them), `attn_oproj_ln`
@@ -210,6 +232,8 @@ of the checkpoint, tokenizer and audio-file layer on the card (~30 s).
 check of the OuteTTS and Marvis engines, DAC and Mimi.
 `python3 chip_smoke.py --cosyvoice-only` runs phases 1, 2 and 14: a short
 check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
+`python3 chip_smoke.py --spec-only` runs phases 1, 2 and 15 (speculative
+decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -273,7 +297,7 @@ HD64_STACK = dict(dim=2048, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=64, h
 FUNASR_CLIP_SECONDS = 10     # phase 8's clip
 FUNASR_MAX_NEW = 48          # tokens per transcribe (random weights rarely stop early)
 FUNASR_CACHE = 1024          # prompt (~370 slots for 10 s) + new tokens
-ORPHEUS_MAX_NEW = 196       # phase 10's tokens per generate (28 frames)
+ORPHEUS_MAX_NEW = 98        # phase 10's tokens per generate (14 frames)
 ORPHEUS_BATCH = 8            # phase 10's generate_batch rows
 # the 3b model of benchmarks/llm_decode.py (its --w4a8sg tree): Llama-3.2-3B
 # layers, vocab 128266, an untied head, RoPE theta 10000 unscaled
@@ -293,6 +317,8 @@ OUTE_STREAM_TEXT = ("This first sentence is long enough to stand on its own. "
                     "And a second one, to make two.")
 OUTE_TEXTS = ORPHEUS_TEXTS[:4]
 OUTE_HELD_STEPS = 8          # phase 12's steps held against f32, each fed the f32 path's token
+QK_SCALE = 3.0               # held trees where a fault of positions must show: q, k rows × this
+ORPHEUS_SCALE_SPREAD = 2.0   # phase 10's held W4A8 tree for the scale swap: odd / even groups
 DAC_FRAMES = 150             # 2 s at 75 frames a second
 DAC_REL = 1e-4               # the card's f32 DAC decode against the host's
 MARVIS_MAX_FRAMES = 25       # phase 13's frames a sentence: 2 s at 12.5 Hz
@@ -311,6 +337,17 @@ CV_TIMED_NEW = (32, 160)     # the LM alone: generate at these max_new; ms a tok
 CV_VOC_ENDS = (40, 80, 120)  # the streamed HiFT windows' right edges (mel frames)
 CV_VOC_EDGE = 16             # frames before a window's edge outside its right context
 CV_VOC_REL = 1e-4            # the streamed HiFT windows against one generate, f32
+SPEC_GAMMA = 4               # phase 15's drafts a verify: 5 rows through the int8 and W4A8 matmuls
+SPEC_NEW = 32                # phase 15's tokens a sentence through the Orpheus engine
+SPEC_CV_TEXT = "Spans of drafts stream this."  # phase 15's CosyVoice2 sentence: 100 tokens
+SPEC_HELD_NEW = 12           # phase 15's loops held against f32: tokens a loop
+SPEC_CHI2_ROWS = 100_000     # phase 15's accept step on the card: rows in one call
+SPEC_CHI2_LIMIT = 20.5       # χ²(5) at p-value 1e-3: the accept step's marginal against p
+KV8_REL = 5e-2               # phase 13: the int8 cache's backbone logits against the bf16 cache's
+CV3_STREAM_TEXTS = CV_TEXTS  # phase 16's two sentences
+CV3_O1_CHUNKS = 3            # phase 16's aligned chunks of the O(1) flow against the full window
+CV3_O1_REL = 1e-4            # ... in f32
+CV3_DRIFT_CHUNKS = 40        # phase 16's O(1) stream for the drift of its chunk times
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -402,6 +439,32 @@ def planted_faults(name: str, outputs, faults, rel: float) -> None:
         log(f"control {name}, {label}: {text}: outside the limit")
 
 
+UNDER_FAULT_RATIO: list = []  # controls read under CV_FAULT_RATIO, refused at the end
+
+
+def control_ratio(tag: str, label: str, ratios, text: str,
+                  yardstick: str = "the plain route's distance from f32") -> float:
+    """An end-to-end control's reading: the largest of `ratios` (each
+    output's distance from f32 over the plain route's, or over another
+    `yardstick`). Logs it; a reading under CV_FAULT_RATIO is kept and
+    refused by `refuse_weak_controls`, after every phase has printed its
+    readings."""
+    ratio = max(ratios)
+    seen = ratio >= CV_FAULT_RATIO
+    log(f"control {tag}, {label}: {text}: {ratio:.3f}x {yardstick} "
+        + (f"(>= {CV_FAULT_RATIO}x)" if seen else f"UNDER {CV_FAULT_RATIO}x"))
+    if not seen:
+        UNDER_FAULT_RATIO.append(f"{tag} {label}: {ratio:.3f}x")
+    return ratio
+
+
+def refuse_weak_controls() -> None:
+    """Raise if an end-to-end control read under CV_FAULT_RATIO."""
+    if UNDER_FAULT_RATIO:
+        raise AssertionError(f"controls under {CV_FAULT_RATIO}x the plain route's distance "
+                             f"from f32: {UNDER_FAULT_RATIO}")
+
+
 def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: bool,
                      p_cos=None) -> None:
     """End to end: each of `out` at most SLICE_RATIO times as far from the
@@ -411,7 +474,8 @@ def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: 
     cosine at most SLICE_RATIO times the plain path's. Where the plain path
     equals `exact` (p_err 0: no rounding of its own on that output), the
     output must equal it too. A control (`out` from a planted fault) must
-    land outside on at least one output."""
+    land at least CV_FAULT_RATIO times as far from f32 as the plain path on
+    at least one output (`control_ratio`)."""
     readings = []
     for k, r, pe in zip(out, exact, p_err):
         _, e, c = measure(k, r)
@@ -420,15 +484,15 @@ def held_against_f32(tag: str, outputs, exact, p_err, label: str, out, control: 
                      for name, (q, c) in zip(outputs, readings))
     floors = [0.999] * len(readings) if p_cos is None else [1 - SLICE_RATIO * (1 - c)
                                                             for c in p_cos]
+    if control:
+        control_ratio(tag, label, [q for q, _ in readings], text)
+        return
     inside = all((q == 0.0) if pe == 0 else (q <= SLICE_RATIO and c > f)
                  for (q, c), f, pe in zip(readings, floors, p_err))
-    if inside == control:
-        raise AssertionError(f"{tag} {label}: {text}: "
-                             + ("the check cannot see it" if control else
-                                f"outside ratio {SLICE_RATIO} / cosine "
-                                + ", ".join(f"{f:.6f}" for f in floors)))
-    log(f"{'control ' if control else ''}{tag} {label} against f32: {text}"
-        + (": outside the limit" if control else f" (plain bf16 rel {p_err})"))
+    if not inside:
+        raise AssertionError(f"{tag} {label}: {text}: outside ratio {SLICE_RATIO} / cosine "
+                             + ", ".join(f"{f:.6f}" for f in floors))
+    log(f"{tag} {label} against f32: {text} (plain bf16 rel {p_err})")
 
 
 def events_ms(fn, iters: int = 2) -> float:
@@ -709,9 +773,9 @@ def held_calls(tag: str, mod, names, rel: float):
     readings = {n: [] for n in names}
 
     def held(name, kernel, plain):
-        def run(*args):
-            got = kernel(*args)
-            g, r = got.double(), plain(*args).double()
+        def run(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            g, r = got.double(), plain(*args, **kwargs).double()
             finite = torch.isfinite(g).all().double()
             rel_err = (g - r).abs().max() / r.abs().max()
             cos = (g.flatten() @ r.flatten()) / (g.norm() * r.norm())
@@ -2083,9 +2147,7 @@ def batch_slice(model, tok, clips, dev, card: str):
             readings.append((e_k / measure(p, r)[1], cos_k))
         text = ", ".join(f"{name.split(' (')[0]} ratio {q:.3f} cosine {c:.6f}"
                          for name, (q, c) in zip(outputs, readings))
-        if all(q <= SLICE_RATIO and c > 0.999 for q, c in readings):
-            raise AssertionError(f"slice: the check cannot see {label} ({text})")
-        log(f"control slice, {label}: {text}: outside the limit")
+        control_ratio("slice", label, [q for q, _ in readings], text)
     log(f"phase 4 wall: {time.perf_counter() - t_phase:.1f} s")
 
     return launches, wall, mel
@@ -2234,10 +2296,8 @@ def single_stream(model_i8, tok, clips, mel, dev, card: str) -> dict:
         with patched(fws, "fused_whisper_decode_step", fault):
             faulty = run_path(model_i8, torch.bfloat16)
         _, e_k, cos_k = measure(faulty[1:], exact[1:])
-        text = f"step logits ratio {e_k / p_err:.3f} cosine {cos_k:.6f}"
-        if e_k <= SLICE_RATIO * p_err and cos_k > 0.999:
-            raise AssertionError(f"single-stream: the check cannot see {label} ({text})")
-        log(f"control single-stream, {label}: {text}: outside the limit")
+        control_ratio("single-stream", label, [e_k / p_err],
+                      f"step logits ratio {e_k / p_err:.3f} cosine {cos_k:.6f}")
     return launches
 
 
@@ -3120,14 +3180,15 @@ def llama_params(cfg, dev, seed: int) -> dict:
     return params
 
 
-def orpheus_trees(dev) -> dict:
+def orpheus_trees(dev, sg: bool = True) -> dict:
     """Orpheus's LM at Llama-3.2-3B width on random weights, as its engine
     serves it: "w4a8", the q4 tree (`quantize_tree`, the mlx checkpoint's
     format, tied embedding included) repacked to the pair-packed W4A8
     layout; "w8a8", the same q4 tree requantised to fused per-channel int8
     (the engine's default); and "sg", the super-group tree of
     `benchmarks/llm_decode.py --w4a8sg` at its 3b shape (vocab 128266, an
-    untied head; layers and head requantised, the embedding bf16)."""
+    untied head; layers and head requantised, the embedding bf16), unless
+    sg is False."""
     from tpu_audio_torch.models.orpheus.model import LLAMA_3B
     from tpu_audio_torch.nn.transformer import TransformerConfig
     from tpu_audio_torch.ops import quant
@@ -3137,6 +3198,8 @@ def orpheus_trees(dev) -> dict:
     del params
     trees = {"w4a8": quant.repack_tree_w4a8(q4), "w8a8": quant.requantize_tree_int8(q4)}
     del q4
+    if not sg:
+        return trees
     params = llama_params(TransformerConfig(**SG_3B), dev, SEED + 1)
     q4 = quant.quantize_tree(params, bits=4, predicate=lambda k, v: not k.startswith("embed"))
     del params
@@ -3440,7 +3503,6 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
     from tpu_audio_torch.models.funasr import model as fmodel
     from tpu_audio_torch.nn import transformer
     from tpu_audio_torch.ops import frontends
-    from tpu_audio_torch.utils import pytree
     from tpu_audio_torch.ops.decoding import decode_loop
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
@@ -3547,8 +3609,7 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
                     out.append(lg[:, -1])
             return torch.cat(out).float()
 
-        llm32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
-                                  for k, v in pytree.flatten(llm).items()})
+        llm32 = f32_tree(llm)
         with plain_kernels(*mods):
             exact = run_path(llm32, x.float(), torch.float32)
             plain_out = run_path(llm, x, torch.bfloat16)
@@ -3585,10 +3646,8 @@ def funasr_slice(trees: dict, dev, card: str) -> dict:
             with patched(fs, "fused_decode_step", fault):
                 out = run_path(llm, x, torch.bfloat16)
             _, e_k, cos_k = measure(out[1:], exact[1:])
-            text = f"step logits ratio {e_k / e_p:.3f} cosine {cos_k:.6f}"
-            if e_k <= SLICE_RATIO * e_p and cos_k > 0.999:
-                raise AssertionError(f"funasr {label}: the check cannot see {name} ({text})")
-            log(f"control funasr {label}, {name}: {text}: outside the limit")
+            control_ratio(f"funasr {label}", name, [e_k / e_p],
+                          f"step logits ratio {e_k / e_p:.3f} cosine {cos_k:.6f}")
     return total
 
 
@@ -3624,6 +3683,27 @@ def kernels_per_step(fn, steps: int) -> str:
             f"{busy:.1f} ms = {busy / (1e3 * w):.3f} of the {w:.3f} s traced wall")
 
 
+def spread_scales(tree: dict, spread: float) -> dict:
+    """The tree with the layers' W4A8 weights of every odd group (along the
+    input) `spread` times its even neighbour's (its scales and biases: w =
+    q·s + b), both scaled so that a row's mean square stays as it was, so
+    that neighbouring groups' scales differ and a fault that mixes them up
+    moves the logits (random weights give every group nearly the same
+    scale). The codes are shared."""
+    k = math.sqrt(2 / (1 + spread ** 2))
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {key: walk(v) for key, v in node.items()}
+        if "weight_q4p" in node:
+            odd = torch.arange(node["scales"].shape[-1], device=node["scales"].device) % 2 == 1
+            for name in ("scales", "biases"):
+                out[name] = torch.where(odd, node[name] * (spread * k), node[name] * k)
+        return out
+    return dict(tree, layers=walk(tree["layers"]))
+
+
 def orpheus_slice(trees: dict, dev, card: str) -> dict:
     """Phase 10: Orpheus at Llama-3.2-3B width on random weights through
     `TTS.orpheus()` → `OrpheusEngine.from_params` with the full-size SNAC:
@@ -3643,7 +3723,6 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
     from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
     from tpu_audio_torch.ops.sampling import SamplerConfig
-    from tpu_audio_torch.utils import pytree
 
     mods = (w4mm, fs, i8mm)
     total = {n: 0 for m in mods for n in m.LAUNCHES}
@@ -3790,8 +3869,8 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
     # (the same codes and scales, f32 norms and cache), and the plain path
     # with the bf16 cache as the scale; prefill of 32 slots and 8
     # teacher-forced steps; faults planted in the W4A8 kernels must land
-    # outside.
-    tree = trees["w4a8"]
+    # CV_FAULT_RATIO outside. The swap of neighbouring groups' scales is
+    # held on a tree whose neighbouring groups differ (`spread_scales`).
     prompt, start = eng.lm._prompt(eng._prompt(ORPHEUS_TEXTS[1]), 32)
     forced = [om.CODE_OFFSET + k * om.CODEBOOK_SIZE + 37 * k for k in range(7)] + [om.END_TOKEN]
     off = torch.tensor([start], device=dev)
@@ -3809,24 +3888,6 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
                 out.append(lg[:, -1])
         return torch.cat(out).float()
 
-    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
-                               for k, v in pytree.flatten(tree).items()})
-    with plain_kernels(w4mm):
-        exact = run_path(tree32, torch.float32)
-        plain_out = run_path(tree, torch.bfloat16)
-    del tree32
-    outputs = (f"prefill logits (1, {cfg.vocab_size})", f"step logits (8, {cfg.vocab_size})")
-    parts = (slice(0, 1), slice(1, 9))
-    # the plain path's own cosine to f32 is ~0.998 here (the bf16 cache
-    # through 28 random-weight layers, int8 activations): the cosine is held
-    # relative to it
-    p_err, p_cos = zip(*[measure(plain_out[sl], exact[sl])[1:] for sl in parts])
-    log("orpheus w4a8 plain bf16 path against f32: " + ", ".join(
-        f"{name.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
-        for name, e, c in zip(outputs, p_err, p_cos)))
-    kernel_out = run_path(tree, torch.bfloat16)
-    held_against_f32("orpheus w4a8", outputs, [exact[sl] for sl in parts], p_err, "kernels",
-                     [kernel_out[sl] for sl in parts], control=False, p_cos=p_cos)
     stacked, head = w4mm.w4a8_matmul_stacked, w4mm.w4a8_matmul
     faults = {
         "layer 0 read in every layer": ("w4a8_matmul_stacked",
@@ -3834,17 +3895,36 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
         "group biases dropped in the layers": (
             "w4a8_matmul_stacked", lambda x, w, s, b, li: stacked(x, w, s, torch.zeros_like(b),
                                                                   li)),
-        "even and odd group scales swapped in the layers": (
-            "w4a8_matmul_stacked", lambda x, w, s, b, li: stacked(
-                x, w, s.reshape(-1, 2).flip(-1).reshape(s.shape).contiguous(), b, li)),
         "the head's group biases dropped": (
             "w4a8_matmul", lambda x, w, s, b: head(x, w, s, torch.zeros_like(b))),
     }
-    for label, (name, fault) in faults.items():
-        with patched(w4mm, name, fault):
-            out = run_path(tree, torch.bfloat16)
-        held_against_f32("orpheus w4a8", outputs, [exact[sl] for sl in parts], p_err, label,
-                         [out[sl] for sl in parts], control=True, p_cos=p_cos)
+    swap = {"even and odd group scales swapped in the layers": (
+        "w4a8_matmul_stacked", lambda x, w, s, b, li: stacked(
+            x, w, s.reshape(-1, 2).flip(-1).reshape(s.shape).contiguous(), b, li))}
+    outputs = (f"prefill logits (1, {cfg.vocab_size})", f"step logits (8, {cfg.vocab_size})")
+    parts = (slice(0, 1), slice(1, 9))
+    for label, tree, planted in (
+            ("orpheus w4a8", trees["w4a8"], faults),
+            (f"orpheus w4a8, scales spread {ORPHEUS_SCALE_SPREAD:g}x",
+             spread_scales(trees["w4a8"], ORPHEUS_SCALE_SPREAD), swap)):
+        with plain_kernels(w4mm):
+            exact = run_path(f32_tree(tree), torch.float32)
+            plain_out = run_path(tree, torch.bfloat16)
+        # the plain path's own cosine to f32 is ~0.998 here (the bf16 cache
+        # through 28 random-weight layers, int8 activations): the cosine is
+        # held relative to it
+        p_err, p_cos = zip(*[measure(plain_out[sl], exact[sl])[1:] for sl in parts])
+        log(f"{label} plain bf16 path against f32: " + ", ".join(
+            f"{name.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+            for name, e, c in zip(outputs, p_err, p_cos)))
+        held_against_f32(label, outputs, [exact[sl] for sl in parts], p_err, "kernels",
+                         [run_path(tree, torch.bfloat16)[sl] for sl in parts], control=False,
+                         p_cos=p_cos)
+        for fault, (name, fn) in planted.items():
+            with patched(w4mm, name, fn):
+                out = run_path(tree, torch.bfloat16)
+            held_against_f32(label, outputs, [exact[sl] for sl in parts], p_err, fault,
+                             [out[sl] for sl in parts], control=True, p_cos=p_cos)
     return total
 
 
@@ -4092,6 +4172,39 @@ def cosyvoice2_flat(lm_tree: dict, s3_tree: dict) -> dict:
             v = v.transpose(1, 2, 0) if re.search(r"\.(ups|convT|up_layer)\.",
                                                   "." + rest) else v.transpose(2, 1, 0)
         flat[f"{groups[side]}.{rest}"] = np.ascontiguousarray(v)
+    return flat
+
+
+CV3_FLOW_NAMES = [(".blocks.", ".transformer_blocks."), (".attn.to_out.", ".attn.to_out.0."),
+                  (".ff.fc1.", ".ff.ff.0.0."), (".ff.fc2.", ".ff.ff.2."),
+                  (".input_embed.conv", ".input_embed.conv_pos_embed.conv"),
+                  (".final_norm.linear.", ".norm_out.linear.")]
+
+
+def cosyvoice3_flat(lm_tree: dict, flow_tree: dict) -> dict:
+    """A port CosyVoice2-family LM tree and a JAX-layout CosyVoice3 flow
+    numpy tree → the flat dict that `models/cosyvoice3/load.convert` reads:
+    the LM as `cosyvoice2_flat` writes it; the flow under flow.* with the
+    DiT under upstream CosyVoice's names (decoder.estimator.
+    transformer_blocks.N, to_out.0, ff.ff.0.0, ff.ff.2, conv_pos_embed,
+    norm_out) and a rotary table the loader drops, HiFT under hift.*, each
+    3-D kernel in torch's (O, I, K) ((I, O, K) under ups)."""
+    from tpu_audio_torch.utils import pytree
+
+    flat = cosyvoice2_flat(lm_tree, {})
+    for k, v in pytree.flatten(flow_tree).items():
+        side, rest = k.split(".", 1)
+        v = np.asarray(v)
+        if v.ndim == 3:
+            v = v.transpose(1, 2, 0) if ".ups." in "." + rest else v.transpose(2, 1, 0)
+        if side == "mel2wav":
+            key = f"hift.{rest}"
+        elif side == "decoder_estimator":
+            key = "flow.decoder.estimator." + renamed("." + rest, CV3_FLOW_NAMES)[1:]
+        else:
+            key = f"flow.{k}"
+        flat[key] = np.ascontiguousarray(v)
+    flat["flow.decoder.estimator.rotary_embed.inv_freq"] = np.ones(8, np.float32)
     return flat
 
 
@@ -4569,7 +4682,29 @@ def step_counter(gen) -> dict:
     return steps
 
 
-def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool) -> None:
+def sharpened(params: dict, cfg, factor: float) -> dict:
+    """The stack with the q and k rows of its fused qkv leaf × factor (the
+    fp rows, the int8 rows' scales, or the W4A8 rows' group scales and
+    biases), so that q·k grows by factor² and
+    attention is peaked: random weights leave it nearly uniform, and then
+    a fault of the positions (RoPE) barely moves the logits."""
+    qkv = params["layers"]["attn"]["qkv"]
+    rows = (cfg.n_heads + cfg.kv_heads) * cfg.hd
+    new = {}
+    for name in ("weight", "scale_i8", "scales", "biases"):  # fp, int8, W4A8 (w = q·s + b)
+        if name in qkv:
+            leaf = qkv[name].clone()
+            leaf[:, :rows] = leaf[:, :rows] * factor
+            new[name] = leaf
+    if "weight_i8" in qkv:
+        # a new weight tensor too: the whole-stack step keeps a tree's
+        # scales by the identity of its qkv weight (`fused_step.prepare_stack`)
+        new["weight_i8"] = qkv["weight_i8"].clone()
+    attn = dict(params["layers"]["attn"], qkv=dict(qkv, **new))
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
+def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool, sharpen: bool) -> None:
     """Phase 12, the OuteTTS LM on the kernel route held against f32 through
     its logits: the prefill and OUTE_HELD_STEPS steps, each fed the f32
     path's greedy token. At B=1 (`generate`'s route: the 32-slot prompt
@@ -4580,18 +4715,21 @@ def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool) -> None:
     dtype and a bf16 cache, every other leaf in f32 (f32 activations); the
     reference is the per-op path with every leaf in f32, an f32 cache and
     the plain int8 products; the plain versions of the route are the
-    yardstick (`held_against_f32`). Planted faults must land outside: the
-    prompt's pad slots attended and RoPE turned backwards in the step, and
-    on the int8 tree the last 64 input features dropped in `int8_matmul`
-    (the head's, and at B=4 every linear's)."""
+    yardstick (`held_against_f32`). Planted faults must land at least
+    CV_FAULT_RATIO times as far from f32: the prompt's pad slots attended
+    in the step, and on the int8 tree the last 64 input features dropped in
+    `int8_matmul` (the head's, and at B=4 every linear's); with `sharpen`
+    (the stack's q and k QK_SCALE times the random tree's, `sharpened`, so
+    that attention depends on the positions; at B=1 only) RoPE turned
+    backwards in the step. Peaked attention also grows the int8 route's own
+    distance from f32, which would hide the other faults."""
     from tpu_audio_torch.nn import attention, transformer
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
-    from tpu_audio_torch.utils import pytree
 
-    cfg, fused, steps = gen.cfg, gen.params, OUTE_HELD_STEPS
-    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
-                               for k, v in pytree.flatten(fused).items()})
+    cfg, steps = gen.cfg, OUTE_HELD_STEPS
+    fused = sharpened(gen.params, cfg, QK_SCALE) if sharpen else gen.params
+    tree32 = f32_tree(fused)
     tree_k = dict(tree32, layers=fused["layers"])
 
     def decode(tree, cache, extra, off, tokens, forced):
@@ -4644,12 +4782,12 @@ def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool) -> None:
         x[..., -64:] = 0
         return head(x, w, sc, bias, **kw)
 
-    step_faults = [("the prompt's pad slots attended in the step", fs, "fused_decode_step",
-                    pads_attended),
-                   ("RoPE turned backwards in the step", fs, "fused_decode_step",
-                    rope_backwards)]
-    int8_fault = [("the last 64 input features dropped in int8_matmul", i8mm, "int8_matmul",
-                   k_tail_dropped)]
+    step_faults = [("RoPE turned backwards in the step", fs, "fused_decode_step",
+                    rope_backwards)] if sharpen else [
+        ("the prompt's pad slots attended in the step", fs, "fused_decode_step",
+         pads_attended)]
+    int8_fault = [] if sharpen else [("the last 64 input features dropped in int8_matmul",
+                                      i8mm, "int8_matmul", k_tail_dropped)]
     def int8_calls(rows: int, linears: int) -> int:  # int8_matmul(_stacked) launches
         return linears * (int8 and rows <= i8mm.MAX_ROWS)
 
@@ -4657,7 +4795,7 @@ def oute_against_f32(tag: str, gen, prompts: list, dev, int8: bool) -> None:
     pad_b = -(-max(len(p) for p in prompts) // 32) * 32
     cases = [("B=1", single, steps, int8_calls(prompt.shape[0], every) + steps * int8,
               step_faults + (int8_fault if int8 else []))]
-    if int8:
+    if int8 and not sharpen:
         b = len(prompts)
         cases.append((f"B={b}", batch, 0, int8_calls(b * pad_b, every)
                       + steps * int8_calls(b, every), int8_fault))
@@ -4814,8 +4952,32 @@ def oute_slice(dev, card: str) -> dict:
         log(f"{tag} generate_batch: {wall / (OUTE_MAX_NEW - 1) * 1e3:.2f} ms a step at "
             f"B={len(OUTE_TEXTS)} (wall over {OUTE_MAX_NEW - 1} steps, prefill and DAC "
             f"included) ({card})")
-        oute_against_f32(tag, eng.lm, [eng.tokenizer.encode(oe.build_prompt(t, None))
-                                       for t in OUTE_TEXTS], dev, kind == "w8a8")
+        for sharpen in (False, True):
+            oute_against_f32(tag + (" q/k x3" if sharpen else ""), eng.lm,
+                             [eng.tokenizer.encode(oe.build_prompt(t, None))
+                              for t in OUTE_TEXTS], dev, kind == "w8a8", sharpen)
+        del eng
+        if kind != "w8a8":
+            continue
+        # speculative="ngram": the verify per layer on the plain cache, its
+        # int8 matmuls at SPEC_GAMMA + 1 rows held against their plain versions
+        tag = "oute w8a8 speculative ngram"
+        eng = TTS.oute(speculative="ngram", gamma=SPEC_GAMMA, device=dev).from_params(
+            tree, cfg, dac_params, dac_cfg, speculative="ngram", gamma=SPEC_GAMMA)
+        eng.speaker = None
+        with held_calls(tag, i8mm, int8, 1e-5):
+            res, launches, wall = counted_run(
+                tag, mods, total, f"generate ({SPEC_NEW} tokens)", ("int8_matmul",),
+                lambda: eng.generate(OUTE_TEXTS[0], max_new_tokens=SPEC_NEW),
+                absent=("fused_decode_step",) + others)
+        st = eng.lm.last_spec_stats
+        if not (np.isfinite(res.samples).all() and st["iterations"]):
+            raise AssertionError(f"{tag}: non-finite audio or no iterations: {st}")
+        log(f"{tag}: {st['iterations']} iterations, {st['accepted']} of {st['drafted']} drafts "
+            f"accepted, {st['tokens_per_iteration']:.3f} tokens an iteration, {wall:.3f} s "
+            f"(DAC included), launches an iteration " + ", ".join(
+                f"{n} {c / st['iterations']:.1f}" for n, c in launches.items() if c)
+            + f" ({card})")
         del eng
 
     # ------------------------------------------------ DAC
@@ -4896,7 +5058,7 @@ def marvis_slice(dev, card: str) -> dict:
     from tpu_audio_torch.nn import transformer
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
-    from tpu_audio_torch.utils import pytree, weights
+    from tpu_audio_torch.utils import weights
 
     mods = (fs, i8mm)
     total = {n: 0 for m in mods for n in m.LAUNCHES}
@@ -5030,8 +5192,7 @@ def marvis_slice(dev, card: str) -> dict:
     for kind, quantization in (("bf16", None), ("w8a8", "w8a8")):
         tag = f"marvis {kind} frames"
         fused = MarvisEngine._fuse(MarvisEngine._quantize(params, quantization))
-        tree32 = pytree.unflatten({name: v.float() if v.is_floating_point() else v
-                                   for name, v in pytree.flatten(fused).items()})
+        tree32 = f32_tree(fused)
         tree_k = dict(tree32, backbone=fused["backbone"], decoder=fused["decoder"])
         record["forced"] = None
         with plain_kernels(fs, i8mm):
@@ -5062,7 +5223,75 @@ def marvis_slice(dev, card: str) -> dict:
             held_against_f32(tag, outputs, exact, p_err, label, out, control=True,
                              p_cos=p_cos)
         del fused, tree32, tree_k
-    del eng
+
+    # ------------------------------------------------ the int8 KV cache
+    # `kv_quantized=True` on the w8a8 tree: FRAME streaming with the
+    # backbone per layer over the int8 cache (no backbone step launch, the
+    # depth decoder's k a frame), and the backbone's codebook-0 logits of
+    # the prefill and one frame (greedy, each draw forced to the bf16
+    # cache's) against the same with a bf16 KVCache, within KV8_REL and
+    # cosine 0.999; the scales dropped on read must land CV_FAULT_RATIO as
+    # far from the bf16 cache's logits as the int8 cache's own
+    from tpu_audio_torch.ops.kvcache import QuantizedKVCache
+
+    tag = "marvis w8a8 kv_quantized"
+    kv8 = TTS.marvis("max", device=dev).from_params(params, cfg, mimi_params, mimi_cfg,
+                                                    max_frames=MARVIS_MAX_FRAMES,
+                                                    quantization="w8a8", kv_quantized=True)
+    kv8.quality = "max"
+    if not kv8._depth_fused or kv8._bb_fused:
+        raise AssertionError(f"{tag}: want the depth decoder's step and no backbone step")
+    chunks, launches, wall = counted_run(
+        tag, mods, total, "FRAME streaming", ("fused_decode_step",),
+        lambda: list(kv8.generate_streaming(MARVIS_TEXT, granularity=StreamingGranularity.FRAME)))
+    audio = np.concatenate([c.samples for c in chunks])
+    frames = len(audio) // mimi_cfg.hop
+    if (launches["fused_decode_step"] != k * frames or not np.isfinite(audio).all()
+            or frames != MARVIS_MAX_FRAMES
+            or not launches["int8_matmul"] + launches["int8_matmul_stacked"]):
+        raise AssertionError(f"{tag}: {frames} frames, launches {launches}, want "
+                             f"{k * frames} fused_decode_step (the depth decoder's alone)")
+    log(f"{tag} FRAME streaming: {frames} frames in {wall:.3f} s, "
+        f"{1e3 * wall / frames:.2f} ms a frame (the Mimi decode included); launches "
+        f"{launches} ({card})")
+    fused = MarvisEngine._fuse(MarvisEngine._quantize(params, "w8a8"))
+    tree_k = dict(f32_tree(fused), backbone=fused["backbone"], decoder=fused["decoder"])
+
+    def backbone_logits(quantized: bool):
+        record["logits"] = []
+        with torch.inference_mode(), patched(mm.Sampler, "__call__", sampler):
+            cache = transformer.make_cache(cfg.backbone, 1, s_max, torch.bfloat16,
+                                           quantized=quantized, device=dev)
+            f0, cache = mm.frame_step(tree_k, cfg, tok, msk, cache, extra_mask=extra,
+                                      depth_fused=True, **greedy)
+            if quantized != isinstance(cache, QuantizedKVCache):
+                raise AssertionError(f"{tag}: the backbone's cache is {type(cache).__name__}")
+            mm.frame_step(tree_k, cfg, *kv8._frame_input(f0), cache, extra_mask=extra,
+                          depth_fused=True, **greedy)
+        lg = torch.cat(record["logits"])
+        return torch.cat([lg[:1], lg[k:k + 1]])  # codebook 0 of the prefill and the frame
+
+    record["forced"], record["draws"] = None, []
+    ref = backbone_logits(False)
+    record["forced"], record["draws"] = list(record["draws"]), []
+    got = backbone_logits(True)
+    _, rel, cos = measure(got, ref)
+    if not (rel <= KV8_REL and cos > 0.999):
+        raise AssertionError(f"{tag}: backbone logits rel {rel:.3e} cosine {cos:.6f} against "
+                             f"the bf16 cache's, outside {KV8_REL} / 0.999")
+    log(f"{tag}: the backbone's codebook-0 logits (prefill and a frame) over the int8 cache "
+        f"against the bf16 cache's: rel {rel:.3e}, cosine {cos:.6f} (limit {KV8_REL})")
+
+    def scales_dropped(self, layer, dtype=torch.bfloat16):
+        return self.k_q[layer].to(dtype), self.v_q[layer].to(dtype)
+
+    with patched(QuantizedKVCache, "read_layer", scales_dropped):
+        bad = backbone_logits(True)
+    _, bad_rel, bad_cos = measure(bad, ref)
+    control_ratio(tag, "the scales dropped on read", [bad_rel / rel],
+                  f"rel {bad_rel:.3e} cosine {bad_cos:.6f}",
+                  "the int8 cache's own distance from the bf16 cache's logits")
+    del eng, kv8, fused, tree_k
 
     # ------------------------------------------------ the streaming Mimi decoder
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -5146,11 +5375,9 @@ def cv_against_f32(tag: str, tree: dict, cfg, dev, int8: bool, prompt) -> None:
     from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
     from tpu_audio_torch.ops.kernels import fused_step as fs
     from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
-    from tpu_audio_torch.utils import pytree
 
     steps = CV_HELD_STEPS
-    tree32 = pytree.unflatten({k: v.float() if v.is_floating_point() else v
-                               for k, v in pytree.flatten(tree).items()})
+    tree32 = f32_tree(tree)
     exact_gen = cvlm.CosyLMGenerator(tree32, cfg, cache_dtype=torch.float32)
     route_gen = cvlm.CosyLMGenerator(dict(tree32, llm=dict(tree32["llm"],
                                                             layers=tree["llm"]["layers"])), cfg)
@@ -5219,13 +5446,6 @@ def cv_against_f32(tag: str, tree: dict, cfg, dev, int8: bool, prompt) -> None:
             out = decode(route_gen, True, forced)
         held_against_f32(tag, outputs, parts, p_err, fault, [out[:1], out[1:]], control=True,
                          p_cos=p_cos)
-        ratio = max(measure(o, ex)[1] / pe for o, ex, pe in zip((out[:1], out[1:]), parts,
-                                                                p_err))
-        if ratio < CV_FAULT_RATIO:
-            raise AssertionError(f"{tag} {fault}: {ratio:.3f}× the plain route's distance "
-                                 f"from f32, under {CV_FAULT_RATIO}×")
-        log(f"control {tag} {fault}: {ratio:.3f}× the plain route's distance from f32 "
-            f"(≥ {CV_FAULT_RATIO}×)")
 
 
 def cv_vocoder_stream(s3, s3cfg, mel: torch.Tensor, card: str) -> None:
@@ -5260,6 +5480,31 @@ def cv_vocoder_stream(s3, s3cfg, mel: torch.Tensor, card: str) -> None:
         b -= CV_VOC_EDGE
         compare(f"HiFT streamed windows, frames {a}-{b}, against one generate (f32, {card})",
                 got[a * ups: b * ups], full[0, a * ups: b * ups], rel=CV_VOC_REL)
+
+
+def cosy_lm_trees(lm_cfg, dev) -> tuple[dict, dict]:
+    """CosyVoice2's LM (Qwen2-0.5B of `lm_cfg`) on random weights drawn on
+    the card (seed 0): (the bf16 tree, its q4 tree). q's and k's biases at
+    ±CV_QK_BIAS and the head's at ±1: the init's ±1/√fan_in would leave
+    them ~3 % of what they add to (a trained Qwen2's q and k biases are of
+    the order of its projections, or larger); with them the random stack's
+    attention depends on its positions and its head, so that a fault there
+    shows (v's stays the init's: a large v bias would make every key's
+    value alike)."""
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    bf16 = card_params(cvlm.numpy_params(ShapeRNG(), lm_cfg), dev, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def uniform(t, scale):
+        return ((torch.rand(t.shape, generator=gen, device=dev) * 2 - 1) * scale).to(t.dtype)
+    for name in ("q", "k"):
+        leaf = bf16["llm"]["layers"]["attn"][name]
+        leaf["bias"] = uniform(leaf["bias"], CV_QK_BIAS)
+    bf16["llm_decoder"]["bias"] = uniform(bf16["llm_decoder"]["bias"], 1.0)
+    return bf16, quant.quantize_tree(bf16, bits=4)
 
 
 def cosyvoice_slice(dev, card: str) -> dict:
@@ -5298,22 +5543,7 @@ def cosyvoice_slice(dev, card: str) -> dict:
     int8 = tuple(i8mm.LAUNCHES)
     lm_cfg, s3cfg, tokcfg = cvlm.CosyLMConfig(), s3gen.S3GenConfig(), s3tok.S3TokenizerConfig()
     t0 = time.perf_counter()
-    bf16 = card_params(cvlm.numpy_params(ShapeRNG(), lm_cfg), dev, SEED)
-    # q's and k's biases at ±CV_QK_BIAS and the head's at ±1: the init's
-    # ±1/√fan_in would leave them ~3 % of what they add to (a trained
-    # Qwen2's q and k biases are of the order of its projections, or
-    # larger); with them the random stack's attention depends on its
-    # positions and its head, so that a fault there shows (v's stays the
-    # init's: a large v bias would make every key's value alike)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-
-    def uniform(t, scale):
-        return ((torch.rand(t.shape, generator=gen, device=dev) * 2 - 1) * scale).to(t.dtype)
-    for name in ("q", "k"):
-        leaf = bf16["llm"]["layers"]["attn"][name]
-        leaf["bias"] = uniform(leaf["bias"], CV_QK_BIAS)
-    bf16["llm_decoder"]["bias"] = uniform(bf16["llm_decoder"]["bias"], 1.0)
-    q4 = quant.quantize_tree(bf16, bits=4)
+    bf16, q4 = cosy_lm_trees(lm_cfg, dev)
     trees = {"w8a8": quant.requantize_tree_int8(q4), "bf16": bf16}
     s3 = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1)
     tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
@@ -5452,6 +5682,597 @@ def cosyvoice_slice(dev, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------ 15. speculative decoding
+
+def spec_loop(spec, opened: dict, gamma: int, draft: dict | None = None) -> dict:
+    """The speculative loop, sampled at temperature 1 from a seeded
+    generator (a greedy random stack repeats one token, and a cache that
+    lost copies of it hardly moves the logits), for SPEC_HELD_NEW tokens
+    from `opened` (a target opened by a `spec_against_f32` opener) and, with
+    `draft`, a draft opened alike; each verify's inputs and logits, each
+    draft step's last logits and each accept's n_acc recorded. Returns the
+    records and the result, with the emitted tokens (the first included)."""
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    rec = {"t": [], "d": [], "acc": []}
+    t_step, d_step, acc = opened["step"], draft and draft["step"], spec.accept
+
+    def t_wrap(toks, c):
+        lg, c = t_step(toks, c)
+        rec["t"].append((toks[0].clone(), lg[0].float().clone()))
+        return lg, c
+
+    def d_wrap(toks, c):
+        lg, c = d_step(toks, c)
+        rec["d"].append(lg[0, -1].float().clone())
+        return lg, c
+
+    def a_wrap(*a):
+        n_acc, extra = acc(*a)
+        rec["acc"].append(n_acc[0].clone())
+        return n_acc, extra
+
+    kw = (dict(draft_step=d_wrap, draft_cache=draft["cache"]) if draft else
+          dict(history=opened["hist"], history_len=opened["hist_len"]))
+    gen = torch.Generator(device=opened["first"].device).manual_seed(SEED + 8)
+    with patched(spec, "accept", a_wrap), torch.inference_mode():
+        res = spec.speculative_decode_loop(
+            t_wrap, opened["cache"], opened["first"], opened["second"], SPEC_HELD_NEW, gamma,
+            (), SamplerConfig(temperature=1.0), generator=gen, **kw)
+    k = int(res.iterations)
+    rec["t"], rec["acc"] = rec["t"][:k], [int(a) for a in rec["acc"][:k]]
+    rec["d"] = rec["d"][:k * gamma]
+    rec["seq"] = [int(opened["first"][0])] + res.tokens[0, :int(res.emitted)].tolist()
+    rec["res"] = res
+    return rec
+
+
+def spec_refs(rec: dict, gamma: int, open_t, open_d=None):
+    """The logits of a recorded loop's verifies (and draft steps) recomputed
+    from a fresh prefill on each iteration's true prefix (the prompt and the
+    tokens emitted before it), by `open_t(…)` / `open_d(…)`: (verify rows
+    ((gamma + 1) · iterations, V), draft rows (gamma · iterations, V) or
+    None)."""
+    seq, i, t_rows, d_rows = rec["seq"], 0, [], []
+    for it, (t_in, _) in enumerate(rec["t"]):
+        if int(t_in[0]) != seq[i]:
+            raise AssertionError(f"speculative loop: iteration {it} verifies from {int(t_in[0])}, "
+                                 f"not the last emitted token {seq[i]}")
+        with torch.inference_mode():
+            o = open_t()
+            step, cache = o["step"], o["cache"]
+            if i:
+                _, cache = step(torch.tensor([seq[:i]], device=t_in.device), cache)
+            t_rows.append(step(t_in[None], cache)[0][0].float())
+            if open_d is not None:
+                o = open_d()
+                step, cache = o["step"], o["cache"]
+                d_seq = [int(o["second"][0])] + seq
+                if i:
+                    _, cache = step(torch.tensor([d_seq[:i]], device=t_in.device), cache)
+                lg, cache = step(torch.tensor([d_seq[i:i + 2]], device=t_in.device), cache)
+                d_rows.append(lg[0, -1:].float())
+                for g in range(gamma - 1):
+                    lg, cache = step(t_in[1 + g:2 + g][None], cache)
+                    d_rows.append(lg[0, -1:].float())
+        i += rec["acc"][it] + 1
+    return torch.cat(t_rows), (torch.cat(d_rows) if open_d is not None else None)
+
+
+def spec_against_f32(tag: str, opener, gamma: int, draft_opener=None, plain_mods=(),
+                     loop_faults: bool = True, kernel_faults=()) -> None:
+    """A speculative route held against f32 (phase 15): the loop on the
+    kernel route (the target on the plain cache, a verify of gamma + 1
+    rows a pass; the draft on its whole-stack step), each verify's logits
+    and each draft step's against the same positions recomputed from a
+    fresh prefill of the true prefix, in f32 (the reference) and on the
+    plain versions of the route (the yardstick, `held_against_f32`).
+    opener(kind) / draft_opener(kind), kind "route", "plain" or "exact",
+    open a prefilled model: {step, cache, first, second, hist, hist_len}.
+    Planted faults must read CV_FAULT_RATIO: with `loop_faults` the target
+    rewound to p_t + n_acc instead of + 1 and, with a draft, the draft not
+    rewound; `kernel_faults`, (label, module, name, fn) patched in."""
+    from tpu_audio_torch.ops import speculative as spec
+
+    def route_run():
+        return spec_loop(spec, opener("route"), gamma,
+                         draft_opener("route") if draft_opener else None)
+
+    rec = route_run()
+    got = [torch.cat([r[1] for r in rec["t"]])] + ([torch.cat([d[None] for d in rec["d"]])]
+                                                   if draft_opener else [])
+
+    def refs(rec, kind):
+        with plain_kernels(*plain_mods):
+            t_ref, d_ref = spec_refs(rec, gamma, lambda: opener(kind),
+                                     (lambda: draft_opener(kind)) if draft_opener else None)
+        return [t_ref] + ([d_ref] if draft_opener else [])
+
+    exact, plain = refs(rec, "exact"), refs(rec, "plain")
+    outputs = [f"verify logits {tuple(got[0].shape)}"] + (
+        [f"draft logits {tuple(got[1].shape)}"] if draft_opener else [])
+    p_err, p_cos = zip(*[measure(p, e)[1:] for p, e in zip(plain, exact)])
+    res = rec["res"]
+    log(f"{tag} held: {int(res.iterations)} iterations, {int(res.accepted)} of "
+        f"{int(res.drafted)} drafts accepted, {len(rec['seq'])} tokens; plain route against "
+        f"f32: " + ", ".join(f"{o.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+                             for o, e, c in zip(outputs, p_err, p_cos)))
+    held_against_f32(tag, outputs, exact, p_err, "kernels", got, control=False, p_cos=p_cos)
+    faults = [] if not loop_faults else [
+        ("the target rewound to p_t + n_acc, not + 1", spec, "target_pos",
+         lambda p_t, n_acc: p_t + n_acc)]
+    if draft_opener and loop_faults:
+        faults.append(("the draft not rewound", spec, "draft_pos",
+                       lambda p_t, n_acc: p_t + gamma))
+    for label, mod, name, fn in faults + list(kernel_faults):
+        with patched(mod, name, fn):
+            bad = route_run()
+        out = [torch.cat([r[1] for r in bad["t"]])] + (
+            [torch.cat([d[None] for d in bad["d"]])] if draft_opener else [])
+        held_against_f32(tag, outputs, refs(bad, "exact"), p_err, label, out, control=True,
+                         p_cos=p_cos)
+
+
+def accept_marginal(dev) -> None:
+    """Phase 15, the accept step on the card: its first emitted token (x_0
+    if accepted, else the residual's draw) over SPEC_CHI2_ROWS rows drawn
+    from q, at V 6, gamma 2, in one batched call: χ² against p under
+    SPEC_CHI2_LIMIT (5 dof, p-value 1e-3). A planted fault, the residual
+    taken from p alone, must read CV_FAULT_RATIO times the limit."""
+    from tpu_audio_torch.ops import sampling
+    from tpu_audio_torch.ops import speculative as spec
+
+    n, gamma, v = SPEC_CHI2_ROWS, 2, 6
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    p = torch.tensor([0.30, 0.25, 0.20, 0.15, 0.07, 0.03], device=dev)
+    q = torch.tensor([0.05, 0.10, 0.15, 0.20, 0.25, 0.25], device=dev)
+    p_stack = torch.stack([p, p.flip(0), p]).expand(n, gamma + 1, v)
+    q_stack = torch.stack([q, q, torch.zeros_like(q)]).expand(n, gamma + 1, v)
+    x = torch.multinomial(q, n * gamma, replacement=True, generator=gen).reshape(n, gamma)
+    u = torch.rand((n, gamma), generator=gen, device=dev)
+    g = sampling.gumbel((n, v), gen, dev)
+
+    def chi2() -> float:
+        n_acc, extra = spec.accept(p_stack, q_stack, x, u, g)
+        first = torch.where(n_acc > 0, x[:, 0], extra)
+        counts = torch.bincount(first, minlength=v).double()
+        return float(((counts - n * p.double()) ** 2 / (n * p.double())).sum())
+
+    right = chi2()
+    if not right < SPEC_CHI2_LIMIT:
+        raise AssertionError(f"speculative accept step: χ² {right:.2f} against p over {n} rows, "
+                             f"at or past {SPEC_CHI2_LIMIT}")
+    log(f"speculative accept step: the first emitted token over {n} rows (V {v}, gamma "
+        f"{gamma}) against p: χ² {right:.2f} < {SPEC_CHI2_LIMIT} (5 dof, p-value 1e-3)")
+    with patched(spec, "residual", lambda p_, q_: p_):
+        bad = chi2()
+    control_ratio("speculative accept step", "the residual taken from p alone",
+                  [bad / SPEC_CHI2_LIMIT], f"χ² {bad:.1f}", "the χ² limit")
+
+
+def llama_opener(params: dict, cfg, prompt: torch.Tensor, start: int, dev, tree32: dict,
+                 fused_draft: bool = False):
+    """An opener for `spec_against_f32` over a left-padded prompt (the
+    Orpheus generator's bucket): kind "route" and "plain" the serving tree
+    on a bf16 cache, "exact" `tree32` on an f32 cache; a plain cache (the
+    target's), or with fused_draft the whole-stack step's cache, its pos
+    one slot back (a draft's)."""
+    from tpu_audio_torch.nn import transformer
+    from tpu_audio_torch.ops import speculative as spec
+
+    off = torch.tensor([start], device=dev)
+    pad = prompt.shape[0]
+
+    def open_(kind):
+        tree = tree32 if kind == "exact" else params
+        dtype = torch.float32 if kind == "exact" else torch.bfloat16
+        slots = pad + SPEC_HELD_NEW * (SPEC_GAMMA + 1) + spec.loop_slots(SPEC_HELD_NEW, SPEC_GAMMA)
+        cache, extra = transformer.decode_cache_and_mask(cfg, slots, start, fused_draft,
+                                                         dtype=dtype, device=dev)
+        lg, cache = transformer.forward(tree, cfg, prompt[None], cache, extra, pos_offset=off)
+        if fused_draft:
+            cache.pos -= 1
+
+        def step(toks, c):
+            lg, c = transformer.forward(tree, cfg, toks, c, extra, pos_offset=off)
+            return lg.float(), c
+        hist = torch.zeros((1, pad + SPEC_HELD_NEW + 2 * SPEC_GAMMA + 4), dtype=torch.int64,
+                           device=dev)
+        hist[0, :pad] = torch.roll(prompt, -start)
+        return {"step": step, "cache": cache, "first": lg[:, -1].float().argmax(-1),
+                "second": prompt[-1:], "hist": hist,
+                "hist_len": torch.tensor(pad - start, device=dev)}
+    return open_
+
+
+def f32_tree(tree: dict) -> dict:
+    from tpu_audio_torch.utils import pytree
+
+    return pytree.unflatten({k: v.float() if v.is_floating_point() else v
+                             for k, v in pytree.flatten(tree).items()})
+
+
+def spec_slice(dev, card: str) -> dict:
+    """Phase 15: speculative decoding on the card. Orpheus at Llama-3.2-3B
+    width on its w8a8 and W4A8 trees, through `TTS.orpheus(speculative=…)`
+    → `from_params` → `generate` of one sentence (SPEC_NEW tokens), by
+    prompt lookup ("ngram") and by a `DraftModel` at Llama-3.2-1B width
+    with the Orpheus vocabulary (w8a8, its steps on the whole-stack step):
+    every call of the int8 and W4A8 matmuls (the verify's SPEC_GAMMA + 1
+    rows) held against its plain version (`held_calls`), no whole-stack
+    step on the target, launches, ms and tokens an iteration of the LM
+    alone; CosyVoice2's Qwen2-0.5B (w8a8, phase 14's biases) through
+    `TTS.cosyvoice2(speculative="ngram")` streaming one sentence of 5 words
+    (100 tokens, 4 spans) at TOKEN granularity. Each route's sampled
+    loop held against f32 (`spec_against_f32`) with its planted faults, and
+    the accept step's marginal (`accept_marginal`). Returns the launch
+    counts."""
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.s3gen import model as s3gen
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.codecs.snac import model as snac
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.nn.transformer import TransformerConfig
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    mods = (fs, i8mm, w4mm, qmm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    int8, w4 = ("int8_matmul", "int8_matmul_stacked"), ("w4a8_matmul", "w4a8_matmul_stacked")
+    cfg, gamma = om.LLAMA_3B, SPEC_GAMMA
+    t0 = time.perf_counter()
+    trees = orpheus_trees(dev, sg=False)
+    dcfg = TransformerConfig(**{**OUTE_LLM, "vocab_size": cfg.vocab_size,
+                                "tie_word_embeddings": True})
+    d_bf16 = llama_params(dcfg, dev, SEED + 5)
+    draft_tree = quant.requantize_tree_int8(quant.quantize_tree(d_bf16, bits=4))
+    del d_bf16
+    snac_cfg = snac.SNACConfig()
+    snac_params = snac.init_params(SEED, snac_cfg, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"models: Orpheus's Llama-3.2-3B random weights (seed {SEED}), its w8a8 and W4A8 trees; "
+        f"a Llama-3.2-1B draft at the Orpheus vocabulary (w8a8); SNAC, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    draft = om.DraftModel(draft_tree, dcfg)
+    for kind in ("w8a8", "w4a8"):
+        tree = trees[kind]
+        route = int8 if kind == "w8a8" else w4
+        for drafting, speculative in (("ngram", "ngram"), ("draft", draft)):
+            tag = f"orpheus {kind} speculative {drafting}"
+            eng = TTS.orpheus(speculative=speculative, gamma=gamma, device=dev).from_params(
+                tree, cfg, snac_params, snac_cfg, speculative=speculative, gamma=gamma)
+            need = (("int8_matmul",) if kind == "w8a8" else w4) + (
+                ("fused_decode_step",) if drafting == "draft" else ())
+            absent = (() if drafting == "draft" else ("fused_decode_step",)) + (
+                () if kind == "w8a8" or drafting == "draft" else int8)
+            with held_calls(tag, i8mm if kind == "w8a8" else w4mm, route, 1e-5):
+                res, launches, wall = counted_run(
+                    tag, mods, total, f"generate ({SPEC_NEW} tokens, SENTENCE)", need,
+                    lambda: eng.generate(ORPHEUS_TEXTS[0], max_new_tokens=SPEC_NEW),
+                    absent=absent)
+            st = eng.lm.last_spec_stats
+            if not (np.isfinite(res.samples).all() and st["iterations"]):
+                raise AssertionError(f"{tag}: non-finite audio or no iterations: {st}")
+            prompt = eng._prompt(ORPHEUS_TEXTS[0])
+            reset(*mods)
+            _, w = timed(lambda: eng.lm.generate_speculative(
+                prompt, sampler=eng._sampler(), eos_ids=(om.END_TOKEN,), max_new=SPEC_NEW,
+                gamma=gamma, draft=None if drafting == "ngram" else draft))
+            st, counts = eng.lm.last_spec_stats, launch_counts(*mods)
+            for n in total:
+                total[n] += counts[n]
+            it = st["iterations"]
+            log(f"{tag}: {it} iterations, {st['accepted']} of {st['drafted']} drafts accepted, "
+                f"{st['tokens_per_iteration']:.3f} tokens an iteration; the LM alone "
+                f"{1e3 * w / it:.2f} ms an iteration (prefill included), launches an iteration "
+                + ", ".join(f"{n} {c / it:.1f}" for n, c in counts.items() if c)
+                + f" ({card})")
+            del eng
+        prompt_ids = om.build_prompt_ids(WordTokenizer().encode(f"tara: {ORPHEUS_TEXTS[0]}"))
+        prompt, start = om.CausalLMGenerator(tree, cfg, pad_id=om.PAD_TOKEN)._prompt(prompt_ids,
+                                                                                     32)
+        # q and k × QK_SCALE: attention that depends on the cache's
+        # positions, so that a rewind fault moves the logits; the rewind is
+        # held on the w8a8 route, whose own distance from f32 is half the
+        # W4A8 route's, and on each route a fault of the verify's rows
+        held = sharpened(tree, cfg, QK_SCALE)
+        opener = llama_opener(held, cfg, prompt, start, dev, f32_tree(held))
+        mod, name = (i8mm, "int8_matmul") if kind == "w8a8" else (w4mm, "w4a8_matmul_stacked")
+        kernel = getattr(mod, name)
+
+        def row0(x, *a, kernel=kernel, **kw):  # every row of a call reads row 0's input
+            return kernel(x[:1].expand(x.shape).contiguous(), *a, **kw)
+        spec_against_f32(f"orpheus {kind} speculative ngram q/k x3", opener, gamma,
+                         plain_mods=(fs, i8mm, w4mm), loop_faults=kind == "w8a8",
+                         kernel_faults=[(f"each row of a {name} call fed row 0", mod, name,
+                                         row0)])
+        if kind == "w8a8":
+            d_held = sharpened(draft.params, dcfg, QK_SCALE)
+            spec_against_f32(f"orpheus {kind} speculative draft q/k x3", opener, gamma,
+                             llama_opener(d_held, dcfg, prompt, start, dev, f32_tree(d_held),
+                                          fused_draft=True), plain_mods=(fs, i8mm, w4mm))
+            del d_held
+        del held, opener
+    del trees, draft
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ CosyVoice2's spans
+    lm_cfg, s3cfg, tokcfg = cvlm.CosyLMConfig(), s3gen.S3GenConfig(), s3tok.S3TokenizerConfig()
+    _, q4 = cosy_lm_trees(lm_cfg, dev)
+    tree = quant.requantize_tree_int8(q4)
+    del q4
+    s3 = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1)
+    tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+    tag = "cosyvoice2 w8a8 speculative ngram"
+    eng = TTS.cosyvoice2(speculative="ngram", device=dev).from_params(
+        tree, lm_cfg, s3, s3cfg, tokp, tokcfg, tokenizer=WordTokenizer(), speculative="ngram")
+    first = {}
+
+    def stream():
+        t, chunks = time.perf_counter(), []
+        for c in eng.generate_streaming(SPEC_CV_TEXT, granularity=StreamingGranularity.TOKEN):
+            first.setdefault("s", time.perf_counter() - t)
+            chunks.append(c)
+        return chunks
+
+    with held_calls(tag, i8mm, int8, 1e-5):
+        chunks, launches, wall = counted_run(tag, mods, total, "generate_streaming (TOKEN)",
+                                             ("int8_matmul",), stream,
+                                             absent=("fused_decode_step",) + w4)
+    st = eng.lm.last_spec_stats
+    audio = np.concatenate([c.samples for c in chunks])
+    if not (chunks[-1].is_final and np.isfinite(audio).all() and st["iterations"]):
+        raise AssertionError(f"{tag}: {len(chunks)} chunks, spans' counters {st}")
+    it = st["iterations"]
+    log(f"{tag}: {len(chunks)} chunks, {len(audio) / 24000:.2f} s of audio in {wall:.3f} s "
+        f"({len(audio) / 24000 / wall:.2f}x real time), first audio {first['s']:.3f} s; the "
+        f"spans: {it} iterations, {st['accepted']} of {st['drafted']} drafts accepted, "
+        f"{st['tokens_per_iteration']:.3f} tokens an iteration, launches an iteration "
+        + ", ".join(f"{n} {c / it:.1f}" for n, c in launches.items() if c) + f" ({card})")
+    gen = eng.lm
+    text = WordTokenizer().encode(SPEC_CV_TEXT)
+    speech = list(range(100, 175))  # a 3 s speaker's tokens
+    t32 = f32_tree(tree)
+    exact_gen = cvlm.CosyLMGenerator(t32, lm_cfg, cache_dtype=torch.float32)
+
+    def cv_open(kind):
+        g = exact_gen if kind == "exact" else gen
+        steps = SPEC_HELD_NEW * (gamma + 1) + 64
+        logits, cache, extra = g.prefill(text, [], speech, steps, fused=False)
+        hist, hist_len, second = g.spec_history(speech, 96 + SPEC_HELD_NEW + 2 * gamma + 4)
+        return {"step": g.target_step(extra), "cache": cache, "first": logits.argmax(-1),
+                "second": second, "hist": hist, "hist_len": hist_len}
+
+    spec_against_f32(tag, cv_open, gamma, plain_mods=(fs, i8mm))
+    del eng, gen, exact_gen, t32, tree, s3, tokp
+    accept_marginal(dev)
+    return total
+
+
+# ------------------------------------------------ 16. CosyVoice3
+
+def cv3_o1_against_full(flow, flow_cfg, dev) -> None:
+    """Phase 16: the O(1) flow (`cfm_solve_chunk` over CV3_O1_CHUNKS chunks
+    aligned to static_chunk_size, each padded to a multiple of 32 as the
+    synthesizer pads it, with each timestep's frozen keys and values) against
+    the full-window flow (`flow.cfm_solve` with the chunk-causal masks) on
+    the same mu, speaker, prompt mel and position-keyed z, both with the
+    O(1) flow's left window of 2 chunks, in f32: the chunks' mels within
+    rel CV3_O1_REL."""
+    from dataclasses import replace
+
+    from tpu_audio_torch.codecs.s3gen import flow as s3flow
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.models.cosyvoice3 import dit
+    from tpu_audio_torch.models.cosyvoice3 import model as cv3
+
+    cfg = replace(flow_cfg, dit=replace(flow_cfg.dit, num_left_chunks=2))
+    params = f32_tree(flow)
+    static = cfg.dit.static_chunk_size
+    frames = CV3_O1_CHUNKS * static
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (1, frames // cfg.token_mel_ratio), generator=gen,
+                         device=dev)
+    emb = torch.randn((1, cfg.spk_dim), generator=gen, device=dev)
+    cond = torch.zeros((1, frames, cfg.mel_dim), device=dev)
+    cond[:, :static // 2] = torch.randn((1, static // 2, cfg.mel_dim), generator=gen, device=dev)
+    noise = Noise(SEED)
+    with torch.inference_mode():
+        mu, spks = cv3._mu(params, cfg, toks, toks.shape[1], emb)
+        z = noise.z((1, frames, cfg.mel_dim), dev)
+
+        def est(x, ml, mu_, t, spks_, cond_, stream):
+            return dit.forward(params["decoder_estimator"], cfg.dit, x, ml, mu_, t, spks_, cond_,
+                               stream)
+        whole = s3flow.cfm_solve(est, cfg.cfm, mu, torch.tensor([frames], device=dev), spks,
+                                 cond, z, streaming=True)
+        caches = cv3.make_flow_stream_caches(cfg, 512, device=dev)
+        pad = -(-static // 32) * 32
+        chunks = []
+        for lo in range(0, frames, static):
+            def padded(a):
+                return torch.nn.functional.pad(a[:, lo:lo + static], (0, 0, 0, pad - static))
+            x = cv3.cfm_solve_chunk(params, cfg, noise.z_chunk(lo, (1, pad, cfg.mel_dim), dev),
+                                    padded(mu), spks, padded(cond), caches, valid_new=static)
+            chunks.append(x[:, :static])
+    compare(f"cosyvoice3 O(1) flow, {CV3_O1_CHUNKS} chunks of {static} frames (padded to {pad}), "
+            f"against the full-window flow (f32)", torch.cat(chunks, 1), whole, rel=CV3_O1_REL)
+
+
+def cosyvoice3_slice(dev, card: str) -> dict:
+    """Phase 16: CosyVoice3 at the published widths on random weights
+    (seed 0: `CosyLMConfig()`'s Qwen2-0.5B on the w8a8 tree with phase 14's
+    biases, `CV3FlowConfig()`: the DiT 1024 × 22 of 16 heads of 64 and the
+    causal HiFT, in bf16; `S3TokenizerConfig()`; the word-level stand-in
+    tokenizer) through `TTS.cosyvoice3()` → `CosyVoice3Engine.from_params`
+    (chunks of 25 tokens): `prepare_conditionals` on 3 s of noise,
+    `generate_streaming` of two sentences at TOKEN granularity (first audio,
+    × real time; the whole-stack step a T=1 step and the head's
+    `int8_matmul` asserted), `voice_conversion` of 2 s; the LM held against
+    f32 with its planted faults (`cv_against_f32`); the O(1) flow against
+    the full window (`cv3_o1_against_full`); the flow's ms a chunk on both
+    policies and HiFT's (CUDA events); the drift of the O(1) flow's chunk
+    times over CV3_DRIFT_CHUNKS chunks (reported, not gated: host clock).
+    Returns the launch counts."""
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.codecs.s3gen import hift
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.models.cosyvoice3 import model as cv3
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    mods = (fs, i8mm, w4mm, qmm)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    others = tuple(n for m in (w4mm, qmm) for n in m.LAUNCHES)
+    lm_cfg, flow_cfg, tokcfg = cvlm.CosyLMConfig(), cv3.CV3FlowConfig(), s3tok.S3TokenizerConfig()
+    t0 = time.perf_counter()
+    _, q4 = cosy_lm_trees(lm_cfg, dev)
+    tree = quant.requantize_tree_int8(q4)
+    del q4
+    flow = s3_card_params(cv3.numpy_params(ShapeRNG(), flow_cfg), dev, SEED + 5)
+    tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+    torch.cuda.synchronize()
+    log(f"models: CosyVoice3's Qwen2-0.5B random weights (seed {SEED}), its w8a8 tree; the DiT "
+        f"flow ({flow_cfg.dit.dim} x {flow_cfg.dit.depth}, {flow_cfg.dit.heads} heads of "
+        f"{flow_cfg.dit.head_dim}) and HiFT in bf16; the S3 tokenizer, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    ref24 = (0.1 * rng.standard_normal(CV_REF_SECONDS * 24000)).astype(np.float32)
+    src16 = (0.1 * rng.standard_normal(CV_VC_SECONDS * 16000)).astype(np.float32)
+    tag = "cosyvoice3 w8a8"
+    eng = TTS.cosyvoice3(device=dev).from_params(tree, lm_cfg, flow, flow_cfg, tokp, tokcfg,
+                                                 tokenizer=WordTokenizer(), chunk=cv3.CHUNK_SIZE)
+    spk, _, _ = counted_run(tag, mods, total, f"prepare_conditionals ({CV_REF_SECONDS} s)", (),
+                            lambda: eng.prepare_conditionals(ref24, 24000, ref_text=CV_REF_TEXT),
+                            absent=tuple(total))
+    if not (len(spk.speech_tokens) == 25 * CV_REF_SECONDS
+            and spk.prompt_mel.shape[1] == 2 * len(spk.speech_tokens)):
+        raise AssertionError(f"{tag} speaker: {len(spk.speech_tokens)} tokens, mel "
+                             f"{tuple(spk.prompt_mel.shape)}")
+    steps = {"n": 0}
+    make = eng.lm.step_fn
+
+    def counted(extra):
+        step = make(extra)
+
+        def run(tok, cache):
+            steps["n"] += 1
+            return step(tok, cache)
+        return run
+
+    eng.lm.step_fn = counted
+    first = {}
+
+    def stream():
+        t, chunks = time.perf_counter(), []
+        for c in eng.generate_streaming(" ".join(CV3_STREAM_TEXTS)):
+            first.setdefault("s", time.perf_counter() - t)
+            chunks.append(c)
+        return chunks
+
+    chunks, launches, wall = counted_run(tag, mods, total,
+                                         "generate_streaming (2 sentences, TOKEN)",
+                                         ("fused_decode_step", "int8_matmul"), stream,
+                                         absent=others)
+    want = {"fused_decode_step": steps["n"], "int8_matmul": steps["n"] + 2}
+    audio = np.concatenate([c.samples for c in chunks])
+    seconds = len(audio) / 24000
+    if (not chunks[-1].is_final or len(chunks) < 4 or not np.isfinite(audio).all()
+            or any(launches[n] != c for n, c in want.items())):
+        raise AssertionError(f"{tag} stream: {len(chunks)} chunks, {steps['n']} T=1 steps, "
+                             f"launches {launches}, want {want}")
+    log(f"{tag} stream: {len(chunks)} chunks, {steps['n']} T=1 steps = "
+        f"{launches['fused_decode_step']} fused_decode_step launches (one a step), "
+        f"{launches['int8_matmul']} int8_matmul (the head a step + 2 prefills); first audio "
+        f"after {first['s']:.3f} s; {seconds:.2f} s of audio in {wall:.3f} s: "
+        f"{seconds / wall:.2f}x real time ({card})")
+    eng.lm.step_fn = make
+    vc, _, wall = counted_run(tag, mods, total, f"voice_conversion ({CV_VC_SECONDS} s)", (),
+                              lambda: eng.voice_conversion(src16, 16000), absent=tuple(total))
+    if len(vc) != CV_VC_SECONDS * 24000 or not np.isfinite(vc).all():
+        raise AssertionError(f"{tag} voice_conversion: {len(vc)} samples")
+    log(f"{tag} voice_conversion: {CV_VC_SECONDS} s in {wall:.3f} s ({card})")
+    prompt = (eng.tokenizer.encode(CV3_STREAM_TEXTS[0]), spk.prompt_text_ids, spk.speech_tokens)
+    cv_against_f32(tag, tree, lm_cfg, dev, True, prompt)
+    del eng, tree
+    torch.cuda.empty_cache()
+
+    cv3_o1_against_full(flow, flow_cfg, dev)
+    # the flow's ms a chunk: the full window at the second chunk of a stream
+    # from a 3 s speaker (75 + 50 + 3 tokens), one O(1) chunk of 50 frames
+    # (padded to 64) on caches primed over the window before it, HiFT's
+    # window of 32 + 50 frames
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    p_len, n_tok = 75, 75 + 50 + cv3.PRE_LOOKAHEAD
+    toks = torch.randint(0, flow_cfg.vocab_size, (1, -(-n_tok // 32) * 32), generator=gen,
+                         device=dev)
+    pm = torch.randn((1, 2 * p_len, flow_cfg.mel_dim), generator=gen, device=dev)
+    emb = torch.randn((1, flow_cfg.spk_dim), generator=gen, device=dev).to(torch.bfloat16)
+    synth = cv3.CV3Synthesizer(flow, flow_cfg, o1_flow=True)
+    ocfg = synth.o1_cfg
+    with torch.inference_mode():
+        ms_full = events_ms(lambda: cv3.flow_chunk(flow, flow_cfg, toks, n_tok, pm, 2 * p_len,
+                                                   emb, Noise(SEED), True), 2)
+        mu, spks = synth._mu_window(toks, n_tok, emb, 0, 2 * n_tok + 64, 2 * n_tok)
+        caches = cv3.make_flow_stream_caches(ocfg, 512, device=dev)
+        lo = 2 * (p_len + 25)
+        z = Noise(SEED).z_chunk(0, (1, lo, flow_cfg.mel_dim), dev)
+        cv3.cfm_solve_chunk(flow, ocfg, z, mu[:, :lo], spks, torch.zeros_like(z).to(mu.dtype),
+                            caches, valid_new=lo)
+
+        def one_chunk():
+            keep = caches.pos.clone()
+            z1 = Noise(SEED).z_chunk(lo, (1, 64, flow_cfg.mel_dim), dev)
+            out = cv3.cfm_solve_chunk(flow, ocfg, z1, mu[:, lo:lo + 64], spks,
+                                      torch.zeros_like(z1).to(mu.dtype), caches, valid_new=50)
+            caches.pos.copy_(keep)
+            return out
+        ms_o1 = events_ms(one_chunk, 2)
+        lb, new = hift.LOOKBACK_FRAMES, 50
+        win = torch.randn((1, lb + new, flow_cfg.mel_dim), generator=gen, device=dev).to(
+            torch.bfloat16)
+        phase = torch.zeros((1, flow_cfg.hift.nb_harmonics + 1), dtype=torch.float64, device=dev)
+        tail = torch.zeros((1, lb * flow_cfg.hift.upsample_scale), dtype=win.dtype, device=dev)
+        ms_voc = events_ms(lambda: hift.vocode_window(flow["mel2wav"], flow_cfg.hift, win,
+                                                      Noise(SEED), phase, tail, 100), 2)
+    log(f"cosyvoice3 flow: the full window {ms_full:.2f} ms a chunk ({n_tok} tokens, "
+        f"{flow_cfg.cfm.n_timesteps} CFG Euler steps), the O(1) flow {ms_o1:.2f} ms a chunk "
+        f"(50 frames padded to 64, 512 cached slots); HiFT {ms_voc:.2f} ms a chunk ({lb} + {new} "
+        f"frames) (CUDA events, bf16) ({card})")
+
+    # drift: the O(1) flow's chunk times over CV3_DRIFT_CHUNKS chunks of 25 tokens
+    token_chunks = [torch.randint(3, flow_cfg.vocab_size, (cv3.CHUNK_SIZE,), generator=gen,
+                                  device=dev).tolist() for _ in range(CV3_DRIFT_CHUNKS)]
+    prompt_tokens = torch.randint(3, flow_cfg.vocab_size, (p_len,), generator=gen,
+                                  device=dev).tolist()
+    stamps, t = [], time.perf_counter()
+    for audio in synth.stream(iter(token_chunks), prompt_tokens, pm, emb,
+                              chunk_size=cv3.CHUNK_SIZE):
+        now = time.perf_counter()
+        stamps.append(now - t)
+        t = now
+        if not np.isfinite(audio).all():
+            raise AssertionError("cosyvoice3 O(1) stream: non-finite audio")
+    half = len(stamps) // 2
+    ratio = float(np.median(stamps[half:]) / np.median(stamps[:half]))
+    log(f"cosyvoice3 O(1) flow drift over {len(stamps)} chunks of {cv3.CHUNK_SIZE} tokens: "
+        f"median chunk {1e3 * np.median(stamps[:half]):.1f} ms (first half), "
+        f"{1e3 * np.median(stamps[half:]):.1f} ms (second half), ratio {ratio:.3f} (ROADMAP "
+        f"asks ≤ 1.05; host clock, not gated) ({card})")
+    return total
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -5523,7 +6344,9 @@ def tts_slices(dev, card: str, phases=((12, oute_slice), (13, marvis_slice))) ->
 
 
 def print_result(rows: list, launches: dict) -> None:
-    """The last two lines: the per-kernel JSON and the ok line."""
+    """The last two lines: the per-kernel JSON and the ok line, once every
+    end-to-end control read at least CV_FAULT_RATIO."""
+    refuse_weak_controls()
     print(json.dumps({"kernels": [{**r, "launches": launches[r["name"]]} for r in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5585,6 +6408,12 @@ def main() -> None:
         return
     if "--cosyvoice-only" in sys.argv[1:]:  # phases 1, 2 and 14
         print_result([], tts_slices(dev, card, ((14, cosyvoice_slice),)))
+        return
+    if "--spec-only" in sys.argv[1:]:  # phases 1, 2 and 15
+        print_result([], tts_slices(dev, card, ((15, spec_slice),)))
+        return
+    if "--cosyvoice3-only" in sys.argv[1:]:  # phases 1, 2 and 16
+        print_result([], tts_slices(dev, card, ((16, cosyvoice3_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -5755,9 +6584,10 @@ def main() -> None:
     log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
     torch.cuda.empty_cache()
 
-    # ------------------------------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2
+    # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3
     # their launches, too, go on lines of their own
-    tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice)))
+    tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
+                           (15, spec_slice), (16, cosyvoice3_slice)))
     print_result(rows, launches)
 
 

@@ -242,20 +242,24 @@ def test_a_512_slot_cache_refuses_a_30_token_sentence(lm_parts):
 
 def test_unported_options_raise(lm_parts):
     _, tcfg, _, tp = lm_parts
+    """mesh= (ROADMAP A19) still raises; speculative= takes "ngram" only
+    (A9 is ported), and CosyVoice3's factory builds its engine (A12)."""
     gen = tlm.CosyLMGenerator(tp, tcfg)
-    with pytest.raises(NotImplementedError, match="A9"):
-        gen.generate(TEXT, [], [], speculative="ngram")
-    with pytest.raises(NotImplementedError, match="A9"):
-        next(tlm.CosyLMStreamer(gen).stream(TEXT, [], [], speculative="ngram"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="speculative"):
+        gen.generate(TEXT, [], [], speculative="draft")
+    with pytest.raises(ValueError, match="speculative"):
+        next(tlm.CosyLMStreamer(gen).stream(TEXT, [], [], speculative="draft"))
+    with pytest.raises(NotImplementedError, match="A19"):
         tlm.CosyLMGenerator(tp, tcfg, mesh=object())
-    for kw in ({"speculative": "ngram"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="A9"):
-            TTS.cosyvoice2(**kw)
+    with pytest.raises(NotImplementedError, match="A19"):
+        TTS.cosyvoice2(mesh=object())
+    with pytest.raises(ValueError, match="speculative"):
+        TTS.cosyvoice2(speculative="draft")
+    assert TTS.cosyvoice2(speculative="ngram", device="cpu").speculative == "ngram"
     with pytest.raises(ValueError, match="quantization"):
         TTS.cosyvoice2(quantization="int3")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TTS.cosyvoice3()
+    from tpu_audio_torch.models.cosyvoice3.engine import CosyVoice3Engine
+    assert isinstance(TTS.cosyvoice3(device="cpu"), CosyVoice3Engine)
     assert isinstance(TTS.cosyvoice2(device="cpu"), tengine.CosyVoice2Engine)
     assert TTS.cosyvoice2().device == "cuda"
 

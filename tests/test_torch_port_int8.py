@@ -230,15 +230,17 @@ def test_unported_formats_raise():
     """The group-affine q4/q8 and the W4A8 layouts are ported
     (tests/test_torch_port_quant_q4.py, test_torch_port_w4a8.py); what the
     port still refuses: a super-group embedding lookup, which the JAX
-    package lacks too (ROADMAP C5), and the int8 KV cache (ROADMAP A9)."""
+    package lacks too (ROADMAP C5). The int8 KV cache is ported (ROADMAP
+    A9, tests/test_torch_port_speculative.py)."""
     from tpu_audio_torch.nn import transformer as tt
+    from tpu_audio_torch.ops.kvcache import QuantizedKVCache
 
     q4s = {"weight_q4s": torch.zeros((4, 128), dtype=torch.int8), "scales_sg": torch.ones((4, 1))}
     with pytest.raises(ValueError, match="ROADMAP C5"):
         tquant.dequantize_rows(q4s, torch.tensor([0, 2]))
     cfg = tt.TransformerConfig(dim=64, n_layers=1, n_heads=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tt.make_cache(cfg, 1, 8, quantized=True, device="cpu")
+    cache = tt.make_cache(cfg, 1, 8, quantized=True, device="cpu")
+    assert isinstance(cache, QuantizedKVCache) and cache.k_q.dtype == torch.int8
 
 
 def test_new_modules_import_without_jax_nvcc_or_cuda():

@@ -36,7 +36,7 @@ from tpu_audio_torch.nn import transformer as tt
 from tpu_audio_torch.ops import decoding as tdec
 from tpu_audio_torch.ops import sampling as tsamp
 from tpu_audio_torch.ops.kernels import fused_step as fs
-from tpu_audio_torch.ops.kvcache import FusedKVCache
+from tpu_audio_torch.ops.kvcache import FusedKVCache, QuantizedKVCache
 from tests.test_torch_port_threads import host_threads, worker_mark  # noqa: F401
 
 LLM = dict(dim=128, n_layers=2, n_heads=2, n_kv_heads=1, hidden_dim=512, vocab_size=300,
@@ -351,10 +351,11 @@ def test_builders_default_to_the_card():
 
 def test_unported_parts_raise():
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tt.make_cache(tcfg, 1, 4, quantized=True, device="cpu")
+    # the int8 cache is ported (ROADMAP A9); tensor parallelism is A19
+    assert isinstance(tt.make_cache(tcfg, 1, 4, quantized=True, device="cpu"),
+                      QuantizedKVCache)
     cache = tt.make_cache(tcfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
         tt.forward_hidden({}, tcfg, torch.zeros(1, 1, 128), cache, axis_name="tp")
     # RAS is ported (ROADMAP A11); its options without a recent window draw plainly
     assert tsamp.sample(torch.zeros(1, 10), tsamp.SamplerConfig(ras=True),

@@ -416,8 +416,7 @@ def test_load_reads_a_written_checkpoint_and_refuses_6_bits(tiny, tmp_path, monk
 
 
 def test_unported_options_and_factory():
-    with pytest.raises(NotImplementedError, match="A9"):
-        MarvisEngine(kv_quantized=True)
+    assert MarvisEngine(kv_quantized=True).kv_quantized  # ROADMAP A9 is ported
     eng = TTS.marvis("max", device="cpu")
     assert isinstance(eng, MarvisEngine) and eng.quality == "max" and eng.device == "cpu"
     assert eng.n_codebooks == 32 and eng.frame_span == 6

@@ -227,19 +227,19 @@ def test_frames_prompts_and_unported_paths(tmp_path, monkeypatch):
         k: getattr(jm.LLAMA_3B, k) for k in tt.TransformerConfig.__dataclass_fields__})
     cfg = configs()[1]
     params = tt.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A19"):
         tm.CausalLMGenerator(params, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.CausalLMGenerator(params, cfg).generate_speculative(PROMPT)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tm.DraftModel(params, cfg)
+    # speculative decoding is ported (ROADMAP A9): the options are taken
+    draft = tm.DraftModel(params, cfg)
+    assert TTS.orpheus(speculative=draft).speculative is draft
+    assert TTS.orpheus(speculative="ngram", gamma=3).gamma == 3
+    with pytest.raises(ValueError, match="speculative"):
+        TTS.orpheus(speculative="draft")
     monkeypatch.setenv("TPU_AUDIO_CACHE", str(tmp_path / "empty"))
     with pytest.raises(ModelLoadError, match="orpheus-3b-0.1-ft-4bit"):
         TTS.orpheus().load()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A19"):
         TTS.orpheus(mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        TTS.cosyvoice3()
     assert isinstance(TTS.orpheus(), OrpheusEngine)
 
 

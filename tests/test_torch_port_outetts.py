@@ -398,8 +398,9 @@ def test_load_from_a_seeded_cache(parts, tmp_path, monkeypatch):
 
 
 def test_unported_options_and_factories(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A9"):
-        tengine.OuteTTSEngine(speculative="ngram")
+    assert tengine.OuteTTSEngine(speculative="ngram").speculative == "ngram"  # A9 ported
+    with pytest.raises(ValueError, match="speculative"):
+        tengine.OuteTTSEngine(speculative="draft")
     with pytest.raises(ValueError, match="quantization"):
         tengine.OuteTTSEngine(quantization="q3")
     eng = TTS.oute(device="cpu")
@@ -410,7 +411,7 @@ def test_unported_options_and_factories(tmp_path, monkeypatch):
         eng.load()
     with pytest.raises(ModelLoadError, match="whisper"):
         eng.create_speaker(np.zeros(1600, np.float32), 16000)
-    for name, item in (("cosyvoice3", "A12"), ("chatterbox", "A13"), ("kokoro", "A14")):
+    for name, item in (("chatterbox", "A13"), ("kokoro", "A14")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(TTS, name)()
 

@@ -8,10 +8,11 @@ lock (held for the whole life of a stream); stop() is lock-free and
 cancels the generation in flight, and a new stream starts afresh.
 
 Ported engines: Orpheus (`models/orpheus/`), OuteTTS (`models/outetts/`,
-with DAC), Marvis (`models/marvis/`, with Mimi) and CosyVoice2
-(`models/cosyvoice2/`, with S3Gen and the S3 tokenizer). The other
-factories (Kokoro A14, Chatterbox and Chatterbox Turbo A13, CosyVoice3
-A12) raise naming their ROADMAP items; playback (`say`) is A18.
+with DAC), Marvis (`models/marvis/`, with Mimi), CosyVoice2
+(`models/cosyvoice2/`, with S3Gen and the S3 tokenizer) and CosyVoice3
+(`models/cosyvoice3/`, the DiT flow). The other factories (Kokoro A14,
+Chatterbox and Chatterbox Turbo A13) raise naming their ROADMAP items;
+playback (`say`) is A18.
 """
 
 from __future__ import annotations
@@ -172,13 +173,15 @@ class TTS:
 
     @staticmethod
     def orpheus(voice: str = "tara", mesh=None, quantization: str = "w8a8",
-                device="cuda"):
+                speculative=None, gamma: int = 8, device="cuda"):
         """quantization: how `load()` serves the 4-bit checkpoint ("w8a8",
-        "w4a8" or "q4", `OrpheusEngine`); device: the card unless the
-        caller asks for the CPU."""
+        "w4a8" or "q4", `OrpheusEngine`); speculative: None, "ngram" or a
+        `DraftModel`, gamma drafts a target pass; mesh= is ROADMAP A19 and
+        raises; device: the card unless the caller asks for the CPU."""
         from tpu_audio_torch.models.orpheus.engine import OrpheusEngine
 
-        return OrpheusEngine(voice=voice, mesh=mesh, quantization=quantization, device=device)
+        return OrpheusEngine(voice=voice, mesh=mesh, quantization=quantization,
+                             speculative=speculative, gamma=gamma, device=device)
 
     @staticmethod
     def kokoro(voice: str = "af_heart"):
@@ -195,13 +198,14 @@ class TTS:
         return MarvisEngine(quality=quality, device=device)
 
     @staticmethod
-    def oute(device="cuda"):
-        """device: the card unless the caller asks for the CPU. For
-        `load()`: `OuteTTSEngine.from_params` is a classmethod that builds
-        its own engine and ignores it."""
+    def oute(speculative=None, gamma: int = 8, device="cuda"):
+        """speculative: None, "ngram" or a `DraftModel`, gamma drafts a
+        target pass; device: the card unless the caller asks for the CPU.
+        For `load()`: `OuteTTSEngine.from_params` is a classmethod that
+        builds its own engine and takes its own `speculative=`."""
         from tpu_audio_torch.models.outetts.engine import OuteTTSEngine
 
-        return OuteTTSEngine(device=device)
+        return OuteTTSEngine(speculative=speculative, gamma=gamma, device=device)
 
     @staticmethod
     def chatterbox():
@@ -215,7 +219,8 @@ class TTS:
     def cosyvoice2(quantization: str = "w8a8", mesh=None, speculative=None,
                    device="cuda"):
         """quantization: how `load()` serves the 4-bit LM ("w8a8", "w4a8"
-        or "q4"); mesh= and speculative= are ROADMAP A9 and raise; device:
+        or "q4"); speculative: None or "ngram" (prompt lookup in the LM,
+        sentence and token streaming); mesh= is ROADMAP A19 and raises; device:
         the card unless the caller asks for the CPU. For `load()`:
         `CosyVoice2Engine.from_params` is a classmethod that builds its own
         engine on its trees' device."""
@@ -225,5 +230,12 @@ class TTS:
                                 device=device)
 
     @staticmethod
-    def cosyvoice3():
-        _not_ported("CosyVoice3", "A12")
+    def cosyvoice3(quantization: str = "w8a8", speculative=None, device="cuda"):
+        """quantization: how `load()` serves the 4-bit LM ("w8a8", "w4a8"
+        or "q4"); speculative: None or "ngram"; device: the card unless the
+        caller asks for the CPU. For `load()`: `CosyVoice3Engine.from_params`
+        is a classmethod that builds its own engine on its trees' device."""
+        from tpu_audio_torch.models.cosyvoice3.engine import CosyVoice3Engine
+
+        return CosyVoice3Engine(quantization=quantization, speculative=speculative,
+                                device=device)

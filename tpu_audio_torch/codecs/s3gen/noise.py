@@ -42,8 +42,13 @@ class Noise:
 
     def z(self, shape, device) -> torch.Tensor:
         """The flow's N(0, 1) start (B, T, D), keyed by (row, frame, channel)."""
+        return self.z_chunk(0, shape, device)
+
+    def z_chunk(self, start_frame: int, shape, device) -> torch.Tensor:
+        """`z`'s frames start_frame .. start_frame + T − 1 (B, T, D): what the
+        whole window draws there (a streamed chunk's start)."""
         b, t, d = shape
-        idx = torch.arange(t * d, device=device, dtype=torch.int64)
+        idx = start_frame * d + torch.arange(t * d, device=device, dtype=torch.int64)
         return torch.stack([_normal(self.seed, Z, r, idx).reshape(t, d) for r in range(b)])
 
     def rand_ini(self, b: int, h: int, device) -> torch.Tensor:

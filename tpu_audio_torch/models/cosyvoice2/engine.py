@@ -19,7 +19,9 @@ as per-channel int8 ("w8a8", the default: the whole-stack step kernel and
 the int8 speech head), W4A8 ("w4a8") or as it is ("q4"). `from_params`
 takes built trees; its LM cache is sized for each request, where the JAX
 engine's `max_cache=512` clamps a 30-token sentence's 600-odd slots
-(ROADMAP C18). `speculative=` and `mesh=` are ROADMAP A9 and raise; the
+(ROADMAP C18). `speculative="ngram"` decodes the LM by prompt-lookup
+speculative decoding, on the sentence path and in the token stream's
+spans (`lm.CosyLMStreamer`); `mesh=` is ROADMAP A19 and raises. The
 Whisper auto-transcription of a reference without `ref_text` needs its
 checkpoint.
 """
@@ -72,13 +74,13 @@ class CosyVoice2Engine(TTSEngineBase):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
-                                      "(ROADMAP A9)")
-        if speculative is not None:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP A9)")
+                                      "(ROADMAP A19)")
+        lm_mod.check_speculative(speculative)
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization must be one of {QUANTIZATIONS}, got {quantization!r}")
         self.speed = speed
         self.quantization = quantization
+        self.speculative = speculative
         self.gamma = gamma
         self.device = device
         self.lm: lm_mod.CosyLMGenerator | None = None
@@ -111,11 +113,13 @@ class CosyVoice2Engine(TTSEngineBase):
     @classmethod
     def from_params(cls, lm_params, lm_cfg, s3gen_params, s3gen_cfg, tok_params, tok_cfg,
                     tokenizer=None, max_cache: int | None = None,
-                    mesh=None) -> "CosyVoice2Engine":
+                    mesh=None, speculative: str | None = None,
+                    gamma: int = 4) -> "CosyVoice2Engine":
         """An engine over built trees (the LM bf16, int8, q4 or W4A8). The
         LM cache holds `max_cache` slots, or with None (the default) as
         many as each request needs."""
-        eng = cls(mesh=mesh, device=tree_device(s3gen_params))
+        eng = cls(mesh=mesh, speculative=speculative, gamma=gamma,
+                  device=tree_device(s3gen_params))
         eng.lm_cfg = lm_cfg
         eng.lm = lm_mod.CosyLMGenerator(lm_params, lm_cfg, max_cache=max_cache)
         eng.s3gen_params, eng.s3gen_cfg = s3gen_params, s3gen_cfg
@@ -220,7 +224,8 @@ class CosyVoice2Engine(TTSEngineBase):
     def _generate_sentence(self, sentence: str, spk: CosyVoice2Speaker, mode: str,
                            instruct_text: str | None, seed: int) -> np.ndarray:
         prompt_ids, text_ids, prompt_speech = self._mode_ids(sentence, spk, mode, instruct_text)
-        tokens = self.lm.generate(text_ids, prompt_ids, prompt_speech, seed=seed)
+        tokens = self.lm.generate(text_ids, prompt_ids, prompt_speech, seed=seed,
+                                  speculative=self.speculative, gamma=self.gamma)
         return self.token2wav(tokens, spk, seed)
 
     def voice_conversion(self, source_audio: np.ndarray, sample_rate: int,
@@ -284,7 +289,8 @@ class CosyVoice2Engine(TTSEngineBase):
             self._check_stopped()
             prompt_ids, text_ids, prompt_speech = self._mode_ids(sentence, spk, mode,
                                                                  instruct_text)
-            tokens = streamer.stream(text_ids, prompt_ids, prompt_speech, seed=si)
+            tokens = streamer.stream(text_ids, prompt_ids, prompt_speech, seed=si,
+                                     speculative=self.speculative, gamma=self.gamma)
             first = True
             flow_noise, hift_noise = self.noises(si)
             for audio in synth.stream(tokens, spk.speech_tokens, spk.prompt_mel, spk.embedding,

@@ -20,8 +20,16 @@ unless `max_cache` is given, and a request past a given `max_cache` is
 refused, where the JAX generator's cache writes clamp at the last slot
 (ROADMAP C18). Draws come from a `torch.Generator` on the model's device,
 two Gumbel draws a RAS step, or from `noise(chunk, i)`, which a test uses
-to feed the JAX package's draws. `speculative=` and `mesh=` are ROADMAP A9
-and raise.
+to feed the JAX package's draws.
+
+`speculative="ngram"` decodes through `ops/speculative.py` with prompt
+lookup over the prompt's speech tokens and the tokens made so far, gamma
+drafts verified in one per-layer pass at gamma + 1 rows on the plain cache
+(the JAX generator forces it too). The streamer then runs each chunk as a
+span of that loop, resumed from the last span's cache, last and
+second-last tokens, recent ring and history; with the same draws
+(`draws(iteration)`, numbered across spans) its tokens are the one-shot
+`generate`'s. `mesh=` is ROADMAP A19 and raises.
 """
 
 from __future__ import annotations
@@ -34,10 +42,9 @@ import torch
 from tpu_audio_torch.convert import params_from_numpy, tree_device
 from tpu_audio_torch.nn import layers, transformer
 from tpu_audio_torch.ops import sampling
+from tpu_audio_torch.ops import speculative as spec
 from tpu_audio_torch.ops.decoding import SYNC_EVERY, decode_loop
 from tpu_audio_torch.ops.sampling import SamplerConfig
-
-_NOT_PORTED = "is not ported yet (ROADMAP A9)"
 
 QWEN2_05B = transformer.TransformerConfig(
     dim=896, n_layers=24, n_heads=14, n_kv_heads=2, hidden_dim=4864, vocab_size=151936,
@@ -84,6 +91,13 @@ def init_params(seed: int, cfg: CosyLMConfig, dtype: torch.dtype = torch.float32
     return params_from_numpy(numpy_params(np.random.default_rng(seed), cfg), device, dtype)
 
 
+def check_speculative(speculative) -> None:
+    """Refuse a `speculative=` other than None and "ngram" (the LM drafts
+    by prompt lookup; no draft model serves CosyVoice)."""
+    if speculative not in (None, "ngram"):
+        raise ValueError(f"speculative must be None or 'ngram', got {speculative!r}")
+
+
 def _bucket(n: int) -> int:
     return max(32, -(-n // 32) * 32)
 
@@ -94,7 +108,9 @@ class CosyLMGenerator:
         """max_cache: the cache's slots, or None (the default) for as many
         as each request needs."""
         if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel serving (mesh=) {_NOT_PORTED}")
+            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
+                                      "(ROADMAP A19)")
+        self.last_spec_stats: dict | None = None
         self.params = dict(params, llm=transformer.fuse_fp_tree(params["llm"]))
         self.cfg = cfg
         self.max_cache = max_cache
@@ -158,15 +174,45 @@ class CosyLMGenerator:
 
     def processor(self, min_len: int, produced: int = 0):
         """Masks the specials (EOS among them) at draw i while
-        produced + i + 1 < min_len."""
+        produced + i + 1 < min_len; i an int, or a 0-d tensor on the device
+        (the speculative loop's), which the host never reads."""
         size = self.cfg.speech_token_size
 
         def process(logits, i, recent):
-            if produced + i + 1 >= min_len:
+            below = produced + i + 1 < min_len
+            if not isinstance(below, torch.Tensor) and not below:
                 return logits
             vocab = torch.arange(logits.shape[-1], device=logits.device)
-            return torch.where((vocab >= size)[None], torch.full_like(logits, -1e30), logits)
+            return torch.where((vocab >= size)[None] & below, torch.full_like(logits, -1e30),
+                               logits)
         return process
+
+    def target_step(self, extra):
+        """(tokens (1, T), cache) → (logits (1, T, V) f32, cache): the
+        speculative verify, T rows through the stack and the head."""
+        def step(toks, cache):
+            h, cache = transformer.forward_hidden(self.params["llm"], self.cfg.qwen,
+                                                  self.embed_speech(toks), cache, extra)
+            return self.head(h), cache
+        return step
+
+    def spec_history(self, prompt_speech: list[int], width: int):
+        """(the n-gram history (1, width) holding the prompt's speech tokens,
+        its length, second_last: the last prompt speech token, or -1)."""
+        n_s, dev = len(prompt_speech), self.device
+        hist = torch.zeros((1, width), dtype=torch.int64, device=dev)
+        hist[0, :n_s] = torch.as_tensor(prompt_speech, dtype=torch.int64)
+        second = prompt_speech[-1] if n_s else -1
+        return (hist, torch.tensor(n_s, device=dev),
+                torch.tensor([second], dtype=torch.int64, device=dev))
+
+    def _stats(self, runs) -> dict:
+        it, dr, ac = (sum(int(getattr(r, n)) for r in runs)
+                      for n in ("iterations", "drafted", "accepted"))
+        self.last_spec_stats = {"iterations": it, "drafted": dr, "accepted": ac,
+                                "accept_rate": ac / max(dr, 1),
+                                "tokens_per_iteration": (ac + it) / it if it else 0.0}
+        return self.last_spec_stats
 
     @staticmethod
     def _draws(noise, chunk: int):
@@ -176,27 +222,39 @@ class CosyLMGenerator:
     def generate(self, text_ids: list[int], prompt_text_ids: list[int],
                  prompt_speech_tokens: list[int], *, seed: int = 0,
                  sampler: SamplerConfig = RAS_SAMPLER, max_new: int | None = None,
-                 speculative: str | None = None, gamma: int = 4, noise=None) -> list[int]:
+                 speculative: str | None = None, gamma: int = 4, noise=None,
+                 draws=None) -> list[int]:
         """Speech tokens for text_ids (EOS and the other specials dropped).
         noise(0, i): the draw i (0 the first token's, i the loop's step
-        i − 1), each (2, 1, V) under RAS, instead of the generator's."""
-        if speculative is not None:
-            raise NotImplementedError(f"speculative decoding {_NOT_PORTED}")
+        i − 1), each (2, 1, V) under RAS, instead of the generator's.
+        speculative "ngram": the speculative loop, its iteration i's draws
+        `draws(i)` (`ops/speculative`) instead of the generator's."""
+        check_speculative(speculative)
         cfg = self.cfg
         min_len = int(len(text_ids) * cfg.min_token_text_ratio)
         max_len = max_new or max(8, int(len(text_ids) * cfg.max_token_text_ratio))
         max_len = -(-max_len // 32) * 32
+        steps = spec.loop_slots(max_len - 1, gamma) if speculative else max_len + SYNC_EVERY
         logits, cache, extra = self.prefill(text_ids, prompt_text_ids, prompt_speech_tokens,
-                                            max_len + SYNC_EVERY)
+                                            steps, fused=False if speculative else None)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         proc = self.processor(min_len)
         recent = torch.full((1, 64), -1, dtype=torch.int64, device=self.device)
         first = sampling.sample(proc(logits, 0, None), sampler, recent, gen,
                                 None if noise is None else noise(0, 0))
-        res = decode_loop(self.step_fn(extra), cache, first, max_len - 1,
-                          eos_ids=(cfg.eos_id,), sampler=sampler, generator=gen,
-                          logit_processor=proc, pad_id=cfg.eos_id,
-                          noise=self._draws(noise, 0))
+        if speculative:
+            width = _bucket(len(prompt_speech_tokens)) + max_len + 2 * gamma + 4
+            hist, hist_len, second = self.spec_history(prompt_speech_tokens, width)
+            res = spec.speculative_decode_loop(
+                self.target_step(extra), cache, first, second, max_len - 1, gamma,
+                (cfg.eos_id,), sampler, pad_id=cfg.eos_id, history=hist,
+                history_len=hist_len, logit_processor=proc, generator=gen, draws=draws)
+            self._stats([res])
+        else:
+            res = decode_loop(self.step_fn(extra), cache, first, max_len - 1,
+                              eos_ids=(cfg.eos_id,), sampler=sampler, generator=gen,
+                              logit_processor=proc, pad_id=cfg.eos_id,
+                              noise=self._draws(noise, 0))
         out = [int(first[0])] + res.tokens[0, :int(res.lengths[0])].tolist()
         return [t for t in out if t < cfg.speech_token_size]
 
@@ -233,14 +291,20 @@ class CosyLMStreamer:
     @torch.inference_mode()
     def stream(self, text_ids, prompt_text_ids, prompt_speech_tokens, *,
                sampler: SamplerConfig = RAS_SAMPLER, seed: int = 0, max_new: int | None = None,
-               speculative: str | None = None, gamma: int = 4, noise=None):
+               speculative: str | None = None, gamma: int = 4, noise=None, draws=None):
         """Yields lists of speech tokens (≤ chunk each, the first ≤ chunk +
-        first_extra) as they are made. noise(c, i): chunk c's draw i."""
-        if speculative is not None:
-            raise NotImplementedError(f"speculative decoding {_NOT_PORTED}")
+        first_extra) as they are made. noise(c, i): chunk c's draw i.
+        speculative "ngram": spans of the speculative loop (a span may run
+        gamma past its chunk), draws(i) its iteration i's, numbered across
+        spans."""
+        check_speculative(speculative)
         g, cfg = self.gen, self.gen.cfg
         min_len = int(len(text_ids) * cfg.min_token_text_ratio)
         max_len = max_new or max(8, int(len(text_ids) * cfg.max_token_text_ratio))
+        if speculative:
+            yield from self._stream_spec(text_ids, prompt_text_ids, prompt_speech_tokens,
+                                         min_len, max_len, sampler, seed, gamma, noise, draws)
+            return
         steps = max_len + self.chunk + self.first_extra + SYNC_EVERY
         logits, cache, extra = g.prefill(text_ids, prompt_text_ids, prompt_speech_tokens, steps)
         gen = torch.Generator(device=g.device).manual_seed(seed)
@@ -259,3 +323,58 @@ class CosyLMStreamer:
                 yield toks
             if finished:
                 break
+
+    def _stream_spec(self, text_ids, prompt_text_ids, prompt_speech, min_len: int,
+                     max_len: int, sampler: SamplerConfig, seed: int, gamma: int, noise,
+                     draws):
+        """Token streaming through the speculative loop: the first span
+        samples the first token from the prefill's logits and runs the loop
+        for chunk + first_extra − 1 more; each later span resumes the
+        carried state for `chunk` more, or the fewer left to max_len (where
+        the JAX spans run a whole chunk and drop the excess), so the spans
+        run the one-shot loop's iterations. Spans end at the first EOS or
+        the emission boundary (the buffer pads with EOS). The counters of
+        all spans land in the generator's `last_spec_stats`."""
+        g, cfg = self.gen, self.gen.cfg
+        eos, size = cfg.eos_id, cfg.speech_token_size
+        chunk0 = self.chunk + self.first_extra
+        logits, cache, extra = g.prefill(text_ids, prompt_text_ids, prompt_speech,
+                                         max_len + spec.loop_slots(chunk0, gamma), fused=False)
+        gen = torch.Generator(device=g.device).manual_seed(seed)
+        recent = torch.full((1, 64), -1, dtype=torch.int64, device=g.device)
+        first = sampling.sample(g.processor(min_len)(logits, 0, None), sampler, recent, gen,
+                                None if noise is None else noise(0, 0))
+        width = -(-(_bucket(len(prompt_speech)) + max_len + chunk0 + 2 * gamma + 8) // 64) * 64
+        hist, hist_len, second = g.spec_history(prompt_speech, width)
+        common = dict(gamma=gamma, eos_ids=(eos,), sampler=sampler, pad_id=eos,
+                      generator=gen, draws=draws)
+        res = spec.speculative_decode_loop(
+            g.target_step(extra), cache, first, second, min(chunk0, max_len) - 1, history=hist,
+            history_len=hist_len, logit_processor=g.processor(min_len), **common)
+        runs = [res]
+        first_eos = int(first[0]) == eos
+        loop = res.tokens[0]
+        n = 0 if first_eos else 1 + int((loop == eos).long().argmax())
+        tokens = torch.cat([first, loop])
+        finished = first_eos or bool(res.finished)
+        produced = 0
+        while True:
+            n = min(n, max_len - produced)
+            toks = [t for t in tokens[:n].tolist() if t < size]
+            produced += n
+            if toks:
+                yield toks
+            if finished or produced >= max_len:
+                break
+            res = spec.speculative_decode_loop(
+                g.target_step(extra), res.last_state, res.last, res.second_last,
+                min(self.chunk, max_len - produced),
+                history=res.history, history_len=res.history_len,
+                logit_processor=g.processor(min_len, produced - 1), recent0=res.recent,
+                append_first_to_history=False, iteration0=sum(int(r.iterations) for r in runs),
+                **common)
+            runs.append(res)
+            tokens = res.tokens[0]
+            n = int((tokens == eos).long().argmax())
+            finished = bool(res.finished)
+        g._stats(runs)

@@ -23,9 +23,12 @@ sentence is decoded whole, in buckets of 8 frames (Mimi is causal: the
 zero codes of the bucket do not reach the real frames).
 
 `load()` reads the checkpoint (`models/marvis/load.py`) onto `device`, the
-card unless the caller asks for the CPU. `kv_quantized=True` (the int8 KV
-cache) is ROADMAP A9 and raises; so does a 6-bit checkpoint, which neither
-package can serve (ValueError).
+card unless the caller asks for the CPU. `kv_quantized=True` keeps the
+backbone's cache as int8 codes with per-token scales
+(`ops/kvcache.QuantizedKVCache`): the backbone then runs layer by layer
+over it (no whole-stack step), while the depth decoder keeps the
+whole-stack step, as in the JAX engine. A 6-bit checkpoint, which neither
+package can serve, is refused (ValueError).
 """
 
 from __future__ import annotations
@@ -64,11 +67,9 @@ class MarvisEngine(TTSEngineBase):
                  device: torch.device | str = "cuda"):
         """quantization: None (the checkpoint's weights) or "w8a8" (the
         backbone and depth-decoder stacks requantised to per-channel int8).
-        device: the card unless the caller asks for the CPU."""
+        kv_quantized: the backbone's cache in int8. device: the card unless
+        the caller asks for the CPU."""
         super().__init__()
-        if kv_quantized:
-            raise NotImplementedError("the int8 KV cache (kv_quantized=True) is not ported yet "
-                                      "(ROADMAP A9)")
         self.quality = quality
         self.model_size = model
         self.speaker = speaker
@@ -157,8 +158,9 @@ class MarvisEngine(TTSEngineBase):
 
     @classmethod
     def from_params(cls, params, cfg, mimi_params, mimi_cfg, tokenizer=None,
-                    max_frames: int = 64, quantization: str | None = None) -> "MarvisEngine":
-        eng = cls(quantization=quantization)
+                    max_frames: int = 64, quantization: str | None = None,
+                    kv_quantized: bool = False) -> "MarvisEngine":
+        eng = cls(quantization=quantization, kv_quantized=kv_quantized)
         eng.params = cls._fuse(cls._quantize(params, quantization))
         eng.cfg = cfg
         eng._tune_cfg()

@@ -16,7 +16,10 @@ and the tokenizer, from local directories or the pre-seeded cache) onto
 LM to per-channel int8 ("w8a8", the default: the whole-stack step kernel),
 repacks it to W4A8 ("w4a8": the W4A8 kernels, layer by layer) or keeps it
 ("q4"); `from_params` takes a tree built so (`ops/quant`). The LM cache is
-sized for each request. `mesh=` and `speculative=` are A9; they raise.
+sized for each request. `speculative="ngram"` (prompt lookup) or a
+`DraftModel` decodes each sentence by `generate_speculative`, gamma drafts
+a target pass; speculative runs keep the sentence path, as in the JAX
+engine. `mesh=` is ROADMAP A19 and raises.
 """
 
 from __future__ import annotations
@@ -43,6 +46,28 @@ SNAC_REPO = "mlx-community/snac_24khz"
 QUANTIZATIONS = ("w8a8", "w4a8", "q4")
 
 
+def check_speculative(speculative) -> None:
+    """Refuse a `speculative=` that is none of None, "ngram", a DraftModel."""
+    if not (speculative is None or speculative == "ngram"
+            or isinstance(speculative, omodel.DraftModel)):
+        raise ValueError(f"speculative must be None, 'ngram' or a DraftModel, "
+                         f"got {speculative!r}")
+
+
+def generate_sentence(lm: CausalLMGenerator, ids: list[int], sampler: SamplerConfig, eos_ids,
+                      max_new: int, seed: int, speculative, gamma: int,
+                      should_stop) -> list[int]:
+    """A sentence's tokens: `generate` in spans the host can cancel
+    between, or with `speculative` ("ngram" or a DraftModel)
+    `generate_speculative`."""
+    if speculative is None:
+        return lm.generate(ids, sampler=sampler, eos_ids=eos_ids, max_new=max_new, seed=seed,
+                           should_stop=should_stop)
+    return lm.generate_speculative(ids, sampler=sampler, eos_ids=eos_ids, max_new=max_new,
+                                   seed=seed, gamma=gamma,
+                                   draft=None if speculative == "ngram" else speculative)
+
+
 class OrpheusEngine(TTSEngineBase):
     sample_rate = omodel.SAMPLE_RATE
     supported_streaming_granularities = (StreamingGranularity.SENTENCE,
@@ -60,16 +85,21 @@ class OrpheusEngine(TTSEngineBase):
     def __init__(self, voice: str = "tara", temperature: float = 0.6, top_p: float = 0.8,
                  quantization: str = "w8a8", mesh=None, speculative=None, gamma: int = 8,
                  device: torch.device | str = "cuda"):
+        """speculative: None, "ngram" (prompt-lookup drafting) or a
+        DraftModel (a same-vocabulary draft model); gamma drafts a target
+        pass. device: the card unless the caller asks for the CPU."""
         super().__init__()
-        if mesh is not None or speculative is not None:
-            raise NotImplementedError("tensor-parallel and speculative serving are not ported "
-                                      "yet (ROADMAP A9)")
+        if mesh is not None:
+            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
+                                      "(ROADMAP A19)")
+        check_speculative(speculative)
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization must be one of {QUANTIZATIONS}, got {quantization!r}")
         self.voice = voice
         self.temperature = temperature
         self.top_p = top_p
         self.quantization = quantization
+        self.speculative = speculative
         self.gamma = gamma
         self.device = device
         self.lm: CausalLMGenerator | None = None
@@ -97,11 +127,12 @@ class OrpheusEngine(TTSEngineBase):
 
     @classmethod
     def from_params(cls, lm_params, cfg, snac_params, snac_cfg=None,
-                    max_cache: int | None = None, mesh=None) -> "OrpheusEngine":
+                    max_cache: int | None = None, mesh=None, speculative=None,
+                    gamma: int = 8) -> "OrpheusEngine":
         """An engine over a built LM tree (bf16, int8, q4 or W4A8) and SNAC
         parameters. The LM cache holds `max_cache` slots, or with None (the
         default) as many as each request needs."""
-        eng = cls(mesh=mesh)
+        eng = cls(mesh=mesh, speculative=speculative, gamma=gamma)
         eng.lm = CausalLMGenerator(lm_params, cfg, max_cache=max_cache, pad_id=omodel.PAD_TOKEN)
         eng.snac_params = snac_params
         eng.snac_cfg = snac_cfg or snac.SNACConfig()
@@ -178,16 +209,16 @@ class OrpheusEngine(TTSEngineBase):
             self.load()
         sentences = textutils.split_into_sentences(text)
         granularity = granularity or self.default_streaming_granularity
-        if granularity == StreamingGranularity.TOKEN:
+        if granularity not in self.supported_streaming_granularities:
+            raise ValueError(f"Orpheus streams by sentence or token, not {granularity}")
+        if granularity == StreamingGranularity.TOKEN and self.speculative is None:
             yield from self._stream_tokens(sentences, self._sampler(), max_new_tokens)
             return
-        if granularity != StreamingGranularity.SENTENCE:
-            raise ValueError(f"Orpheus streams by sentence or token, not {granularity}")
         for si, sentence in enumerate(sentences):
             self._check_stopped()
-            generated = self.lm.generate(self._prompt(sentence), sampler=self._sampler(),
-                                         eos_ids=(omodel.END_TOKEN,), max_new=max_new_tokens,
-                                         seed=si, should_stop=self._stop_flag.is_set)
+            generated = generate_sentence(self.lm, self._prompt(sentence), self._sampler(),
+                                          (omodel.END_TOKEN,), max_new_tokens, si,
+                                          self.speculative, self.gamma, self._stop_flag.is_set)
             self._check_stopped()
             yield AudioChunk(samples=self._decode_snac(parse_frames(generated)),
                              sample_rate=self.sample_rate, text=sentence,

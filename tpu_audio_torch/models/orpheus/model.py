@@ -5,7 +5,10 @@ build_prompt_ids, CausalLMGenerator, parse_frames).
 `CausalLMGenerator` is the shared prefill + decode of any Llama-family
 config over `nn/transformer.py`: `generate` (one stream; with
 `should_stop`, in spans the host can cancel between), `stream_spans`
-(token-granularity serving) and `generate_batch` (B streams in one loop).
+(token-granularity serving), `generate_batch` (B streams in one loop) and
+`generate_speculative` (drafts verified gamma + 1 at a time,
+`ops/speculative.py`: by prompt lookup, or by a `DraftModel` of the same
+vocabulary).
 Prompts are LEFT-padded to a bucket, the pad key slots masked, and
 `pos_offset` gives RoPE the canonical positions 0, 1, 2, …, as in the JAX
 generator. A single stream runs the whole-stack step kernel where
@@ -20,18 +23,24 @@ give the same stream for a seed. JAX's PRNG draws cannot be reproduced:
 parity is tested greedily. The cache holds `max_cache` slots, or with None
 as many as each request needs.
 
-Not ported yet (ROADMAP A9): speculative decoding (`generate_speculative`,
-`DraftModel`) and tensor-parallel serving (`mesh=`); they raise.
+The speculative target runs on the plain cache, so a verify is one
+per-layer pass at gamma + 1 rows (the int8 and W4A8 matmuls at that row
+count), as the JAX generator forces it; only the draft's T = 1 and T = 2
+steps ride the whole-stack step kernel, where it serves the draft's tree.
+
+Not ported yet (ROADMAP A19): tensor-parallel serving (`mesh=`); it raises.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from tpu_audio_torch.convert import tree_device
 from tpu_audio_torch.nn import attention, transformer
-from tpu_audio_torch.ops import sampling
+from tpu_audio_torch.ops import sampling, speculative
 from tpu_audio_torch.ops.decoding import decode_loop
 from tpu_audio_torch.ops.sampling import SamplerConfig
 
@@ -62,19 +71,25 @@ LLAMA_3B = transformer.TransformerConfig(
                   "original_max_position_embeddings": 8192},
     norm_eps=1e-5, tie_word_embeddings=True)
 
-_NOT_PORTED = "is not ported yet (ROADMAP A9)"
-
 
 def build_prompt_ids(text_ids: list[int]) -> list[int]:
     """[start] + text + [text_end, voice_prefix]."""
     return [START_TOKEN] + list(text_ids) + [TEXT_END_TOKEN, VOICE_PREFIX_TOKEN]
 
 
+@dataclass
 class DraftModel:
-    """The speculative-decoding draft model of the JAX package."""
+    """A small model of the target's vocabulary that drafts tokens for
+    speculative decoding (e.g. a Llama-3.2-1B for the 3B Orpheus); its tree
+    bf16 or quantised. Its cache is sized for each request, or holds
+    `max_cache` slots and refuses a request past them."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"speculative decoding (DraftModel) {_NOT_PORTED}")
+    params: dict = field(repr=False)
+    cfg: transformer.TransformerConfig
+    max_cache: int | None = None
+
+    def __post_init__(self):
+        self.params = transformer.fuse_fp_tree(self.params)
 
 
 class CausalLMGenerator:
@@ -86,8 +101,10 @@ class CausalLMGenerator:
                  max_cache: int | None = 2048, pad_id: int = 0,
                  cache_dtype: torch.dtype = torch.bfloat16, mesh=None):
         if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel serving (mesh=) {_NOT_PORTED}")
+            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
+                                      "(ROADMAP A19)")
         self.cfg = cfg
+        self.last_spec_stats: dict | None = None
         self.max_cache = max_cache
         self.pad_id = pad_id
         self.cache_dtype = cache_dtype
@@ -100,15 +117,19 @@ class CausalLMGenerator:
         """Whole-stack step eligibility (single stream)."""
         return transformer.fused_decode_supported(self.cfg, self.params)
 
+    @staticmethod
+    def _fit(max_cache: int | None, prompt_pad: int, steps: int) -> int:
+        need = prompt_pad + steps
+        if max_cache is None:
+            return need
+        if need > max_cache:
+            raise ValueError(f"a prompt of {prompt_pad} slots + {steps} decode steps exceeds "
+                             f"max_cache {max_cache}")
+        return max_cache
+
     def _slots(self, prompt_pad: int, steps: int) -> int:
         """Cache slots for a prompt bucket and `steps` decode steps."""
-        need = prompt_pad + steps
-        if self.max_cache is None:
-            return need
-        if need > self.max_cache:
-            raise ValueError(f"a prompt of {prompt_pad} slots + {steps} decode steps exceeds "
-                             f"max_cache {self.max_cache}")
-        return self.max_cache
+        return self._fit(self.max_cache, prompt_pad, steps)
 
     def _prompt(self, prompt_ids: list[int], bucket: int) -> tuple[torch.Tensor, int]:
         """(the left-padded prompt (pad,), its pad amount)."""
@@ -241,8 +262,70 @@ class CausalLMGenerator:
         return [[] if firsts[r] in eos_ids else [firsts[r]] + tokens[r][:lengths[r]]
                 for r in range(b)]
 
-    def generate_speculative(self, *args, **kwargs) -> list[int]:
-        raise NotImplementedError(f"speculative decoding {_NOT_PORTED}")
+    # ------------------------------------------------------------ speculative
+
+    def _target_step(self, extra, off):
+        def step(toks, cache):
+            lg, cache = transformer.forward(self.params, self.cfg, toks, cache,
+                                            extra_mask=extra, pos_offset=off)
+            return lg.float(), cache
+        return step
+
+    @torch.inference_mode()
+    def generate_speculative(self, prompt_ids: list[int], *, sampler: SamplerConfig,
+                             eos_ids: tuple, max_new: int, seed: int = 0, bucket: int = 32,
+                             gamma: int = 5, draft: DraftModel | None = None,
+                             draws=None) -> list[int]:
+        """`generate`, emitting up to gamma + 1 tokens a target pass: every
+        token has exactly the sampler's distribution (repetition penalty
+        and RAS included), though not `generate`'s stream for a seed.
+        draft None drafts by prompt lookup, a DraftModel by its model.
+        draws(i): iteration i's draws (`ops/speculative`) instead of the
+        generator's. The counters of the call land in `last_spec_stats`."""
+        prompt, start = self._prompt(prompt_ids, bucket)
+        pad = prompt.shape[0]
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        steps = speculative.loop_slots(max_new - 1, gamma)
+        cfg, dev = self.cfg, self.device
+        cache, extra = transformer.decode_cache_and_mask(
+            cfg, self._slots(pad, steps), start, False, dtype=self.cache_dtype, device=dev)
+        off = torch.tensor([start], device=dev)
+        logits, cache = transformer.forward(self.params, cfg, prompt[None], cache,
+                                            extra_mask=extra, pos_offset=off)
+        first = sampling.sample(logits[:, -1].float(), sampler, None, gen)
+        common = dict(max_new_tokens=max_new - 1, gamma=gamma, eos_ids=eos_ids,
+                      sampler=sampler, pad_id=self.pad_id, generator=gen, draws=draws)
+        if draft is not None:
+            d_fused = transformer.fused_decode_supported(draft.cfg, draft.params)
+            d_cache, d_extra = transformer.decode_cache_and_mask(
+                draft.cfg, self._fit(draft.max_cache, pad, steps), start, d_fused,
+                dtype=self.cache_dtype, device=dev)
+            _, d_cache = transformer.forward(draft.params, draft.cfg, prompt[None], d_cache,
+                                             extra_mask=d_extra, pos_offset=off)
+            d_cache.pos -= 1  # the first 2-token draft step re-writes the last prompt slot
+
+            def d_step(toks, c):
+                lg, c = transformer.forward(draft.params, draft.cfg, toks, c,
+                                            extra_mask=d_extra, pos_offset=off)
+                return lg.float(), c
+
+            res = speculative.speculative_decode_loop(
+                self._target_step(extra, off), cache, first, prompt[-1:],
+                draft_step=d_step, draft_cache=d_cache, **common)
+        else:
+            hist = torch.zeros((1, pad + max_new + 2 * gamma + 4), dtype=torch.int64, device=dev)
+            hist[0, :pad] = torch.roll(prompt, -start)
+            res = speculative.speculative_decode_loop(
+                self._target_step(extra, off), cache, first, prompt[-1:], history=hist,
+                history_len=torch.tensor(pad - start, device=dev), **common)
+        it, dr, ac = int(res.iterations), int(res.drafted), int(res.accepted)
+        self.last_spec_stats = {"iterations": it, "drafted": dr, "accepted": ac,
+                                "accept_rate": ac / dr if dr else 0.0,
+                                "tokens_per_iteration": (ac + it) / it if it else 0.0}
+        first = int(first[0])
+        if first in eos_ids:
+            return []
+        return [first] + res.tokens[0, :int(res.lengths[0])].tolist()
 
 
 def parse_frames(tokens: list[int]) -> list[np.ndarray]:

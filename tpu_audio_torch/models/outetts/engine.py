@@ -17,7 +17,9 @@ per-channel int8 ("w8a8", the default: the whole-stack step kernel and the
 int8 head), repacks it to W4A8 ("w4a8") or keeps it ("q4"). `from_params`
 takes a tree built so; its LM cache is sized for each request, where the
 JAX engine's `max_cache=512` cannot hold its own default of 2048 new
-tokens (ROADMAP C7). `speculative=` is A9 and raises. The bundled
+tokens (ROADMAP C7). `speculative="ngram"` or a `DraftModel` decodes
+each sentence by `generate_speculative` (gamma drafts a target pass). The
+bundled
 `default_speaker.json` is not in the repository: `speaker="default"` logs
 the JAX package's warning and runs unconditioned, as the reference does.
 """
@@ -37,6 +39,7 @@ from tpu_audio_torch.api.results import AudioResult
 from tpu_audio_torch.api.tts import AudioChunk, StreamingGranularity, TTSEngineBase
 from tpu_audio_torch.codecs.dac import model as dac
 from tpu_audio_torch.convert import serving_dtype, tree_device
+from tpu_audio_torch.models.orpheus.engine import check_speculative, generate_sentence
 from tpu_audio_torch.models.orpheus.model import CausalLMGenerator
 from tpu_audio_torch.models.outetts import tokens as T
 from tpu_audio_torch.models.outetts.features import extract_features
@@ -137,14 +140,15 @@ class OuteTTSEngine(TTSEngineBase):
         """speaker: a SpeakerProfile, "default" (the bundled profile; with
         the asset absent, unconditioned prompts and a warning) or None
         (unconditioned prompts). quantization: how `load()` serves the
-        4-bit checkpoint ("w8a8", "w4a8" or "q4"). device: the card unless
+        4-bit checkpoint ("w8a8", "w4a8" or "q4"). speculative: None,
+        "ngram" or a DraftModel, gamma drafts a target pass. device: the card unless
         the caller asks for the CPU."""
         super().__init__()
-        if speculative is not None:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP A9)")
+        check_speculative(speculative)
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization must be one of {QUANTIZATIONS}, got {quantization!r}")
         self.speaker = default_speaker() if speaker == "default" else speaker
+        self.speculative = speculative
         self.gamma = gamma
         self.quantization = quantization
         self.device = device
@@ -176,11 +180,12 @@ class OuteTTSEngine(TTSEngineBase):
 
     @classmethod
     def from_params(cls, lm_params, cfg, dac_params, dac_cfg, tokenizer=None,
-                    max_cache: int | None = None) -> "OuteTTSEngine":
+                    max_cache: int | None = None, speculative=None,
+                    gamma: int = 8) -> "OuteTTSEngine":
         """An engine over a built LM tree (bf16, int8, q4 or W4A8) and DAC
         parameters. The LM cache holds `max_cache` slots, or with None (the
         default) as many as each request needs."""
-        eng = cls()
+        eng = cls(speculative=speculative, gamma=gamma)
         eng.lm = CausalLMGenerator(lm_params, cfg, max_cache=max_cache)
         eng.tokenizer = tokenizer or load_tokenizer(None)
         eng.dac_params = dac_params
@@ -267,9 +272,9 @@ class OuteTTSEngine(TTSEngineBase):
         for si, sentence in enumerate(sentences):
             self._check_stopped()
             ids = self.tokenizer.encode(build_prompt(sentence, self.speaker))
-            generated = self.lm.generate(ids, sampler=SAMPLER, eos_ids=self._eos_ids(),
-                                         max_new=max_new_tokens, seed=si,
-                                         should_stop=self._stop_flag.is_set)
+            generated = generate_sentence(self.lm, ids, SAMPLER, self._eos_ids(),
+                                          max_new_tokens, si, self.speculative, self.gamma,
+                                          self._stop_flag.is_set)
             self._check_stopped()
             c1, c2 = extract_codes(self.tokenizer.decode_raw(generated))
             yield AudioChunk(samples=self._decode_dac(c1, c2), sample_rate=self.sample_rate,

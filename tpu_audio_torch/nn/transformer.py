@@ -18,8 +18,11 @@ whole stack as one launch per token (`ops/kernels/fused_step.py`) when
 `fused_decode_supported` holds; prefill runs the per-layer path on a
 layout view of that cache, with the key slots before `start` masked.
 
-Not ported yet (ROADMAP A9): the int8 `QuantizedKVCache` and the
-shard_map tensor-parallel `axis_name`; both raise.
+Over a `QuantizedKVCache` (the int8 cache, `make_cache(quantized=True)`)
+each layer writes its keys and values quantised at `pos` and attends over
+the layer read back dequantised into q's dtype, as the JAX module's
+quantised branch does. The shard_map tensor-parallel `axis_name` is not
+ported yet (ROADMAP A19) and raises.
 """
 
 from __future__ import annotations
@@ -33,9 +36,7 @@ import torch
 from tpu_audio_torch.nn import attention, layers, rope
 from tpu_audio_torch.ops import quant
 from tpu_audio_torch.ops.kernels import fused_step as fs
-from tpu_audio_torch.ops.kvcache import FusedKVCache, KVCache
-
-_NOT_PORTED = "is not ported yet (ROADMAP A9)"
+from tpu_audio_torch.ops.kvcache import FusedKVCache, KVCache, QuantizedKVCache
 
 
 @dataclass(frozen=True)
@@ -210,9 +211,11 @@ def fuse_fp_tree(params: dict) -> dict:
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
-               device: torch.device | str = "cuda") -> KVCache:
+               device: torch.device | str = "cuda"):
+    """A KVCache in `dtype`, or with `quantized` the int8 QuantizedKVCache."""
     if quantized:
-        raise NotImplementedError(f"QuantizedKVCache {_NOT_PORTED}")
+        return QuantizedKVCache.create(cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd,
+                                       device)
     return KVCache.create(cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd, dtype, device)
 
 
@@ -272,11 +275,12 @@ def forward_hidden(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache,
     from the positions fed to RoPE / learned embeddings (cache slots are
     unaffected), clamped at 0."""
     if axis_name is not None:
-        raise NotImplementedError(f"tensor-parallel axis_name {_NOT_PORTED}")
+        raise NotImplementedError("tensor-parallel axis_name is not ported yet (ROADMAP A19)")
     if isinstance(cache, FusedKVCache):
         return _forward_fused(params, cfg, x, cache, extra_mask, pos_offset)
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError(f"{type(cache).__name__} {_NOT_PORTED}")
+    quantized = isinstance(cache, QuantizedKVCache)
+    if not (quantized or isinstance(cache, KVCache)):
+        raise TypeError(f"unknown cache type {type(cache).__name__}")
     b, t, _ = x.shape
     pos = cache.pos
     positions = pos + torch.arange(t, device=pos.device)
@@ -297,7 +301,7 @@ def forward_hidden(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache,
 
         def kv(k, v, i=i):
             cache.write(i, k, v)
-            return cache.k[i], cache.v[i]
+            return cache.read_layer(i, k.dtype) if quantized else (cache.k[i], cache.v[i])
 
         x = _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask)
         x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))

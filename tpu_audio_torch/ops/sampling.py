@@ -1,7 +1,8 @@
 """Token sampling on the device (port of tpu_audio/ops/sampling.py:
 SamplerConfig, sample, warp_logits, apply_top_k, apply_top_p, apply_min_p,
-apply_repetition_penalty, update_recent, and repetition-aware sampling;
-`warped_probs` comes with speculative decoding, its only user).
+apply_repetition_penalty, update_recent, repetition-aware sampling,
+mask_tokens, and `warped_probs`, the exact distribution `sample` draws
+from, for speculative decoding).
 
 Every operation stays on the logits' device, so a decode loop never reads
 them back. Top-k and top-p are exact (a sort or `torch.topk`); the JAX
@@ -88,6 +89,11 @@ def apply_repetition_penalty(logits: torch.Tensor, recent: torch.Tensor,
     return torch.where(seen, penalized, logits)
 
 
+def mask_tokens(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Additive suppression mask (V,) or (B, V): 0 allowed, NEG_INF banned."""
+    return logits + mask
+
+
 def warp_logits(logits: torch.Tensor, cfg: SamplerConfig,
                 recent: torch.Tensor | None = None) -> torch.Tensor:
     """Repetition penalty → temperature → top-k/top-p → min-p; the
@@ -103,6 +109,25 @@ def warp_logits(logits: torch.Tensor, cfg: SamplerConfig,
     else:
         logits = apply_top_p(apply_top_k(logits, cfg.top_k), cfg.top_p)
     return apply_min_p(logits, cfg.min_p)
+
+
+def warped_probs(logits: torch.Tensor, cfg: SamplerConfig,
+                 recent: torch.Tensor | None = None) -> torch.Tensor:
+    """The probabilities (B, V) `sample` draws from at temperature > 0,
+    RAS's two-stage redraw marginalised in closed form: with P the warped
+    softmax and S = Σ_{t bad} P(t) / (1 − P(t)) over the tokens repeated
+    too often, P'(x) = P(x) · ([x ok] + S − [x bad] · P(x) / (1 − P(x)))."""
+    p = torch.softmax(warp_logits(logits, cfg, recent), dim=-1)
+    if not (cfg.ras and recent is not None):
+        return p
+    window = recent[:, -cfg.ras_window:]
+    vocab = torch.arange(p.shape[-1], device=p.device, dtype=window.dtype)
+    reps = (vocab[None, :, None] == window[:, None, :]).sum(dim=-1)  # (B, V)
+    bad = reps > cfg.ras_max_repeats
+    ratio = p / torch.clamp(1.0 - p, min=1e-30)
+    zero = torch.zeros_like(p)
+    s = torch.where(bad, ratio, zero).sum(dim=-1, keepdim=True)
+    return p * (torch.where(bad, zero, torch.ones_like(p)) + s - torch.where(bad, ratio, zero))
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
