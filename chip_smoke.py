@@ -97,8 +97,13 @@ Phases (any failure raises and the script exits non-zero):
      pattern) through `TTS.orpheus().load()` and `TTS.orpheus(
      quantization="w4a8").load()`: the served trees and greedy tokens
      against `from_params`, and `AudioResult.save` read back by `read_wav`;
-     (d) the `tokenizer.json` reader and the Whisper BPE, `regex` blocked,
-     on the golden texts of tests/data/tokenizer_golden/. Each run asserts
+     (d) Chatterbox and Chatterbox Turbo in the mlx 4-bit layouts (the
+     q4 T3s at full width, S3Gen, the voice encoder, S3TokenizerV2) through
+     `TTS.chatterbox("4bit").load()` and `TTS.chatterbox_turbo("4bit")
+     .load()`: every tree against the written one bit for bit and greedy T3
+     tokens against the written tree's; (e) the `tokenizer.json` reader and
+     the Whisper BPE, `regex` blocked, on the golden texts of
+     tests/data/tokenizer_golden/. Each run asserts
      its kernels' launches; the bytes written and each engine's write and
      load walls are printed beside the card line.
  12. (run last) OuteTTS at full width (the Llama-3.2-1B of
@@ -171,7 +176,21 @@ Phases (any failure raises and the script exits non-zero):
      against f32 with its faults, the O(1) flow against the full window
      (f32), the flow's and HiFT's ms a chunk, the O(1) flow's drift over
      40 chunks.
-     Phases 12 to 16 print their walls and their launches on lines of
+ 17. (run last) Chatterbox and Chatterbox Turbo at full width on random
+     weights (`T3Config()`'s Llama-520M and `T3TurboConfig()`'s GPT-2
+     medium on bf16, q4 and q8 trees, `S3GenConfig()` with the CFG and the
+     meanflow estimators, `S3TokenizerConfig()`, `VoiceEncConfig()`)
+     through `TTS.chatterbox()` and `TTS.chatterbox_turbo()` on the q4
+     trees: the speaker from a 10 s clip (its wall), one sentence each
+     (first audio, × real time; Turbo at SENTENCE and TOKEN granularity),
+     every `quant_matmul` call of a generate held against its plain
+     version on each T3 and tree, the T3s' teacher-forced logits, the
+     voice encoder and Turbo's meanflow flow held against f32 with planted
+     controls (CFG's sign, the unconditional row's text, the pad mask, the
+     perceiver's self pass, the LSTM's i and f gates, Turbo's positions,
+     the mixer's (t, t), a cosine t grid), each T3's ms a token and
+     `quant_matmul` launches a step, the flows' and HiFT's ms.
+     Phases 12 to 17 print their walls and their launches on lines of
      their own. Every end-to-end control must read at least 5× the plain
      route's distance from f32; each prints its ratio.
 
@@ -233,7 +252,8 @@ check of the OuteTTS and Marvis engines, DAC and Mimi.
 `python3 chip_smoke.py --cosyvoice-only` runs phases 1, 2 and 14: a short
 check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
 `python3 chip_smoke.py --spec-only` runs phases 1, 2 and 15 (speculative
-decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3).
+decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3);
+`--chatterbox-only` phases 1, 2 and 17 (Chatterbox and Chatterbox Turbo).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -348,6 +368,18 @@ CV3_STREAM_TEXTS = CV_TEXTS  # phase 16's two sentences
 CV3_O1_CHUNKS = 3            # phase 16's aligned chunks of the O(1) flow against the full window
 CV3_O1_REL = 1e-4            # ... in f32
 CV3_DRIFT_CHUNKS = 40        # phase 16's O(1) stream for the drift of its chunk times
+CB_REF_SECONDS = 10          # phase 17's reference clip (both crops: 6 s for T3, 10 s for S3Gen)
+CB_TEXT = CV_TEXTS[0]        # phase 17's streamed sentence
+CB_SHORT_IDS = 3             # phase 17's pad-mask control: text ids (29 of 32 slots padding)
+CB_MAX_NEW = 150             # phase 17's speech tokens a sentence (6 s of audio)
+CB_HELD_NEW = 8              # phase 17's generate whose quant_matmul calls are held
+CB_HELD_STEPS = 8            # T3 steps held against f32, each fed the f32 path's token
+CB_TIMED_NEW = (8, 32)       # T3 alone: generate at these max_new; ms a token between
+CB_FLOW_TOKENS = (75, 50)    # phase 17's flow held against f32: prompt, generated tokens
+CB_TIME_SCALE = 4.0          # the held meanflow tree's time MLP and mixer × this
+QMM_T3_SHAPES = {"t3 q, k, v, o": (1024, 1024), "t3 gate, up / turbo fc1": (4096, 1024),
+                 "t3 down / turbo fc2": (1024, 4096), "t3 speech head": (8194, 1024)}
+QMM_T3_ROWS = (1, 2)         # Turbo's B=1 and Chatterbox's CFG batch of 2
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -2791,15 +2823,17 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
     """Phase 3, the q4/q8 dequant-matmul at every linear shape of the q4
     decoders and both heads (`QMM_SHAPES`; Qwen3's tied head the q4 tree's
     own words and, for q8, its bf16 weights quantised), at 1, 2, 16 and 32
-    rows, q4 and q8, f32 and bf16 x, against the plain version at rel 1e-4
+    rows, and the Chatterbox T3s' linears and 8194-row speech head
+    (`QMM_T3_SHAPES`) at 1 and 2 rows, q4 and q8, f32 and bf16 x, against
+    the plain version at rel 1e-4
     (both f32; the kernel's terms of x sum to x up to ~2^-24 |x| and it
     folds each group's affine in as s·Σx(q − c) + (b + c s)·Σx, so the sums
     differ in order and in the last bits only). Planted faults that must
     land outside: the nibble order reversed, the group bias dropped (Qwen3's
     head, 1 row), and, where the launch splits the columns over a cluster
     (32 rows of f32 x), one slice's partial dropped or merged twice. Then
-    each shape timed at 1 row (f32 and bf16 x) and 16 (bf16), the weights
-    from device memory."""
+    each shape timed at 1 row (f32 and bf16 x) and 16 (bf16), the T3 shapes
+    at 1 and 2 rows of f32 x, the weights from device memory."""
     from tpu_audio_torch.ops import quant
     from tpu_audio_torch.ops.kernels import quant_matmul as qmm
 
@@ -2821,7 +2855,8 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
         return y
 
     err, merge_seen, timing = 0.0, set(), {}
-    for label, (o, i) in QMM_SHAPES.items():
+    for label, (o, i) in {**QMM_SHAPES, **QMM_T3_SHAPES}.items():
+        qrows = QMM_ROWS if label in QMM_SHAPES else QMM_T3_ROWS
         for bits in (4, 8):
             if label == "qwen3 head":
                 leaf = (llm_q4["embed"] if bits == 4
@@ -2831,7 +2866,7 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
             packed, sc, bi = leaf[f"weight_q{bits}"], leaf["scales"], leaf["biases"]
             o, i = packed.shape[0], sc.shape[1] * qmm.GROUP
             worst, plans = (0.0, ""), set()
-            for n, dt in itertools.product(QMM_ROWS, (torch.float32, torch.bfloat16)):
+            for n, dt in itertools.product(qrows, (torch.float32, torch.bfloat16)):
                 name = f"quant_matmul q{bits} {label} ({n}, {i}) {str(dt)[6:]} x ({o}, {i})"
                 x = randn(n, i, dtype=dt)
                 got = qmm.quant_matmul(x, packed, sc, bi, bits=bits)
@@ -2863,7 +2898,7 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
                         for s in (0, slices - 1) for what, f in (("dropped", 0.0),
                                                                  ("merged twice", 2.0))],
                         rel=1e-4)
-            log(f"quant_matmul q{bits} {label} ({o}, {i}) at rows {QMM_ROWS}, f32 and bf16 x: "
+            log(f"quant_matmul q{bits} {label} ({o}, {i}) at rows {qrows}, f32 and bf16 x: "
                 f"within rel 1e-4 and cosine 0.999 (worst rel {worst[0]:.3e}: {worst[1]}); "
                 "launch (rows dtype: tiles a span/slices/blocks an SM/stages/smem) "
                 f"{sorted(plans)}")
@@ -2878,11 +2913,13 @@ def check_quant_matmul(trees: dict, randn, rows: list) -> None:
     # each shape at 1 row (f32 and bf16 x) and 16 rows (bf16: Whisper's
     # batch-16 q4 decode), its weights from device memory: enough stacked
     # copies that the calls, made on the copies in turn, miss L2
-    for label, (o, i) in QMM_SHAPES.items():
+    # (the T3 shapes at 1 and 2 rows of f32 x: the q4 T3s' activations)
+    for label, (o, i) in {**QMM_SHAPES, **QMM_T3_SHAPES}.items():
         layers = max(2, -(-COLD_BYTES // (o * i // 2 + o * i // qmm.GROUP * 8)))
         leaf = quant.quantize_array(randn(layers, o, i, scale=i ** -0.5), 4)
         packed, sc, bi = leaf["weight_q4"], leaf["scales"], leaf["biases"]
-        for n, dt in ((1, torch.float32), (1, torch.bfloat16), (16, torch.bfloat16)):
+        for n, dt in (((1, torch.float32), (1, torch.bfloat16), (16, torch.bfloat16))
+                      if label in QMM_SHAPES else ((1, torch.float32), (2, torch.float32))):
             x = randn(n, i, dtype=dt)
             cycle = itertools.cycle(range(layers))
 
@@ -3951,6 +3988,7 @@ LLAMA3_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}
 LOAD_CLIP_SECONDS = 6        # phase 11's Whisper clip
 LOAD_FUNASR_NEW = 24         # phase 11's Fun-ASR tokens per transcribe
 LOAD_ORPHEUS_NEW = 56        # phase 11's Orpheus tokens per generate (8 frames)
+LOAD_T3_NEW = 24             # phase 11's greedy tokens of each Chatterbox T3
 
 
 def write_safetensors(path, tensors: dict, metadata: dict | None = None) -> int:
@@ -4206,6 +4244,85 @@ def cosyvoice3_flat(lm_tree: dict, flow_tree: dict) -> dict:
         flat[key] = np.ascontiguousarray(v)
     flat["flow.decoder.estimator.rotary_embed.inv_freq"] = np.ones(8, np.float32)
     return flat
+
+
+def s3gen_torch_flat(s3_tree: dict, prefix: str) -> dict:
+    """A JAX-layout S3Gen tree (numpy arrays or tensors) → flat tensors under
+    `prefix`, each 3-D weight turned back by the inverse of Chatterbox's
+    `_convert_conv_layouts` ((O, I, K), and (I, O, K) under ups, convT and
+    up_layer)."""
+    from tpu_audio_torch.utils import pytree
+
+    out = {}
+    for k, v in pytree.flatten(s3_tree).items():
+        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+        if v.dim() == 3 and (".weight" in k or k.endswith("weight_v")):
+            v = v.permute(1, 2, 0) if re.search(r"\.(ups|convT|up_layer)\.", k) else \
+                v.permute(2, 1, 0)
+        out[prefix + k] = v.contiguous()
+    return out
+
+
+def s3_jax_layout(tree: dict) -> dict:
+    """A port S3-family tree → the JAX layouts (the inverse of
+    `convert.s3_perm`), on its device."""
+    from tpu_audio_torch.convert import s3_perm
+    from tpu_audio_torch.utils import pytree
+
+    out = {}
+    for k, v in pytree.flatten(tree).items():
+        perm = s3_perm(k, v.dim())
+        out[k] = v.permute(*np.argsort(perm).tolist()) if perm else v
+    return pytree.unflatten(out)
+
+
+def chatterbox_flat(t3_tree: dict, s3_tree: dict, ve_tree: dict) -> dict:
+    """A port T3 tree (fp or group-affine), a JAX-layout S3Gen numpy tree
+    and a voice-encoder tree → the flat dict of an mlx-community Chatterbox
+    checkpoint as `models/chatterbox/load.py` reads it: the Llama stack
+    under t3.tfmr.model.*, T3's other leaves under t3.* (packed uint32
+    words), S3Gen under s3gen.*, the voice encoder under ve.*."""
+    from tpu_audio_torch.utils import pytree
+
+    flat = llama_flat(t3_tree["tfmr"], "t3.tfmr.")
+    flat.update({"t3." + k: v for k, v in packed_weights(pytree.flatten(
+        {n: t3_tree[n] for n in t3_tree if n != "tfmr"})).items()})
+    flat.update(s3gen_torch_flat(s3_tree, "s3gen."))
+    flat.update({"ve." + k: v for k, v in pytree.flatten(ve_tree).items()})
+    return flat
+
+
+GPT2_HF_NAMES = [(".attn.o.", ".attn.c_proj."), (".mlp.fc1.", ".mlp.c_fc."),
+                 (".mlp.fc2.", ".mlp.c_proj."), (".ln1.", ".ln_1."), (".ln2.", ".ln_2.")]
+
+
+def turbo_flat(t3_tree: dict, s3_tree: dict, ve_tree: dict) -> dict:
+    """A port Turbo T3 tree (fp or group-affine), a JAX-layout S3Gen numpy
+    tree and a voice-encoder tree → the flat dict of an mlx-community
+    Chatterbox Turbo checkpoint: the GPT-2 stack under t3.tfmr.h.N (q, k
+    and v fused into c_attn; fp weights in HF Conv1D's (in, out), packed
+    words in the Linear (out, in)), ln_f and the position table under
+    t3.tfmr.ln_f and t3.tfmr.wpe, T3's other leaves under t3.*, then S3Gen
+    and the voice encoder as `chatterbox_flat` writes them."""
+    from tpu_audio_torch.utils import pytree
+
+    layers = t3_tree["tfmr"]["layers"]
+    attn = {k: v for k, v in layers["attn"].items() if k not in "qkv"}
+    qkv = [layers["attn"][n] for n in "qkv"]
+    attn["c_attn"] = {k: torch.cat([d[k] for d in qkv], dim=1) for k in qkv[0]}
+    stacked = {"h." + k: v for k, v in pytree.flatten(dict(layers, attn=attn)).items()}
+    out = {}
+    for k, v in packed_weights(unstacked(stacked, "h", "h")).items():
+        if k.endswith(".weight") and isinstance(v, torch.Tensor) and v.dim() == 2:
+            v = v.T.contiguous()  # HF Conv1D (in, out)
+        out["t3.tfmr." + renamed(k, GPT2_HF_NAMES)] = v
+    rest = {"ln_f": t3_tree["tfmr"]["norm"], "wpe": t3_tree["wpe"]}
+    out.update({"t3.tfmr." + k: v for k, v in packed_weights(pytree.flatten(rest)).items()})
+    out.update({"t3." + k: v for k, v in packed_weights(pytree.flatten(
+        {n: t3_tree[n] for n in t3_tree if n not in ("tfmr", "wpe")})).items()})
+    out.update(s3gen_torch_flat(s3_tree, "s3gen."))
+    out.update({"ve." + k: v for k, v in pytree.flatten(ve_tree).items()})
+    return out
 
 
 def s3tokenizer_mlx_flat(tree: dict) -> dict:
@@ -4591,6 +4708,9 @@ def load_slice(dev, card: str) -> dict:
                 del engine
                 torch.cuda.empty_cache()
             del q4
+
+            # (d) Chatterbox and Chatterbox Turbo, mlx-community 4-bit layouts
+            chatterbox_loads(hub, dev, card, run)
         finally:
             if old_cache is None:
                 os.environ.pop("TPU_AUDIO_CACHE", None)
@@ -4602,6 +4722,84 @@ def load_slice(dev, card: str) -> dict:
     log(f"load tokenizers: {n} golden encodings equal (tokenizer.json reader on llama3, "
         f"qwen2, gpt2 and the Whisper BPE, regex blocked)")
     return total
+
+
+def chatterbox_loads(hub: Path, dev, card: str, run) -> None:
+    """Phase 11 (d): Chatterbox and Chatterbox Turbo 4-bit checkpoints at
+    full width (`chatterbox_trees`' q4 T3s, S3Gen and Turbo's meanflow
+    S3Gen, the voice encoder, with a `tokenizer.json` each; S3TokenizerV2)
+    written by `chatterbox_flat` / `turbo_flat` into the pre-seeded cache,
+    read by `TTS.chatterbox("4bit").load()` and
+    `TTS.chatterbox_turbo("4bit").load()`: every tree against the written
+    one bit for bit, and LOAD_T3_NEW greedy T3 tokens against
+    `from_params` / `from_turbo_params` on the written trees."""
+    import dataclasses
+
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.codecs.s3gen import model as s3gen
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.models.chatterbox import load as cload
+    from tpu_audio_torch.models.chatterbox import t3
+    from tpu_audio_torch.models.chatterbox import voice_encoder as ve
+    from tpu_audio_torch.models.chatterbox_turbo import load as tload
+    from tpu_audio_torch.models.chatterbox_turbo import model as turbo
+    from tpu_audio_torch.utils import pytree
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    trees = chatterbox_trees(dev, bits=(4,))
+    s3cfg, tokcfg, vecfg = s3gen.S3GenConfig(), s3tok.S3TokenizerConfig(), ve.VoiceEncConfig()
+    s3tcfg = dataclasses.replace(s3cfg, estimator=dataclasses.replace(s3cfg.estimator,
+                                                                      meanflow=True))
+    s3s = {"chatterbox": s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1),
+           "turbo": s3_card_params(s3gen.numpy_params(ShapeRNG(), s3tcfg), dev, SEED + 6)}
+    tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+    vep = card_params(ve.numpy_params(ShapeRNG(), vecfg), dev, SEED + 3)
+    tok_np = pytree.unflatten({k: v.float().cpu().numpy()
+                               for k, v in pytree.flatten(s3_jax_layout(tokp)).items()})
+    seed_cache(hub, cload.S3TOK_REPO, {"model.safetensors": lambda p: write_safetensors(
+        p, s3tokenizer_mlx_flat(tok_np))})
+    tok_json = tokenizer_json(LLAMA3_PAT, {}, ["the", " voice", " card", "Hello"], nfc=False,
+                              ignore_merges=False)
+    for name, repo, write, factory in (
+            ("chatterbox", cload.REPOS["4bit"], chatterbox_flat, TTS.chatterbox),
+            ("turbo", tload.REPOS["4bit"], turbo_flat, TTS.chatterbox_turbo)):
+        q4, s3 = trees[name]["q4"], s3s[name]
+        (_, nbytes), wall = timed(lambda: seed_cache(hub, repo, {
+            "model.safetensors": lambda p: write_safetensors(
+                p, write(q4, s3_jax_layout(s3), vep), {"format": "mlx"}),
+            "tokenizer.json": write_text(tok_json)}))
+        log(f"load {name}: wrote {nbytes} bytes (mlx 4-bit, full width) in {wall:.2f} s ({card})")
+        engine = factory("4bit")
+        _, wall = timed(engine.load)
+        log(f"load {name}: TTS.{'chatterbox' if name == 'chatterbox' else 'chatterbox_turbo'}"
+            f"(\"4bit\").load() {wall:.2f} s ({card})")
+        gen = engine.t3_gen if name == "chatterbox" else engine.turbo_gen
+        held_tree(f"load {name} T3 tree against the written one", gen.params, q4)
+        held_tree(f"load {name} S3Gen tree against the written one", engine.s3gen_params, s3)
+        held_tree(f"load {name} voice encoder against the written one", engine.ve_params, vep)
+        held_tree(f"load {name} S3 tokenizer against the written one", engine.tok_params, tokp)
+        ids = engine.tokenizer.encode("Hello the card")
+        if name == "chatterbox":
+            cfg = t3.T3Config()
+            zero_spk = torch.zeros((1, cfg.speaker_embed_size), device=dev)
+            ref = t3.T3Generator(q4, cfg)
+            cond = t3.prepare_conditioning(q4, cfg, zero_spk, None, 0.5)
+            greedy = t3.T3SamplerConfig(temperature=0.0)
+            ids = [cfg.start_text_token] + ids + [cfg.stop_text_token]
+        else:
+            cfg = turbo.T3TurboConfig()
+            ref = turbo.T3TurboGenerator(q4, cfg)
+            cond = torch.zeros((1, cfg.speaker_embed_size), device=dev)
+            greedy = turbo.TurboSampler(temperature=0.0)
+        got = run(f"{name} generate", lambda: gen.generate(cond, ids, sampler=greedy,
+                                                           max_new=LOAD_T3_NEW),
+                  ("quant_matmul",))
+        want = ref.generate(cond, ids, sampler=greedy, max_new=LOAD_T3_NEW)
+        if got != want or not got:
+            raise AssertionError(f"{name}: load {got[:10]} != from_params {want[:10]}")
+        log(f"load {name}: {len(got)} greedy T3 tokens equal those of the written tree")
+        del engine, ref, gen
+        torch.cuda.empty_cache()
 
 
 def save_check(engine, tmp: Path, rng) -> None:
@@ -5328,14 +5526,17 @@ HOPPER_KERNELS = {"ln_rows_kernel": False, "qkv_gemm_kernel": True,
 
 
 class WordTokenizer:
-    """Stands in for CosyVoice2's Qwen2 tokenizer.json (not in the
-    repository): one id a word, from its CRC, below Qwen2's 151,643 text
-    ids, about the count a BPE gives English."""
+    """Stands in for a text tokenizer.json (not in the repository): one id
+    a word, from its CRC, below `vocab` (Qwen2's 151,643 text ids by
+    default), about the count a BPE gives English."""
+
+    def __init__(self, vocab: int = 151643):
+        self.vocab = vocab
 
     def encode(self, text: str) -> list[int]:
         import zlib
 
-        return [zlib.crc32(w.encode()) % 151643 for w in text.split()]
+        return [zlib.crc32(w.encode()) % self.vocab for w in text.split()]
 
 
 def s3_card_params(schema: dict, dev, seed: int, dtype=torch.bfloat16) -> dict:
@@ -6273,6 +6474,413 @@ def cosyvoice3_slice(dev, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------ 17. Chatterbox, Chatterbox Turbo
+
+def chatterbox_trees(dev, bits=(4, 8)) -> dict:
+    """The two T3s at full width on random weights drawn on the card (seed
+    0): Chatterbox's Llama-520M (`T3Config()`) and Turbo's GPT-2 medium
+    (`T3TurboConfig()`, a bias on every linear as the published GPT-2 has),
+    each as {"bf16": …, "q4": …, "q8": …}: the group-affine trees of group
+    64, their scales and biases rounded to bf16 as the 4bit/8bit repos store
+    them, the position tables kept bf16."""
+    import dataclasses
+
+    from tpu_audio_torch.models.chatterbox import t3
+    from tpu_audio_torch.models.chatterbox_turbo import model as turbo
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    def keep(k, v):
+        return "pos_emb" not in k and not k.startswith("wpe")
+
+    tcfg = turbo.T3TurboConfig()
+    biased = dataclasses.replace(tcfg, gpt2=dataclasses.replace(
+        tcfg.gpt2, attn_qkv_bias=True, attn_o_bias=True))
+    out = {}
+    for name, schema, seed in (("chatterbox", t3.numpy_params(ShapeRNG(), t3.T3Config()), SEED),
+                               ("turbo", turbo.numpy_params(ShapeRNG(), biased), SEED + 5)):
+        bf16 = card_params(schema, dev, seed)
+        out[name] = {"bf16": bf16, **{f"q{b}": bf16_affine(quant.quantize_tree(
+            bf16, bits=b, predicate=keep)) for b in bits}}
+    return out
+
+
+def t3_forced(gen, cond_fn, ids: list[int], steps: int, forced=None, turbo: bool = False):
+    """T3's logits (1 + steps, V) f32: the prefill's (CFG-merged for
+    Chatterbox), then `steps` T=1 steps, each fed forced[i] or the argmax
+    of the logits before."""
+    with torch.inference_mode():
+        cond = cond_fn(gen.params)
+        if turbo:
+            logits, cache, extra, total = gen.prefill(cond, ids, steps + 1)
+            step = gen.step_fn(extra, len(ids), total)
+        else:
+            logits, cache, extra, total = gen.prefill(cond, ids, steps + 1, 0.5)
+            step = gen.step_fn(extra, total, 0.5)
+        out = [logits]
+        for i in range(steps):
+            tok = out[-1].argmax(-1) if forced is None else forced[i]
+            logits, cache = step(tok.reshape(1, 1), cache)
+            out.append(logits)
+        return torch.cat(out)
+
+
+def t3_against_f32(tag: str, make_gen, tree: dict, cfg, cond_fn, inputs: dict, controls,
+                   turbo: bool = False) -> None:
+    """Phase 17, a T3 on the q4 tree held against f32 through its
+    teacher-forced logits (CFG-merged for Chatterbox): the prefill and
+    CB_HELD_STEPS steps, each fed the f32 path's greedy token, on each input
+    of `inputs` ({label: text ids}). The route runs the tree as served (f32
+    activations from its q4 tables, its fp leaves bf16, a bf16 cache) with
+    `quant_matmul`; the reference is the per-op path with every float leaf
+    in f32, an f32 cache and the plain products; the route's plain version
+    is the yardstick. Each control (label, input, patch) must land at least
+    CV_FAULT_RATIO times as far from f32 as the yardstick."""
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+
+    steps = CB_HELD_STEPS
+    exact_gen = make_gen(f32_tree(tree), torch.float32)
+    route_gen = make_gen(tree, torch.bfloat16)
+    held = {}
+    for name, ids in inputs.items():
+        with plain_kernels(qmm):
+            exact = t3_forced(exact_gen, cond_fn, ids, steps, turbo=turbo)
+            forced = exact[:-1].argmax(-1)
+            plain = t3_forced(route_gen, cond_fn, ids, steps, forced, turbo)
+        parts = [exact[:1], exact[1:]]
+        p_err, p_cos = zip(*[measure(pl, ex)[1:] for pl, ex in zip((plain[:1], plain[1:]),
+                                                                  parts)])
+        outputs = (f"prefill logits (1, {exact.shape[-1]})",
+                   f"step logits ({steps}, {exact.shape[-1]})")
+        reset(qmm)
+        got = t3_forced(route_gen, cond_fn, ids, steps, forced, turbo)
+        launches = qmm.LAUNCHES["quant_matmul"]
+        log(f"{tag} {name}: plain route against f32 rel {p_err[0]:.3e} / {p_err[1]:.3e}, "
+            f"cosine {p_cos[0]:.6f} / {p_cos[1]:.6f}; the route {launches} quant_matmul")
+        if not launches:
+            raise AssertionError(f"{tag} {name}: the route launched no quant_matmul")
+        held_against_f32(f"{tag} {name}", outputs, parts, p_err, "kernels", [got[:1], got[1:]],
+                         control=False, p_cos=p_cos)
+        held[name] = (outputs, parts, p_err, p_cos, forced)
+    for label, name, patch in controls:
+        outputs, parts, p_err, p_cos, forced = held[name]
+        with patch():
+            out = t3_forced(route_gen, cond_fn, inputs[name], steps, forced, turbo)
+        held_against_f32(f"{tag} {name}", outputs, parts, p_err, label, [out[:1], out[1:]],
+                         control=True, p_cos=p_cos)
+
+
+def ve_against_f32(ve_params: dict, vecfg, audio16: np.ndarray) -> None:
+    """The voice encoder's embedding as served (bf16 weights and LSTM)
+    against f32 weights and activations on the same 16 kHz clip; the LSTMs
+    with their i and f gates swapped (the first two H-row blocks of every
+    gate weight and bias exchanged) must land CV_FAULT_RATIO times as far."""
+    from tpu_audio_torch.models.chatterbox import voice_encoder as ve
+
+    hid = vecfg.ve_hidden_size
+
+    def swap(w):
+        return torch.cat([w[hid: 2 * hid], w[:hid], w[2 * hid:]])
+    swapped = dict(ve_params, lstm={i: {k: swap(v) for k, v in p.items()}
+                                    for i, p in ve_params["lstm"].items()})
+    with torch.inference_mode():
+        exact = ve.embed_utterance(f32_tree(ve_params), vecfg, audio16)
+        plain = ve.embed_utterance(ve_params, vecfg, audio16)
+        fault = ve.embed_utterance(swapped, vecfg, audio16)
+    _, p_err, p_cos = measure(plain, exact)
+    outputs = (f"speaker embedding ({exact.shape[0]},)",)
+    log(f"chatterbox voice encoder: bf16 against f32 rel {p_err:.3e}, cosine {p_cos:.6f}")
+    held_against_f32("chatterbox voice encoder", outputs, [exact], [p_err], "LSTM i and f "
+                     "gates swapped", [fault], control=True, p_cos=[p_cos])
+
+
+def meanflow_against_f32(s3t: dict, s3cfg, dev) -> None:
+    """Turbo's meanflow flow (2 Euler steps, no CFG) on a window of
+    CB_FLOW_TOKENS, as served (bf16) against f32, on a tree whose time MLP
+    and mixer are × CB_TIME_SCALE (random weights leave the velocity almost
+    blind to t; here the time terms matter). Planted: the mixer fed (t, t)
+    in place of (t, r), and a cosine-warped t grid; each must land
+    CV_FAULT_RATIO times as far from f32 as the served flow."""
+    from tpu_audio_torch.codecs.s3gen import flow as s3flow
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.models.chatterbox_turbo import streaming as tstreaming
+
+    est = s3t["flow"]["decoder_estimator"]
+    scaled = {**est, "time_mlp": {k: {n: v * CB_TIME_SCALE for n, v in lin.items()}
+                                  for k, lin in est["time_mlp"].items()},
+              "time_embed_mixer": {n: v * CB_TIME_SCALE
+                                   for n, v in est["time_embed_mixer"].items()}}
+    tree = dict(s3t, flow=dict(s3t["flow"], decoder_estimator=scaled))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    p_len, n = CB_FLOW_TOKENS
+    pt = torch.randint(0, s3cfg.vocab_size, (1, p_len), generator=gen, device=dev)
+    toks = torch.randint(0, s3cfg.vocab_size, (1, n), generator=gen, device=dev)
+    pm = torch.randn((1, 2 * p_len, s3cfg.mel_dim), generator=gen, device=dev)
+    emb = torch.randn((1, s3cfg.spk_dim), generator=gen, device=dev)
+
+    def mel(t_):
+        with torch.inference_mode():
+            return tstreaming.meanflow_mel(t_, s3cfg, toks, n, pt, p_len, pm, 2 * p_len, emb,
+                                           Noise(SEED))
+
+    exact, plain = mel(f32_tree(tree)), mel(tree)
+    _, p_err, p_cos = measure(plain, exact)
+    log(f"turbo meanflow: bf16 against f32 rel {p_err:.3e}, cosine {p_cos:.6f} ({p_len} "
+        f"prompt + {n} tokens, time terms × {CB_TIME_SCALE})")
+    forward = s3flow.estimator_forward
+
+    def t_for_r(*a, r=None, **kw):
+        return forward(*a, r=None if r is None else a[5], **kw)
+
+    def cosine(est_fn, mu, ml, spks, cond, z, n_timesteps=2, streaming=False):
+        ts = 1 - torch.cos(torch.linspace(0.0, 1.0, n_timesteps + 1, device=mu.device)
+                           * 0.5 * torch.pi)
+        x, b = z.to(mu.dtype), mu.shape[0]
+        for i in range(n_timesteps):
+            v = est_fn(x, ml, mu, ts[i].to(mu.dtype).expand(b), spks, cond, streaming,
+                       ts[i + 1].to(mu.dtype).expand(b))
+            x = (x.float() + (ts[i + 1] - ts[i]) * v.float()).to(x.dtype)
+        return x
+
+    outputs = (f"mel {tuple(exact.shape)}",)
+    for label, obj, name, fn in (("the mixer fed (t, t)", s3flow, "estimator_forward", t_for_r),
+                                 ("a cosine-warped t grid", tstreaming, "meanflow_inference",
+                                  cosine)):
+        with patched(obj, name, fn):
+            fault = mel(tree)
+        held_against_f32("turbo meanflow", outputs, [exact], [p_err], label, [fault],
+                         control=True, p_cos=[p_cos])
+
+
+def chatterbox_slice(dev, card: str) -> dict:
+    """Phase 17: Chatterbox and Chatterbox Turbo at full width on random
+    weights (seed 0: `T3Config()`'s Llama-520M and `T3TurboConfig()`'s GPT-2
+    medium on their bf16, q4 and q8 trees, `S3GenConfig()` (Turbo's with
+    the meanflow estimator), `S3TokenizerConfig()`, `VoiceEncConfig()`; a
+    word-level stand-in for each text tokenizer) through `TTS.chatterbox()`
+    → `ChatterboxEngine.from_params` and `TTS.chatterbox_turbo()` →
+    `from_turbo_params` on the q4 trees: `prepare_conditionals` on a
+    CB_REF_SECONDS clip (its wall), one sentence streamed by each engine
+    (first audio, × real time; Turbo at SENTENCE and TOKEN granularity),
+    every `quant_matmul` call of a short generate on each T3 and tree held
+    against its plain version (`held_calls`), the T3s on the q4 tree, the
+    voice encoder and Turbo's meanflow flow held against f32 with planted
+    controls, each T3's ms a token on each tree and `quant_matmul` launches
+    a step, the flows' and HiFT's ms by CUDA events. Returns the launch
+    counts."""
+    import dataclasses
+
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.s3gen import hift
+    from tpu_audio_torch.codecs.s3gen import model as s3gen
+    from tpu_audio_torch.codecs.s3gen.noise import Noise
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.models.chatterbox import t3
+    from tpu_audio_torch.models.chatterbox import voice_encoder as ve
+    from tpu_audio_torch.models.chatterbox_turbo import model as turbo
+    from tpu_audio_torch.models.chatterbox_turbo import streaming as tstreaming
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    total = {n: 0 for n in qmm.LAUNCHES}
+    cfg, tcfg = t3.T3Config(), turbo.T3TurboConfig()
+    s3cfg, tokcfg, vecfg = s3gen.S3GenConfig(), s3tok.S3TokenizerConfig(), ve.VoiceEncConfig()
+    s3tcfg = dataclasses.replace(s3cfg, estimator=dataclasses.replace(s3cfg.estimator,
+                                                                      meanflow=True))
+    t0 = time.perf_counter()
+    trees = chatterbox_trees(dev)
+    s3 = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1)
+    s3t = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3tcfg), dev, SEED + 6)
+    tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+    vep = card_params(ve.numpy_params(ShapeRNG(), vecfg), dev, SEED + 3)
+    torch.cuda.synchronize()
+    log(f"models: Chatterbox's T3 (Llama-520M, {cfg.llama.n_layers} layers) and Turbo's "
+        f"(GPT-2 medium, {tcfg.gpt2.n_layers} layers) random bf16 weights (seed {SEED}), their "
+        f"q4 and q8 trees; S3Gen (CFG and meanflow), the S3 tokenizer, CAMPPlus and the voice "
+        f"encoder at full width in bf16, in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 17)
+    ref24 = (0.1 * rng.standard_normal(CB_REF_SECONDS * 24000)).astype(np.float32)
+    eng = TTS.chatterbox(device=dev).from_params(trees["chatterbox"]["q4"], cfg, s3, s3cfg,
+                                                 tokp, tokcfg, vep, vecfg,
+                                                 tokenizer=WordTokenizer(cfg.text_tokens_dict_size))
+    teng = TTS.chatterbox_turbo(device=dev).from_turbo_params(
+        trees["turbo"]["q4"], tcfg, s3t, s3tcfg, tokp, tokcfg, vep, vecfg,
+        tokenizer=WordTokenizer(tcfg.text_tokens_dict_size))
+
+    # ------------------------------------------------ the speaker
+    cond, _, wall = counted_run("chatterbox", (qmm,), total,
+                                f"prepare_conditionals ({CB_REF_SECONDS} s)", (),
+                                lambda: eng.prepare_conditionals(ref24, 24000),
+                                absent=("quant_matmul",))
+    if not (cond.t3_cond_tokens.shape == (1, 150) and cond.prompt_tokens.shape == (1, 250)
+            and cond.prompt_mel.shape == (1, 500, s3cfg.mel_dim)
+            and abs(float(cond.speaker_emb.float().norm()) - 1) < 1e-2
+            and torch.isfinite(cond.embedding).all()):
+        raise AssertionError(f"chatterbox speaker: tokens {tuple(cond.t3_cond_tokens.shape)} / "
+                             f"{tuple(cond.prompt_tokens.shape)}, mel "
+                             f"{tuple(cond.prompt_mel.shape)}")
+    log(f"chatterbox prepare_conditionals: {wall:.3f} s wall for a {CB_REF_SECONDS} s "
+        f"reference (S3 tokens of 6 s and 10 s, S3Gen's prompt mel, CAMPPlus, the voice "
+        f"encoder over {(CB_REF_SECONDS * 100 + 1 - 160) // 80 + 1} partials) ({card})")
+    teng.conditionals = cond
+
+    # ------------------------------------------------ one sentence each
+    def stream(engine, granularity):
+        first, chunks = {}, []
+        t_ = time.perf_counter()
+        for c in engine.generate_streaming(CB_TEXT, granularity=granularity,
+                                           max_new_tokens=CB_MAX_NEW):
+            first.setdefault("s", time.perf_counter() - t_)
+            chunks.append(c)
+        return chunks, first["s"]
+
+    for tag, engine, grans in (("chatterbox", eng, (StreamingGranularity.SENTENCE,)),
+                               ("turbo", teng, (StreamingGranularity.SENTENCE,
+                                                StreamingGranularity.TOKEN))):
+        for gran in grans:
+            (chunks, first), launches, wall = counted_run(
+                tag, (qmm,), total, f"generate_streaming (1 sentence, {gran.value.upper()}, "
+                f"≤ {CB_MAX_NEW} tokens, q4)", ("quant_matmul",),
+                lambda engine=engine, gran=gran: stream(engine, gran))
+            audio = np.concatenate([c.samples for c in chunks])
+            if not (chunks[-1].is_final and len(audio) and np.isfinite(audio).all()):
+                raise AssertionError(f"{tag} stream: {len(chunks)} chunks, {len(audio)} samples")
+            log(f"{tag} stream ({gran.value}): {len(chunks)} chunks, first audio after "
+                f"{first:.3f} s; {len(audio) / 24000:.2f} s of audio in {wall:.3f} s: "
+                f"{len(audio) / 24000 / wall:.2f}× real time; {launches['quant_matmul']} "
+                f"quant_matmul launches ({card})")
+
+    # ------------------------------------------------ every quant_matmul call held
+    ids = eng.text_ids(CB_TEXT)
+    tids = teng.text_ids(CB_TEXT)
+    with torch.inference_mode():
+        cond_emb = {k: t3.prepare_conditioning(tree, cfg, cond.speaker_emb, cond.t3_cond_tokens,
+                                               0.5) for k, tree in trees["chatterbox"].items()}
+    gens = {("chatterbox", k): t3.T3Generator(tree, cfg) for k, tree in
+            trees["chatterbox"].items()}
+    gens.update({("turbo", k): turbo.T3TurboGenerator(tree, tcfg) for k, tree in
+                 trees["turbo"].items()})
+
+    def generate(name, kind, n):
+        g = gens[(name, kind)]
+        if name == "chatterbox":
+            return g.generate(cond_emb[kind], ids, max_new=n)
+        return g.generate(cond.speaker_emb, tids, max_new=n)
+
+    for name, kind in itertools.product(("chatterbox", "turbo"), ("q4", "q8")):
+        tag = f"{name} {kind}"
+        with held_calls(tag, qmm, ("quant_matmul",), 1e-4):
+            counted_run(tag, (qmm,), total, f"generate ({CB_HELD_NEW} tokens), each "
+                        "quant_matmul call held", ("quant_matmul",),
+                        lambda name=name, kind=kind: generate(name, kind, CB_HELD_NEW))
+
+    # ------------------------------------------------ against f32
+    spk, ctoks = cond.speaker_emb, cond.t3_cond_tokens
+
+    def cb_cond(params):
+        return t3.prepare_conditioning(params, cfg, spk, ctoks, 0.5)
+
+    def turbo_cond(params):
+        return spk
+
+    def self_pass_skipped(p, h, heads=t3.PERCEIVER_HEADS):
+        q0 = p["pre_attention_query"].to(h.dtype).expand(h.shape[0], -1, -1)
+        return t3.attn_block(p["attn"], q0, h, heads)
+
+    merge, wpe = t3.cfg_merge, turbo.T3TurboGenerator.wpe
+    t3_against_f32(
+        "chatterbox q4", lambda tree, dt: t3.T3Generator(tree, cfg, cache_dtype=dt),
+        trees["chatterbox"]["q4"], cfg, cb_cond, {"sentence": ids,
+                                                 "short text": ids[:CB_SHORT_IDS]},
+        [("CFG sign flipped", "sentence", lambda: patched(
+            t3, "cfg_merge", lambda lg, w: merge(lg, -w))),
+         ("the unconditional row's text kept", "sentence", lambda: patched(
+             t3, "cfg_text_rows", lambda e: torch.cat([e, e]))),
+         ("the pad mask dropped", "short text", lambda: patched(
+             t3, "pad_mask", lambda slots, shift, d: torch.zeros((1, 1, 1, slots), device=d))),
+         ("the perceiver's self pass skipped", "sentence", lambda: patched(
+             t3, "_perceiver", self_pass_skipped))])
+    t3_against_f32(
+        "turbo q4", lambda tree, dt: turbo.T3TurboGenerator(tree, tcfg, cache_dtype=dt),
+        trees["turbo"]["q4"], tcfg, turbo_cond, {"sentence": tids},
+        [("positions one late", "sentence", lambda: patched(
+            turbo.T3TurboGenerator, "wpe", lambda self, pos: wpe(self, pos + 1)))], turbo=True)
+    ve_against_f32(vep, vecfg, (0.1 * rng.standard_normal(CB_REF_SECONDS * 16000))
+                   .astype(np.float32))
+    meanflow_against_f32(s3t, s3tcfg, dev)
+
+    # ------------------------------------------------ T3 alone: ms a token, launches a step
+    for (name, kind), g in gens.items():
+        steps = {"n": 0}
+        make = g.step_fn
+
+        def counted(*a, make=make, steps=steps):
+            step = make(*a)
+
+            def run(tok, cache):
+                steps["n"] += 1
+                return step(tok, cache)
+            return run
+        g.step_fn = counted
+        walls = {}
+        for n in CB_TIMED_NEW + CB_TIMED_NEW:
+            steps["n"] = 0
+            _, w = timed(lambda n=n: generate(name, kind, n))
+            walls.setdefault(n, []).append((w, steps["n"]))
+        g.step_fn = make
+        lo, hi = CB_TIMED_NEW
+        runs = [1e3 * (b[0] - a[0]) / max(b[1] - a[1], 1) for a, b in zip(walls[lo], walls[hi])]
+        per_step = ""
+        if kind != "bf16":
+            with torch.inference_mode():
+                if name == "chatterbox":
+                    _, cache, extra, total_ = g.prefill(cond_emb[kind], ids, 4, 0.5)
+                    step = g.step_fn(extra, total_, 0.5)
+                    layer_linears = 7
+                    nl = cfg.llama.n_layers
+                else:
+                    _, cache, extra, total_ = g.prefill(spk, tids, 4)
+                    step = g.step_fn(extra, len(tids), total_)
+                    layer_linears = 6
+                    nl = tcfg.gpt2.n_layers
+                reset(qmm)
+                step(torch.zeros((1, 1), dtype=torch.int64, device=dev), cache)
+                torch.cuda.synchronize()
+                n_step = qmm.LAUNCHES["quant_matmul"]
+            want = nl * layer_linears + 1
+            if n_step != want:
+                raise AssertionError(f"{name} {kind}: {n_step} quant_matmul launches a step, "
+                                     f"want {want}")
+            per_step = f", {n_step} quant_matmul launches a step ({nl} × {layer_linears} + head)"
+        rows = 2 if name == "chatterbox" else 1
+        log(f"{name} T3 {kind} alone, B={rows}: ms a token {', '.join(f'{r:.3f}' for r in runs)} "
+            f"(generate of {hi} against {lo} tokens, twice){per_step} ({card})")
+
+    # ------------------------------------------------ the flows and HiFT
+    p_len, n_tok = cond.prompt_tokens.shape[1], CB_MAX_NEW
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    toks = torch.randint(0, s3cfg.vocab_size, (1, n_tok), generator=gen, device=dev)
+    with torch.inference_mode():
+        def cfg_flow():
+            return s3gen.flow_inference(s3, s3cfg, toks, n_tok, cond.prompt_tokens, p_len,
+                                        cond.prompt_mel, 2 * p_len, cond.embedding,
+                                        Noise(SEED))[0]
+
+        def mean_flow():
+            return tstreaming.meanflow_mel(s3t, s3tcfg, toks, n_tok, cond.prompt_tokens, p_len,
+                                           cond.prompt_mel, 2 * p_len, cond.embedding,
+                                           Noise(SEED))
+        mel = cfg_flow()
+        ms_cfg, ms_mean = events_ms(cfg_flow, 2), events_ms(mean_flow, 2)
+        ms_voc = events_ms(lambda: hift.generate(s3["mel2wav"], s3cfg.hift, mel, Noise(SEED)), 2)
+    if not torch.isfinite(mel).all():
+        raise AssertionError("chatterbox flow: non-finite mel")
+    log(f"S3Gen ({p_len} prompt + {n_tok} tokens, {mel.shape[1]} frames): CFG flow "
+        f"{ms_cfg:.2f} ms ({s3cfg.cfm.n_timesteps} Euler steps at batch 2), meanflow "
+        f"{ms_mean:.2f} ms (2 steps, no CFG), HiFT {ms_voc:.2f} ms (CUDA events, bf16) ({card})")
+    return total
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -6414,6 +7022,9 @@ def main() -> None:
         return
     if "--cosyvoice3-only" in sys.argv[1:]:  # phases 1, 2 and 16
         print_result([], tts_slices(dev, card, ((16, cosyvoice3_slice),)))
+        return
+    if "--chatterbox-only" in sys.argv[1:]:  # phases 1, 2 and 17
+        print_result([], tts_slices(dev, card, ((17, chatterbox_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -6584,10 +7195,10 @@ def main() -> None:
     log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s ({card})")
     torch.cuda.empty_cache()
 
-    # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3
-    # their launches, too, go on lines of their own
+    # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3,
+    # 17. Chatterbox: their launches, too, go on lines of their own
     tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
-                           (15, spec_slice), (16, cosyvoice3_slice)))
+                           (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice)))
     print_result(rows, launches)
 
 

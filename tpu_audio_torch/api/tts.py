@@ -9,10 +9,12 @@ cancels the generation in flight, and a new stream starts afresh.
 
 Ported engines: Orpheus (`models/orpheus/`), OuteTTS (`models/outetts/`,
 with DAC), Marvis (`models/marvis/`, with Mimi), CosyVoice2
-(`models/cosyvoice2/`, with S3Gen and the S3 tokenizer) and CosyVoice3
-(`models/cosyvoice3/`, the DiT flow). The other factories (Kokoro A14,
-Chatterbox and Chatterbox Turbo A13) raise naming their ROADMAP items;
-playback (`say`) is A18.
+(`models/cosyvoice2/`, with S3Gen and the S3 tokenizer), CosyVoice3
+(`models/cosyvoice3/`, the DiT flow), Chatterbox (`models/chatterbox/`,
+the T3 Llama with CFG and the voice encoder) and Chatterbox Turbo
+(`models/chatterbox_turbo/`, the GPT-2 T3 and the meanflow flow). The
+Kokoro factory raises naming its ROADMAP item (A14); playback (`say`) is
+A18.
 """
 
 from __future__ import annotations
@@ -208,12 +210,25 @@ class TTS:
         return OuteTTSEngine(speculative=speculative, gamma=gamma, device=device)
 
     @staticmethod
-    def chatterbox():
-        _not_ported("Chatterbox", "A13")
+    def chatterbox(variant: str = "fp16", device="cuda"):
+        """variant: the checkpoint `load()` reads ("fp16", "8bit" or "4bit":
+        T3 served as stored, the quantised linears through `quant_matmul`);
+        device: the card unless the caller asks for the CPU. For `load()`:
+        `ChatterboxEngine.from_params` is a classmethod that builds its own
+        engine on its trees' device."""
+        from tpu_audio_torch.models.chatterbox.engine import ChatterboxEngine
+
+        return ChatterboxEngine(variant=variant, device=device)
 
     @staticmethod
-    def chatterbox_turbo():
-        _not_ported("Chatterbox Turbo", "A13")
+    def chatterbox_turbo(variant: str = "fp16", device="cuda"):
+        """variant: the checkpoint `load()` reads ("fp16", "8bit" or
+        "4bit"); device: the card unless the caller asks for the CPU. For
+        `load()`: `ChatterboxTurboEngine.from_turbo_params` is a classmethod
+        that builds its own engine on its trees' device."""
+        from tpu_audio_torch.models.chatterbox_turbo.engine import ChatterboxTurboEngine
+
+        return ChatterboxTurboEngine(variant=variant, device=device)
 
     @staticmethod
     def cosyvoice2(quantization: str = "w8a8", mesh=None, speculative=None,

@@ -14,10 +14,14 @@ the JAX module (and the reference's subsequentChunkMask), num_left_chunks
 `cfm_solve`: z ~ N(0, 1) (from `noise`, an injectable source, or the
 caller's tensor), a cosine t-schedule, and classifier-free guidance as
 one batch of 2 a step (conditioned, and with mu, speaker and cond zeroed):
-v = (1 + rate)·v_c − rate·v_u. The meanflow estimator (Chatterbox Turbo,
-ROADMAP A13) and the overlap `flow_cache` (CosyVoice3, A12) are not
-ported: CosyVoice2 uses neither. Plain torch: the JAX package runs no
-Pallas kernel here.
+v = (1 + rate)·v_c − rate·v_u. The meanflow-distilled estimator
+(Chatterbox Turbo, `EstimatorConfig(meanflow=True)`) carries a
+`time_embed_mixer` (a Linear from 2·time_dim to time_dim, no bias) and
+conditions on each Euler step's start t and end r: t_emb =
+mixer([emb(t) | emb(r)]). `meanflow_inference` in
+`models/chatterbox_turbo/model.py` drives it. The overlap `flow_cache` of
+the JAX module is not ported: no caller passes it. Plain torch: the JAX
+package runs no Pallas kernel here.
 """
 
 from __future__ import annotations
@@ -58,8 +62,6 @@ class CFMConfig:
 
 def numpy_estimator(rng: np.random.Generator, cfg: EstimatorConfig) -> dict:
     """The JAX `init_estimator` tree (JAX layouts) as f32 numpy arrays."""
-    if cfg.meanflow:
-        raise NotImplementedError("the meanflow estimator is not ported yet (ROADMAP A13)")
     init, ch = Init(rng), cfg.channels
     time_dim, inner = ch * 4, cfg.num_heads * HEAD_DIM
 
@@ -80,13 +82,16 @@ def numpy_estimator(rng: np.random.Generator, cfg: EstimatorConfig) -> dict:
         return {"resnet": resnet(dim, ch),
                 "transformers": {str(i): tblock() for i in range(cfg.n_blocks)}}
 
-    return {"time_mlp": {"linear_1": init.linear(cfg.in_channels, time_dim),
-                         "linear_2": init.linear(time_dim, time_dim)},
-            "down": {**stage(cfg.in_channels), "downsample": init.conv(ch, ch, 3)},
-            "mid": {str(m): stage(ch) for m in range(cfg.num_mid_blocks)},
-            "up": {**stage(ch * 2), "upsample": init.conv(ch, ch, 3)},
-            "final_block": {"conv": init.conv(ch, ch, 3), "norm": init.norm(ch)},
-            "final_proj": init.conv(ch, cfg.out_channels, 1)}
+    p = {"time_mlp": {"linear_1": init.linear(cfg.in_channels, time_dim),
+                      "linear_2": init.linear(time_dim, time_dim)},
+         "down": {**stage(cfg.in_channels), "downsample": init.conv(ch, ch, 3)},
+         "mid": {str(m): stage(ch) for m in range(cfg.num_mid_blocks)},
+         "up": {**stage(ch * 2), "upsample": init.conv(ch, ch, 3)},
+         "final_block": {"conv": init.conv(ch, ch, 3), "norm": init.norm(ch)},
+         "final_proj": init.conv(ch, cfg.out_channels, 1)}
+    if cfg.meanflow:
+        p["time_embed_mixer"] = init.linear(time_dim * 2, time_dim, False)
+    return p
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -130,13 +135,18 @@ def _time_embed(params, dim: int, t: torch.Tensor) -> torch.Tensor:
 
 
 def estimator_forward(params, cfg: EstimatorConfig, x, mask_len, mu, t, spks=None, cond=None,
-                      streaming: bool = False):
+                      streaming: bool = False, r=None):
     """x, mu, cond (B, T, 80); spks (B, 80); t (B,); mask_len (B,) →
-    velocity (B, T, 80)."""
+    velocity (B, T, 80). r (B,): a meanflow step's end time, read through
+    the tree's `time_embed_mixer`; without a mixer in the tree r is
+    ignored, as both JAX callers drop it."""
     b, tlen, _ = x.shape
     mask = (torch.arange(tlen, device=x.device)[None, :] < mask_len[:, None])[..., None]
     mask = mask.to(x.dtype)
     t_emb = _time_embed(params, cfg.in_channels, t)
+    if r is not None and "time_embed_mixer" in params:
+        t_emb = layers.linear(params["time_embed_mixer"],
+                              torch.cat([t_emb, _time_embed(params, cfg.in_channels, r)], dim=-1))
     parts = [x, mu]
     if spks is not None:
         parts.append(spks[:, None, :].expand(b, tlen, spks.shape[-1]))

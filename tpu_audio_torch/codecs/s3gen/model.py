@@ -62,14 +62,12 @@ def init_params(seed: int, cfg: S3GenConfig, dtype: torch.dtype = torch.float32,
     return s3_params_from_numpy(numpy_params(np.random.default_rng(seed), cfg), device, dtype)
 
 
-def flow_inference(params, cfg: S3GenConfig, tokens: torch.Tensor, token_len,
-                   prompt_tokens: torch.Tensor, prompt_len, prompt_mel: torch.Tensor,
-                   prompt_mel_len, embedding: torch.Tensor, noise=None, streaming: bool = False,
-                   n_timesteps: int | None = None):
-    """tokens (1, T), prompt_tokens (1, P), prompt_mel (1, ≥ 2P?, 80),
-    embedding (1, 192); the lengths ints. Returns (mel (1, 2(P + T), 80),
-    (first generated frame, generated frames)). z comes from `noise`
-    (a `noise.Noise`, by default seed 0)."""
+def flow_inputs(params, cfg: S3GenConfig, tokens: torch.Tensor, token_len,
+                prompt_tokens: torch.Tensor, prompt_len, prompt_mel: torch.Tensor,
+                prompt_mel_len, embedding: torch.Tensor, streaming: bool = False):
+    """What the flow's solver conditions on: (mu (1, 2(P + T), 80), its
+    valid frames (1,), the speaker's affine x-vector (1, 80), the prompt
+    mel scaffold cond (1, 2(P + T), 80))."""
     fp = params["flow"]
     dt = fp["input_embedding"]["weight"].dtype
     dev = tokens.device
@@ -86,9 +84,23 @@ def flow_inference(params, cfg: S3GenConfig, tokens: torch.Tensor, token_len,
     cond = torch.zeros((1, t2, cfg.mel_dim), dtype=mu.dtype, device=dev)
     n = min(prompt_mel.shape[1], t2, int(prompt_mel_len))
     cond[:, :n] = prompt_mel[:, :n].to(mu.dtype)
-    z = (noise or Noise(0)).z((1, t2, cfg.mel_dim), dev)
-    mel = flow.cfm_inference(fp["decoder_estimator"], cfg.estimator, cfg.cfm, mu, h_len, spks,
-                             cond, z, streaming=streaming, n_timesteps=n_timesteps)
+    return mu, h_len, spks, cond
+
+
+def flow_inference(params, cfg: S3GenConfig, tokens: torch.Tensor, token_len,
+                   prompt_tokens: torch.Tensor, prompt_len, prompt_mel: torch.Tensor,
+                   prompt_mel_len, embedding: torch.Tensor, noise=None, streaming: bool = False,
+                   n_timesteps: int | None = None):
+    """tokens (1, T), prompt_tokens (1, P), prompt_mel (1, ≥ 2P?, 80),
+    embedding (1, 192); the lengths ints. Returns (mel (1, 2(P + T), 80),
+    (first generated frame, generated frames)). z comes from `noise`
+    (a `noise.Noise`, by default seed 0)."""
+    mu, h_len, spks, cond = flow_inputs(params, cfg, tokens, token_len, prompt_tokens,
+                                        prompt_len, prompt_mel, prompt_mel_len, embedding,
+                                        streaming)
+    z = (noise or Noise(0)).z(tuple(mu.shape), mu.device)
+    mel = flow.cfm_inference(params["flow"]["decoder_estimator"], cfg.estimator, cfg.cfm, mu,
+                             h_len, spks, cond, z, streaming=streaming, n_timesteps=n_timesteps)
     return mel, (int(prompt_len) * cfg.token_mel_ratio, int(token_len) * cfg.token_mel_ratio)
 
 

@@ -12,7 +12,9 @@ with their generated mel, become the next window's prompt, so a window
 costs O(max_window) however long the stream. The HiFT vocoder advances by
 `hift.vocode_window` with LOOKBACK_FRAMES of exact left context, the sine
 phase and the lookback's source samples carried across windows. The
-caller fades in the head of the first chunk (20 ms).
+caller fades in the head of the first chunk (20 ms). `flow_window` is
+the one window's flow pass, which Chatterbox Turbo's `TurboSynthesizer`
+overrides with its meanflow solve.
 """
 
 from __future__ import annotations
@@ -38,6 +40,15 @@ class CV2Synthesizer:
         self.cfg = cfg
         self.max_window_tokens = max_window_tokens
         self.rebase_prompt_tokens = rebase_prompt_tokens
+
+    def flow_window(self, tokens: torch.Tensor, n: int, prompt_tokens: torch.Tensor, p_len: int,
+                    prompt_mel: torch.Tensor, embedding: torch.Tensor, noise,
+                    streaming: bool) -> torch.Tensor:
+        """One window's mel (1, 2(P + T), 80): the CFG flow (a subclass
+        swaps the solve)."""
+        return s3gen.flow_inference(self.params, self.cfg, tokens, n, prompt_tokens, p_len,
+                                    prompt_mel, prompt_mel.shape[1], embedding, noise,
+                                    streaming=streaming)[0]
 
     @torch.inference_mode()
     def stream(self, token_chunks: Iterator[list[int]], prompt_tokens: list[int],
@@ -89,10 +100,8 @@ class CV2Synthesizer:
             toks = torch.zeros((1, t_pad), dtype=torch.int64)
             toks[0, :n] = torch.as_tensor(gen_tokens[base:window_end])
             pt = torch.as_tensor(np.asarray(cur_pt, np.int64).reshape(1, -1), device=dev)
-            mel, _ = s3gen.flow_inference(self.params, cfg, toks.to(dev), n, pt, p_len,
-                                          cur_pm[None], cur_pm.shape[0], embedding,
-                                          flow_noise, streaming=not done)
-            mel = mel[0].float()
+            mel = self.flow_window(toks.to(dev), n, pt, p_len, cur_pm[None], embedding,
+                                   flow_noise, streaming=not done)[0].float()
             need = (p_len0 + window_end) * ratio
             if mel_buf.shape[0] < need:
                 mel_buf = torch.cat([mel_buf, mel_buf.new_zeros((need - mel_buf.shape[0],
