@@ -101,7 +101,10 @@ Phases (any failure raises and the script exits non-zero):
      q4 T3s at full width, S3Gen, the voice encoder, S3TokenizerV2) through
      `TTS.chatterbox("4bit").load()` and `TTS.chatterbox_turbo("4bit")
      .load()`: every tree against the written one bit for bit and greedy T3
-     tokens against the written tree's; (e) the `tokenizer.json` reader and
+     tokens against the written tree's; (e) Kokoro-82M in the
+     mlx-community bf16 layout with a voice pack, through
+     `TTS.kokoro().load()`: the tree bit for bit, the pack, the audio
+     against `from_params`; (f) the `tokenizer.json` reader and
      the Whisper BPE, `regex` blocked, on the golden texts of
      tests/data/tokenizer_golden/. Each run asserts
      its kernels' launches; the bytes written and each engine's write and
@@ -190,7 +193,19 @@ Phases (any failure raises and the script exits non-zero):
      perceiver's self pass, the LSTM's i and f gates, Turbo's positions,
      the mixer's (t, t), a cosine t grid), each T3's ms a token and
      `quant_matmul` launches a step, the flows' and HiFT's ms.
-     Phases 12 to 17 print their walls and their launches on lines of
+ 18. (run last) Kokoro-82M at full width on random f32 weights
+     (`kokoro_params`) through `TTS.kokoro()` → `KokoroEngine.from_params`
+     with its default voice pack: three sentences streamed (first audio,
+     × real time, the phonemizer backend), each sentence's ids, mean
+     duration, frame bucket, seconds and stage 1 / stage 2 ms, the first
+     sentence's device kernels (the profiler); the sentences held against
+     an f64 route of the port on the host with the card's source spectrum
+     injected (durations equal, d, t_en, F0 and N within KOKORO_REL), and
+     five planted faults (pool's I and O swapped, the BiLSTM's backward
+     pass from the padded tail, instance-norm statistics over the padding,
+     the alignment one frame late, ups' weight norm per output channel).
+     No kernel is on Kokoro's path: `encoder_attention` must not launch.
+     Phases 12 to 18 print their walls and their launches on lines of
      their own. Every end-to-end control must read at least 5× the plain
      route's distance from f32; each prints its ratio.
 
@@ -253,7 +268,8 @@ check of the OuteTTS and Marvis engines, DAC and Mimi.
 check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
 `python3 chip_smoke.py --spec-only` runs phases 1, 2 and 15 (speculative
 decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3);
-`--chatterbox-only` phases 1, 2 and 17 (Chatterbox and Chatterbox Turbo).
+`--chatterbox-only` phases 1, 2 and 17 (Chatterbox and Chatterbox Turbo);
+`--kokoro-only` phases 1, 2 and 18 (Kokoro).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -377,6 +393,12 @@ CB_HELD_STEPS = 8            # T3 steps held against f32, each fed the f32 path'
 CB_TIMED_NEW = (8, 32)       # T3 alone: generate at these max_new; ms a token between
 CB_FLOW_TOKENS = (75, 50)    # phase 17's flow held against f32: prompt, generated tokens
 CB_TIME_SCALE = 4.0          # the held meanflow tree's time MLP and mixer × this
+KOKORO_TEXT = ("This first sentence is long enough to stand on its own here. "
+               "The second one follows it and is a little longer than that. "
+               "A third sentence closes the paragraph, so three chunks stream.")
+KOKORO_DUR_BIAS = -2.75      # duration_proj's bias: ~3 frames a token (50 × sigmoid(−2.75))
+KOKORO_REL = 1e-4            # phase 18: d, t_en, F0 and N on the card against the f64 route
+KOKORO_F64_SENTENCES = 3     # phase 18's sentences held against the f64 route on the host
 QMM_T3_SHAPES = {"t3 q, k, v, o": (1024, 1024), "t3 gate, up / turbo fc1": (4096, 1024),
                  "t3 down / turbo fc2": (1024, 4096), "t3 speech head": (8194, 1024)}
 QMM_T3_ROWS = (1, 2)         # Turbo's B=1 and Chatterbox's CFG batch of 2
@@ -3989,6 +4011,7 @@ LOAD_CLIP_SECONDS = 6        # phase 11's Whisper clip
 LOAD_FUNASR_NEW = 24         # phase 11's Fun-ASR tokens per transcribe
 LOAD_ORPHEUS_NEW = 56        # phase 11's Orpheus tokens per generate (8 frames)
 LOAD_T3_NEW = 24             # phase 11's greedy tokens of each Chatterbox T3
+LOAD_KOKORO_TEXT = "Hello from the card, read by Kokoro."  # phase 11's sentence
 
 
 def write_safetensors(path, tensors: dict, metadata: dict | None = None) -> int:
@@ -4333,6 +4356,56 @@ def s3tokenizer_mlx_flat(tree: dict) -> dict:
     return {k: np.ascontiguousarray(np.asarray(v).transpose(2, 0, 1) if np.ndim(v) == 3
                                     else np.asarray(v))
             for k, v in pytree.flatten(tree).items()}
+
+
+def kokoro_jax_layout(tree: dict) -> dict:
+    """The port's Kokoro tree → the JAX layout, flat: the inverse of
+    `kokoro_perm` on every leaf."""
+    from tpu_audio_torch.models.kokoro.model import kokoro_perm
+    from tpu_audio_torch.utils import pytree
+
+    out = {}
+    for k, v in pytree.flatten(tree).items():
+        perm = kokoro_perm(k, v.dim())
+        out[k] = v if perm is None else v.permute(*np.argsort(perm).tolist()).contiguous()
+    return out
+
+
+def kokoro_mlx_flat(jax_flat: dict) -> dict:
+    """Kokoro's flat JAX-layout leaves → mlx-community/Kokoro-82M's keys and
+    layouts (the inverse of the loader's remaps): predictor.text_encoder
+    .lstm{i} / norm{i} → lstms.{2i} / .{2i+1}, text_encoder.cnn.N.conv /
+    norm → .0 / .1 (the norms as gamma / beta), duration_proj →
+    duration_proj.linear_layer, the LSTMs' fwd / bwd → weight_ih_l0 and
+    the rest, a convolution (K, I, O) → MLX's (O, K, I) and a transposed one
+    (ups, pool) → (I, K, O), the Snake alphas (1, 1, C) → (C, 1, 1) as the
+    loader reads them back; plus ALBERT's position_ids, which the loader
+    drops."""
+    lstm_names = {"wx": "weight_ih_l0", "wh": "weight_hh_l0", "bias_ih": "bias_ih_l0",
+                  "bias_hh": "bias_hh_l0"}
+    out = {"bert.embeddings.position_ids": np.arange(512, dtype=np.int64)[None]}
+    for k, v in jax_flat.items():
+        src = k
+        m = re.match(r"^(predictor\.text_encoder)\.(lstm|norm)(\d)\.(.+)$", src)
+        if m:
+            idx = int(m.group(3)) * 2 + (0 if m.group(2) == "lstm" else 1)
+            src = f"{m.group(1)}.lstms.{idx}.{m.group(4)}"
+        m = re.match(r"^(text_encoder\.cnn\.\d+)\.(conv|norm)\.(.+)$", src)
+        if m:
+            tail = m.group(3)
+            if m.group(2) == "norm":
+                tail = tail.replace("weight", "gamma").replace("bias", "beta")
+            src = f"{m.group(1)}.{'0' if m.group(2) == 'conv' else '1'}.{tail}"
+        src = src.replace("predictor.duration_proj.", "predictor.duration_proj.linear_layer.")
+        m = re.match(r"^(.*)\.(fwd|bwd)\.(wx|wh|bias_ih|bias_hh)$", src)
+        if m:
+            src = (f"{m.group(1)}.{lstm_names[m.group(3)]}"
+                   + ("_reverse" if m.group(2) == "bwd" else ""))
+        if v.dim() == 3:  # the Snake alphas too: the loader reads every 3-D leaf as a conv
+            v = v.permute(1, 0, 2) if re.search(r"\.(ups|pool)\.", k) else v.permute(2, 0, 1)
+        out[src] = v.contiguous()
+    return out
+
 
 
 def seed_cache(root: Path, repo_id: str, files: dict) -> tuple[Path, int]:
@@ -4711,13 +4784,15 @@ def load_slice(dev, card: str) -> dict:
 
             # (d) Chatterbox and Chatterbox Turbo, mlx-community 4-bit layouts
             chatterbox_loads(hub, dev, card, run)
+            # (e) Kokoro, mlx-community/Kokoro-82M-bf16's layout, and a voice pack
+            kokoro_loads(hub, dev, card)
         finally:
             if old_cache is None:
                 os.environ.pop("TPU_AUDIO_CACHE", None)
             else:
                 os.environ["TPU_AUDIO_CACHE"] = old_cache
 
-    # (d) the tokenizer readers on this Python, without regex
+    # (f) the tokenizer readers on this Python, without regex
     n = check_tokenizer_golden()
     log(f"load tokenizers: {n} golden encodings equal (tokenizer.json reader on llama3, "
         f"qwen2, gpt2 and the Whisper BPE, regex blocked)")
@@ -4800,6 +4875,54 @@ def chatterbox_loads(hub: Path, dev, card: str, run) -> None:
         log(f"load {name}: {len(got)} greedy T3 tokens equal those of the written tree")
         del engine, ref, gen
         torch.cuda.empty_cache()
+
+
+def kokoro_loads(hub: Path, dev, card: str) -> None:
+    """Phase 11 (e): Kokoro at full width (`kokoro_params` of seed 18,
+    rounded to bf16 as the published file stores it) written in the
+    mlx-community/Kokoro-82M-bf16 layout (`kokoro_mlx_flat`) with a
+    voices/af_heart.safetensors into the pre-seeded cache, read by
+    `TTS.kokoro().load()`: the tree against the written one bit for bit,
+    the voice pack equal, and the audio of one sentence against
+    `from_params` on the written tree."""
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.models.kokoro import load as kload
+    from tpu_audio_torch.models.kokoro.config import KokoroConfig
+    from tpu_audio_torch.models.kokoro.voices import random_voice
+    from tpu_audio_torch.utils import pytree
+
+    params = pytree.unflatten({k: v.bfloat16().float() for k, v in
+                               pytree.flatten(kokoro_params(dev, SEED + 18)).items()})
+    flat = {k: v.bfloat16() if isinstance(v, torch.Tensor) else v
+            for k, v in kokoro_mlx_flat(kokoro_jax_layout(params)).items()}
+    voice = random_voice(SEED + 18)
+
+    def write_voice(path):
+        path.parent.mkdir(exist_ok=True)
+        return write_safetensors(path, {"af_heart": voice})
+    (_, nbytes), wall = timed(lambda: seed_cache(hub, kload.REPO, {
+        kload.WEIGHTS_FILE: lambda p: write_safetensors(p, flat),
+        "voices/af_heart.safetensors": write_voice}))
+    del flat
+    log(f"load kokoro: wrote {nbytes} bytes (bf16, the mlx layout, full width, and a voice "
+        f"pack) in {wall:.2f} s ({card})")
+    engine = TTS.kokoro()
+    _, wall = timed(engine.load)
+    log(f"load kokoro: TTS.kokoro().load() {wall:.2f} s ({card})")
+    held_tree("load kokoro tree against the written one", engine.synth.params, params)
+    if not np.array_equal(engine._voice_pack(), voice):
+        raise AssertionError("load kokoro: the voice pack differs from the written one")
+    ref = TTS.kokoro().from_params(params, KokoroConfig(), voice)
+    got = engine.generate(LOAD_KOKORO_TEXT).samples
+    want = ref.generate(LOAD_KOKORO_TEXT).samples
+    err = float(np.abs(got - want).max()) if len(got) == len(want) else math.inf
+    if not (len(want) and err <= 1e-5 * float(np.abs(want).max())):
+        raise AssertionError(f"load kokoro: {len(got)} samples against from_params's "
+                             f"{len(want)}, max |Δ| {err}")
+    log(f"load kokoro: {len(got)} samples against from_params's on the written tree, max |Δ| "
+        f"{err:.3e} (the voice pack equal, phonemizer {engine.phonemizer.kind})")
+    del engine, ref
+    torch.cuda.empty_cache()
 
 
 def save_check(engine, tmp: Path, rng) -> None:
@@ -6881,6 +7004,234 @@ def chatterbox_slice(dev, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ 18. Kokoro
+
+def kokoro_params(dev, seed: int = SEED) -> dict:
+    """`KokoroConfig()` at full width (82M) from the port's `init_params`
+    (a numpy seed), f32 on `dev`, with two changes: duration_proj's bias
+    set to KOKORO_DUR_BIAS (random weights otherwise speak ~25 frames a
+    token, 50 sigmoids near 0.5: ~7× slower than speech), and the LSTMs'
+    biases drawn uniform in ±1/√H as torch draws them (the JAX init's
+    zeros leave a zero input's state at zero, so that a backward pass
+    started in the padding could not be told from one started at the last
+    valid frame)."""
+    from tpu_audio_torch.models.kokoro import model as km
+    from tpu_audio_torch.models.kokoro.config import KokoroConfig
+    from tpu_audio_torch.utils import pytree
+
+    params = km.init_params(seed, KokoroConfig(), torch.float32, dev)
+    params["predictor"]["duration_proj"]["bias"].fill_(KOKORO_DUR_BIAS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k, v in pytree.flatten(params).items():
+        if k.endswith((".bias_ih", ".bias_hh")):
+            v.copy_((torch.rand(v.shape, generator=gen, device=dev) * 2 - 1)
+                    / math.sqrt(v.shape[0] // 4))
+    return params
+
+
+def kokoro_faults() -> list:
+    """Phase 18's planted faults, [(label, stage, tree_fn, patch)]: a stage
+    1 fault is read on d and t_en, a stage 2 fault on F0, N and the audio;
+    `tree_fn` makes the faulty tree, `patch` (obj, name, fn) replaces a
+    function while the stage runs."""
+    from tpu_audio_torch.models.kokoro import model as km
+    from tpu_audio_torch.nn import layers, lstm
+    from tpu_audio_torch.utils import pytree
+
+    instance_norm, alignment, generator = (layers.masked_instance_norm, km.alignment_matrix,
+                                           km.generator)
+
+    def pool_swapped(tree):
+        """Every pool's weight_v and weight_g (I, O, K) read as (O, I, K):
+        the generic conversion's (2, 1, 0) in place of (1, 2, 0)."""
+        return pytree.unflatten({k: v.permute(1, 0, 2) if ".pool.weight_" in k else v
+                                 for k, v in pytree.flatten(tree).items()})
+
+    def bwd_from_tail(p, x, valid_len):
+        out = torch.cat([lstm.lstm(p["fwd"], x), lstm.lstm(p["bwd"], x, reverse=True)], dim=-1)
+        return layers.zero_pad_tail(out, valid_len)
+
+    def stats_over_padding(x, valid_len, eps=1e-5):
+        return layers.zero_pad_tail(instance_norm(x, x.shape[-2], eps), valid_len)
+
+    def one_frame_late(durations, total_frames, dtype=torch.float32):
+        a = alignment(durations, total_frames, dtype)
+        return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
+
+    def norm_per_output(p, x, stride, padding):
+        q = {"weight": layers.weight_norm(p["weight_v"], p["weight_g"], (0, 2)).to(x.dtype),
+             "bias": p["bias"]}
+        return layers.conv_transpose1d(q, x, stride=stride, padding=padding)
+
+    def ups_norm_per_output(*a, **k):
+        with patched(km, "wn_conv_transpose", norm_per_output):
+            return generator(*a, **k)
+
+    return [("pool's I and O swapped", 2, pool_swapped, None),
+            ("the BiLSTM's backward direction from the padded tail", 1, None,
+             (lstm, "masked_bilstm", bwd_from_tail)),
+            ("instance-norm statistics over the padded frames", 2, None,
+             (layers, "masked_instance_norm", stats_over_padding)),
+            ("the alignment one frame late", 2, None, (km, "alignment_matrix", one_frame_late)),
+            ("ups' weight norm per output channel, g's stored orientation, not per input", 2,
+             None, (km, "generator", ups_norm_per_output))]
+
+
+def kokoro_fault_run(synth, params, s, ids, pack, fault):
+    """One fault's outputs: {"d", "t_en"} of stage 1 on `ids`, or {"F0", "N",
+    "audio"} of stage 2 on `s`'s stage-1 outputs with its source spectrum."""
+    import dataclasses
+    from contextlib import nullcontext
+
+    from tpu_audio_torch.models.kokoro.synth import KokoroSynthesizer
+
+    _, stage, tree_fn, patch = fault
+    if tree_fn is not None:
+        synth = KokoroSynthesizer(tree_fn(params), synth.cfg)
+    with torch.inference_mode(), (patched(*patch) if patch else nullcontext()):
+        if stage == 1:
+            f = synth.stage1(synth.prepare(ids, pack))
+            return {"d": f.d, "t_en": f.t_en}
+        f = synth.stage2(dataclasses.replace(s), har=s.har)
+        return {"F0": f.f0, "N": f.n, "audio": f.audio}
+
+
+def device_kernels(fn) -> tuple[int, float, float]:
+    """(device kernels, device busy ms, traced wall s) of fn() under
+    torch.profiler, tracing the card's activity only (a Kokoro stage 1
+    launches ~57,000 kernels: the host's operators would add as many events
+    again to the trace's processing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, w = timed(fn)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, w
+
+
+def kokoro_slice(dev, card: str) -> dict:
+    """Phase 18: Kokoro at full width on random weights (`kokoro_params`:
+    82M, f32) through `TTS.kokoro()` → `KokoroEngine.from_params` with its
+    default voice pack: KOKORO_TEXT's three sentences streamed (first audio,
+    × real time, the phonemizer backend); each sentence's ids, mean
+    duration, frame bucket and seconds, stage 1 and stage 2 ms (CUDA
+    events), the first sentence's device kernels (the profiler); the first
+    KOKORO_F64_SENTENCES held against an f64 route of the port on the host
+    (the same tree and draws, the card's source spectrum injected):
+    durations equal, d, t_en, F0 and N within KOKORO_REL, the audio's
+    distance printed; five planted faults (`kokoro_faults`), each at least
+    CV_FAULT_RATIO times the card route's distance from f64. No kernel of
+    the port is on the path: ALBERT's masked attention takes the plain
+    route, asserted by `encoder_attention`'s counters staying 0."""
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.models.kokoro import model as km
+    from tpu_audio_torch.models.kokoro.config import KokoroConfig
+    from tpu_audio_torch.models.kokoro.synth import KokoroSynthesizer
+    from tpu_audio_torch.ops.kernels import encoder_attention as ea
+    from tpu_audio_torch.utils import pytree
+
+    total = {n: 0 for n in ea.LAUNCHES}
+    cfg = KokoroConfig()
+    t0 = time.perf_counter()
+    params = kokoro_params(dev)
+    torch.cuda.synchronize()
+    log(f"models: Kokoro-82M random f32 weights ({pytree.param_count(params)} parameters, seed "
+        f"{SEED}, duration_proj's bias {KOKORO_DUR_BIAS}) in {time.perf_counter() - t0:.1f} s")
+    eng = TTS.kokoro(device=dev).from_params(params, cfg)
+    pack = eng._voice_pack()
+    log(f"kokoro phonemizer: the {eng.phonemizer.kind} backend")
+
+    def stream():
+        first, chunks = {}, []
+        t_ = time.perf_counter()
+        for c in eng.generate_streaming(KOKORO_TEXT):
+            first.setdefault("s", time.perf_counter() - t_)
+            chunks.append(c)
+        return chunks, first["s"]
+
+    with torch.inference_mode():
+        (chunks, first), _, wall = counted_run(
+            "kokoro", (ea,), total, "generate_streaming (3 sentences, SENTENCE)", (), stream,
+            absent=tuple(ea.LAUNCHES))
+    audio = np.concatenate([c.samples for c in chunks])
+    if not (len(chunks) == 3 and chunks[-1].is_final and np.isfinite(audio).all()
+            and all(len(c.samples) and len(c.samples) % cfg.samples_per_frame == 0
+                    for c in chunks)):
+        raise AssertionError(f"kokoro stream: {len(chunks)} chunks of "
+                             f"{[len(c.samples) for c in chunks]} samples")
+    log(f"kokoro stream: {len(chunks)} chunks, first audio after {first:.3f} s; "
+        f"{len(audio) / 24000:.2f} s of audio in {wall:.3f} s: {len(audio) / 24000 / wall:.2f}× "
+        f"real time ({card})")
+
+    # ------------------------------------------------ each sentence, its stages
+    synth, sentences = eng.synth, []
+    with torch.inference_mode():
+        for i, c in enumerate(chunks):
+            ids = eng.phonemizer.to_ids(c.text)
+            s = synth.run(ids, pack)
+            if measure(s.audio.cpu(), torch.as_tensor(c.samples))[1] > 1e-6:
+                raise AssertionError(f"kokoro sentence {i}: run() differs from the stream")
+            prepared = synth.stage1(synth.prepare(ids, pack))
+            rng = torch.Generator(device=dev)
+            ms1 = events_ms(lambda: synth.stage1(synth.prepare(ids, pack)), 2)
+            ms2 = events_ms(lambda: synth.stage2(prepared, rng.manual_seed(SEED)), 2)
+            n_valid = int(s.n_tokens)
+            log(f"kokoro sentence {i}: {len(ids)} phoneme ids ({n_valid} with the boundaries), "
+                f"mean duration {s.total / n_valid:.2f} frames a token, {s.total} frames in the "
+                f"bucket of {s.frames_pad}, {len(c.samples) / 24000:.2f} s of audio; stage 1 "
+                f"{ms1:.1f} ms, stage 2 {ms2:.1f} ms (CUDA events) ({card})")
+            if i == 0:  # the kernels a sentence: the shapes are fixed, one sentence profiled
+                t_ = time.perf_counter()
+                k1, busy1, w1 = device_kernels(lambda: synth.stage1(synth.prepare(ids, pack)))
+                k2, busy2, w2 = device_kernels(lambda: synth.stage2(prepared,
+                                                                    rng.manual_seed(SEED)))
+                log(f"kokoro sentence 0 device kernels (torch.profiler, the card's activity): "
+                    f"stage 1 {k1}, busy {busy1:.1f} ms of the {1e3 * w1:.1f} ms traced; "
+                    f"stage 2 {k2}, busy {busy2:.1f} ms of {1e3 * w2:.1f} ms; both traces "
+                    f"{time.perf_counter() - t_:.1f} s with their processing ({card})")
+            sentences.append((ids, s))
+
+    # ------------------------------------------------ against the f64 route on the host
+    tree64 = pytree.unflatten({k: v.detach().double().cpu()
+                               for k, v in pytree.flatten(params).items()})
+    synth64 = KokoroSynthesizer(tree64, cfg)
+    t0 = time.perf_counter()
+    refs = []
+    for i, (ids, s) in enumerate(sentences[:KOKORO_F64_SENTENCES]):
+        r = synth64.stage1(synth64.prepare(ids, pack))
+        if not torch.equal(r.durations, s.durations.cpu()):
+            bad = (r.durations != s.durations.cpu()).nonzero()[:, 1].tolist()
+            pre = km.duration_sums(tree64, cfg, r.d, r.n_tokens, 1.0)[0, bad].tolist()
+            pre_card = km.duration_sums(params, cfg, s.d, s.n_tokens, 1.0)[0, bad].tolist()
+            raise AssertionError(f"kokoro sentence {i}: durations differ at tokens {bad}, "
+                                 f"before rounding f64 {pre} card {pre_card}")
+        synth64.stage2(r, har=s.har.double().cpu())
+        ref = {"d": r.d, "t_en": r.t_en, "F0": r.f0, "N": r.n, "audio": r.audio}
+        got = {"d": s.d, "t_en": s.t_en, "F0": s.f0, "N": s.n, "audio": s.audio}
+        rel = {k: measure(got[k].cpu(), ref[k])[1] for k in ref}
+        text = ", ".join(f"{k} rel {e:.3e}" for k, e in rel.items())
+        if not all(rel[k] <= KOKORO_REL for k in ("d", "t_en", "F0", "N")):
+            raise AssertionError(f"kokoro sentence {i} against f64: {text}: outside "
+                                 f"rel {KOKORO_REL}")
+        log(f"kokoro sentence {i} against the f64 route: durations equal ({s.total} frames), "
+            f"{text} (d, t_en, F0, N within rel {KOKORO_REL}; the audio on the card's source "
+            f"spectrum)")
+        refs.append((ref, rel))
+    log(f"kokoro f64 route on the host: {len(refs)} sentences in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ planted faults, on the first sentence
+    (ids, s), (ref, rel) = sentences[0], refs[0]
+    for fault in kokoro_faults():
+        outs = kokoro_fault_run(synth, params, s, ids, pack, fault)
+        errs = {k: measure(v.cpu(), ref[k])[1] for k, v in outs.items()}
+        control_ratio("kokoro", fault[0], [e / rel[k] if rel[k] else math.inf
+                                            for k, e in errs.items()],
+                      ", ".join(f"{k} rel {e:.3e}" for k, e in errs.items()),
+                      yardstick="the card route's distance from the f64 route")
+    return total
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -7025,6 +7376,9 @@ def main() -> None:
         return
     if "--chatterbox-only" in sys.argv[1:]:  # phases 1, 2 and 17
         print_result([], tts_slices(dev, card, ((17, chatterbox_slice),)))
+        return
+    if "--kokoro-only" in sys.argv[1:]:  # phases 1, 2 and 18
+        print_result([], tts_slices(dev, card, ((18, kokoro_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -7196,9 +7550,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3,
-    # 17. Chatterbox: their launches, too, go on lines of their own
+    # 17. Chatterbox, 18. Kokoro: their launches, too, go on lines of their own
     tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
-                           (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice)))
+                           (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice),
+                           (18, kokoro_slice)))
     print_result(rows, launches)
 
 

@@ -411,8 +411,9 @@ def test_unported_options_and_factories(tmp_path, monkeypatch):
         eng.load()
     with pytest.raises(ModelLoadError, match="whisper"):
         eng.create_speaker(np.zeros(1600, np.float32), 16000)
-    with pytest.raises(NotImplementedError, match="A14"):
-        TTS.kokoro()
+    from tpu_audio_torch.models.kokoro.engine import KokoroEngine  # A14 ported
+    assert isinstance(TTS.kokoro(device="cpu"), KokoroEngine)
+    assert TTS.kokoro(device="cpu").device == "cpu" and TTS.kokoro().device == "cuda"
     assert TTS.chatterbox(device="cpu").device == "cpu"  # A13 ported
 
 

@@ -12,9 +12,9 @@ with DAC), Marvis (`models/marvis/`, with Mimi), CosyVoice2
 (`models/cosyvoice2/`, with S3Gen and the S3 tokenizer), CosyVoice3
 (`models/cosyvoice3/`, the DiT flow), Chatterbox (`models/chatterbox/`,
 the T3 Llama with CFG and the voice encoder) and Chatterbox Turbo
-(`models/chatterbox_turbo/`, the GPT-2 T3 and the meanflow flow). The
-Kokoro factory raises naming its ROADMAP item (A14); playback (`say`) is
-A18.
+(`models/chatterbox_turbo/`, the GPT-2 T3 and the meanflow flow) and
+Kokoro (`models/kokoro/`, ALBERT, the predictors and the iSTFT-NSF
+generator). Playback (`say`) is A18.
 """
 
 from __future__ import annotations
@@ -166,10 +166,6 @@ class TTSEngineBase:
             raise GenerationStopped()
 
 
-def _not_ported(engine: str, item: str):
-    raise NotImplementedError(f"the {engine} engine is not ported yet (ROADMAP {item})")
-
-
 class TTS:
     """Factory namespace."""
 
@@ -186,8 +182,14 @@ class TTS:
                              speculative=speculative, gamma=gamma, device=device)
 
     @staticmethod
-    def kokoro(voice: str = "af_heart"):
-        _not_ported("Kokoro", "A14")
+    def kokoro(voice: str = "af_heart", device="cuda"):
+        """voice: one of `models/kokoro/voices.VOICES`; device: the card
+        unless the caller asks for the CPU. For `load()`:
+        `KokoroEngine.from_params` is a classmethod that builds its own
+        engine on its tree's device."""
+        from tpu_audio_torch.models.kokoro.engine import KokoroEngine
+
+        return KokoroEngine(voice=voice, device=device)
 
     @staticmethod
     def marvis(quality: str = "high", device="cuda"):

@@ -1,11 +1,12 @@
 """Multi-head attention (port of tpu_audio/nn/attention.py: attend with
 GQA, causal_mask, decode_mask, padding_mask).
 
-Layout is (B, T, H, D). Scores and softmax are f32; masks are additive
-f32 biases. As in the JAX `attend`, long unmasked self-attention (no mask,
-equal head counts, q and k of one shape, `encoder_attention.supported`)
-goes to the `encoder_attention` kernel: the Whisper encoder's per-op path
-on quantised trees. Every other call is the plain computation.
+Layout is (B, T, H, D). Scores and softmax are f32 (f64 for f64 q);
+masks are additive f32 biases. As in the JAX `attend`, long unmasked
+self-attention (no mask, equal head counts, q and k of one shape,
+`encoder_attention.supported`) goes to the `encoder_attention` kernel: the
+Whisper encoder's per-op path on quantised trees. Every other call is the
+plain computation.
 """
 
 from __future__ import annotations
@@ -34,15 +35,16 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ea.encoder_attention(q, k, v, scale=scale)
     if scale != 1.0:
         q = q * torch.tensor(scale, dtype=q.dtype)
+    ct = torch.promote_types(q.dtype, torch.float32)  # f32 scores, f64 for f64 q
     if hkv != h:
         qg = q.reshape(b, tq, hkv, h // hkv, d)
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(ct), k.to(ct))
         if mask is not None:
             scores = scores + mask[:, :, None]
         w = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
         return out.reshape(b, tq, h, d)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))
     if mask is not None:
         scores = scores + mask
     w = torch.softmax(scores, dim=-1)

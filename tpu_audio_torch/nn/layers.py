@@ -1,6 +1,7 @@
 """Functional layers over param dicts (port of tpu_audio/nn/layers.py:
 linear, layer_norm, rms_norm, gelu, silu, conv1d, conv_transpose1d,
-weight_norm_conv1d, embedding, embedding_as_linear, sinusoidal_positions).
+weight_norm_conv1d, embedding, embedding_as_linear, sinusoidal_positions,
+masked_instance_norm, zero_pad_tail, leaky_relu).
 
 Conventions kept from the JAX module:
   - linear weights are (out_features, in_features);
@@ -10,7 +11,8 @@ Changed for PyTorch: conv1d weights are (out, in/groups, kernel) and
 transposed-conv weights (in, out/groups, kernel), torch's own layouts (the
 JAX tree stores (kernel, in, out); `convert.params_from_numpy` transposes).
 The convolutions are `F.conv1d` / `F.conv_transpose1d`: XLA convolutions
-in the JAX package, not Pallas kernels.
+in the JAX package, not Pallas kernels. The norms compute in f32, or in
+f64 for f64 inputs.
 """
 
 from __future__ import annotations
@@ -46,11 +48,18 @@ def embedding_as_linear(p, x: torch.Tensor) -> torch.Tensor:
     return x @ p["weight"].to(x.dtype).T
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a norm computes in: f32, or f64 for f64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, computed in f32, returned in x's dtype."""
-    bias = p["bias"].float() if "bias" in p else None
-    return F.layer_norm(x.float(), (x.shape[-1],), p["weight"].float(), bias,
-                        eps).to(x.dtype)
+    """LayerNorm over the last axis, computed in f32 (f64 for f64 x),
+    returned in x's dtype; p None: no affine (Kokoro's AdaLayerNorm)."""
+    ct = _compute_dtype(x)
+    weight = None if p is None else p["weight"].to(ct)
+    bias = p["bias"].to(ct) if p is not None and "bias" in p else None
+    return F.layer_norm(x.to(ct), (x.shape[-1],), weight, bias, eps).to(x.dtype)
 
 
 def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -77,17 +86,30 @@ def conv1d(p, x: torch.Tensor, stride: int = 1, padding: int | tuple = 0,
 def conv_transpose1d(p, x: torch.Tensor, stride: int = 1, padding: int = 0,
                      groups: int = 1) -> torch.Tensor:
     """Transposed 1-D convolution over (B, T, C_in) → (B, T', C_out) with
-    T' = (T − 1)·stride − 2·padding + K; weight (I, O/groups, K)."""
+    T' = (T − 1)·stride − 2·padding + K; weight (I, O/groups, K). A weight
+    (1, C, K), the (1, 2, 0) image of the JAX depthwise (K, 1, C), is
+    depthwise with groups = C, inferred from its singleton input axis as
+    the JAX function infers it; torch's own depthwise (C, 1, K) takes
+    `groups` from the caller."""
+    w = p["weight"]
+    c = x.shape[-1]
+    if groups == 1 and w.shape[0] != c:
+        if w.shape[0] != 1 or w.shape[1] != c:
+            raise NotImplementedError(f"only dense or depthwise transposed conv supported; "
+                                      f"weight {tuple(w.shape)} vs input C={c}")
+        w, groups = w.transpose(0, 1), c
     bias = p["bias"].to(x.dtype) if "bias" in p else None
-    y = F.conv_transpose1d(x.transpose(1, 2), p["weight"].to(x.dtype), bias, stride=stride,
+    y = F.conv_transpose1d(x.transpose(1, 2), w.to(x.dtype), bias, stride=stride,
                            padding=padding, groups=groups)
     return y.transpose(1, 2).contiguous()
 
 
 def weight_norm(v: torch.Tensor, g: torch.Tensor, dims: tuple) -> torch.Tensor:
-    """g · v / ‖v‖ in f32, the norm over `dims` (+1e-12 under the root)."""
-    vf = v.float()
-    return vf / torch.sqrt((vf * vf).sum(dim=dims, keepdim=True) + 1e-12) * g.float()
+    """g · v / ‖v‖ in f32 (f64 for f64 v), the norm over `dims` (+1e-12
+    under the root)."""
+    ct = _compute_dtype(v)
+    vf = v.to(ct)
+    return vf / torch.sqrt((vf * vf).sum(dim=dims, keepdim=True) + 1e-12) * g.to(ct)
 
 
 def weight_norm_conv1d(p, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -106,6 +128,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+def _valid_frames(x: torch.Tensor, valid_len) -> torch.Tensor:
+    """(1, T, 1) bool: frame t of (B, T, C) is below valid_len (an int or
+    a 0-d tensor)."""
+    return (torch.arange(x.shape[-2], device=x.device) < valid_len)[None, :, None]
+
+
+def masked_instance_norm(x: torch.Tensor, valid_len, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm1d over (B, T, C) with statistics from the first
+    valid_len frames only (padded synthesis: statistics over the padded
+    tail would move every valid frame); frames past valid_len come out
+    zero. Computed in f32 (f64 for f64 x)."""
+    xf = x.to(_compute_dtype(x))
+    mask = _valid_frames(x, valid_len).to(xf.dtype)
+    n = torch.clamp(mask.sum(), min=1.0)
+    mu = (xf * mask).sum(dim=-2, keepdim=True) / n
+    var = (((xf - mu) ** 2) * mask).sum(dim=-2, keepdim=True) / n
+    return ((xf - mu) * torch.rsqrt(var + eps) * mask).to(x.dtype)
+
+
+def zero_pad_tail(x: torch.Tensor, valid_len) -> torch.Tensor:
+    """Zero the frames at and beyond valid_len along axis -2 of (B, T, C)."""
+    return torch.where(_valid_frames(x, valid_len), x, torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
 
 
 def sinusoidal_positions(length: int, dim: int,

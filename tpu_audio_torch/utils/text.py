@@ -1,8 +1,9 @@
 """Text segmentation for TTS (port of tpu_audio/utils/text.py:
-detect_script, split_into_sentences): a sentence split, then short
-sentences merged up to the script's chunk length until a strong ending
-(latin chunks 50-300 characters, CJK 30-200, Indic 40-250). Scripts are
-told apart by Unicode block.
+detect_script, split_into_sentences, split_at_punctuation_boundary): a
+sentence split, then short sentences merged up to the script's chunk
+length until a strong ending (latin chunks 50-300 characters, CJK 30-200,
+Indic 40-250). Scripts are told apart by Unicode block. Kokoro splits a
+sentence over its token cap at the punctuation nearest its middle.
 """
 
 from __future__ import annotations
@@ -80,3 +81,36 @@ def split_into_sentences(text: str) -> list[str]:
     if current:
         result.append(current)
     return result
+
+
+_PUNCT_PRIORITY = [".", "!", "?", ";", ":", ",", " "]
+
+
+def split_at_punctuation_boundary(text: str, min_length: int = 10
+                                  ) -> tuple[str, str] | None:
+    """Split near the middle at the highest-priority punctuation, searching
+    outward from the centre (right side first); None for a text of at
+    most min_length characters or one with no such mark."""
+    trimmed = text.strip()
+    if len(trimmed) <= min_length:
+        return None
+    mid = len(trimmed) // 2
+    max_dist = len(trimmed) // 2
+    for punct in _PUNCT_PRIORITY:
+        left, right = 1, 0
+        while left < max_dist or right < max_dist:
+            if right < max_dist:
+                i = mid + right
+                if i < len(trimmed) and trimmed[i] == punct:
+                    first, second = trimmed[: i + 1].strip(), trimmed[i + 1:].strip()
+                    if first and second:
+                        return first, second
+                right += 1
+            if left < max_dist:
+                i = mid - left
+                if i > 0 and trimmed[i] == punct:
+                    first, second = trimmed[: i + 1].strip(), trimmed[i + 1:].strip()
+                    if first and second:
+                        return first, second
+                left += 1
+    return None
