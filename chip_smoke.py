@@ -205,7 +205,25 @@ Phases (any failure raises and the script exits non-zero):
      pass from the padded tail, instance-norm statistics over the padding,
      the alignment one frame late, ups' weight norm per output channel).
      No kernel is on Kokoro's path: `encoder_attention` must not launch.
-     Phases 12 to 18 print their walls and their launches on lines of
+ 19. (run last) Serving and playback: Orpheus's LM at Llama-3.2-3B width
+     on random weights under `api/serving.ContinuousBatcher` (batch 8,
+     spans of 16, prompt bucket 64, a ring of 2048 slots, greedy under a
+     repetition penalty): 24 requests on the w8a8 tree (8 up front, one
+     more after each span) and 8 on the W4A8 tree: spans, occupancy,
+     tokens/s, ms a span and an admission by CUDA events, first-token and
+     whole-request latency, the launch rule counted (4 linears a layer and
+     the head a step), every int8 / W4A8 call of
+     one span held against its plain version; the batcher's logits of two
+     requests admitted into recycled rows at different positions against
+     f32 with four planted faults (a stale row mask, RoPE at absolute
+     slots, the KV window one slot late, the left pad unmasked); each
+     request against its single-stream `generate` (a first difference
+     must be a near tie); ROADMAP C26 and C27 at 3B (a request that does
+     not fit waits, the idle position rewinds); `say` on the w8a8 engine
+     into a PlayerSink on the null output and a FileSink (first audio,
+     × real time, the samples played, the WAV read back, one whole-stack
+     step a decode step); memory snapshots and the profiler's summary.
+     Phases 12 to 19 print their walls and their launches on lines of
      their own. Every end-to-end control must read at least 5× the plain
      route's distance from f32; each prints its ratio.
 
@@ -269,7 +287,8 @@ check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
 `python3 chip_smoke.py --spec-only` runs phases 1, 2 and 15 (speculative
 decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3);
 `--chatterbox-only` phases 1, 2 and 17 (Chatterbox and Chatterbox Turbo);
-`--kokoro-only` phases 1, 2 and 18 (Kokoro).
+`--kokoro-only` phases 1, 2 and 18 (Kokoro); `--serve-only` phases 1, 2
+and 19 (serving and playback).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -281,6 +300,7 @@ last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import itertools
@@ -291,6 +311,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -333,7 +354,7 @@ HD64_STACK = dict(dim=2048, n_layers=2, n_heads=32, n_kv_heads=8, head_dim=64, h
 FUNASR_CLIP_SECONDS = 10     # phase 8's clip
 FUNASR_MAX_NEW = 48          # tokens per transcribe (random weights rarely stop early)
 FUNASR_CACHE = 1024          # prompt (~370 slots for 10 s) + new tokens
-ORPHEUS_MAX_NEW = 98        # phase 10's tokens per generate (14 frames)
+ORPHEUS_MAX_NEW = 70        # phase 10's tokens per generate (10 frames; cut from 98 for time)
 ORPHEUS_BATCH = 8            # phase 10's generate_batch rows
 # the 3b model of benchmarks/llm_decode.py (its --w4a8sg tree): Llama-3.2-3B
 # layers, vocab 128266, an untied head, RoPE theta 10000 unscaled
@@ -398,10 +419,23 @@ KOKORO_TEXT = ("This first sentence is long enough to stand on its own here. "
                "A third sentence closes the paragraph, so three chunks stream.")
 KOKORO_DUR_BIAS = -2.75      # duration_proj's bias: ~3 frames a token (50 × sigmoid(−2.75))
 KOKORO_REL = 1e-4            # phase 18: d, t_en, F0 and N on the card against the f64 route
-KOKORO_F64_SENTENCES = 3     # phase 18's sentences held against the f64 route on the host
+KOKORO_F64_SENTENCES = 1     # phase 18's sentences held against the f64 route (cut from 3)
 QMM_T3_SHAPES = {"t3 q, k, v, o": (1024, 1024), "t3 gate, up / turbo fc1": (4096, 1024),
                  "t3 down / turbo fc2": (1024, 4096), "t3 speech head": (8194, 1024)}
 QMM_T3_ROWS = (1, 2)         # Turbo's B=1 and Chatterbox's CFG batch of 2
+SERVE_BATCH = 8              # phase 19's rows
+SERVE_SPAN = 16              # steps a span
+SERVE_BUCKET = 64            # prompt bucket: an admission's prefill is 64 rows (int8_matmul_bigm)
+SERVE_RING = 2048            # the generator's max_cache: the batch's shared ring
+SERVE_REQUESTS = 24          # (a)'s requests on the w8a8 tree
+SERVE_W4A8_REQUESTS = 8      # (b)'s on the W4A8 tree
+SERVE_PROMPT = (20, 60)      # prompt tokens, inclusive
+SERVE_NEW = (48, 96)         # max_new, inclusive
+SERVE_PENALTY = dict(temperature=0.0, repetition_penalty=50.0, repetition_window=20)
+SERVE_SMALL_RING = 128       # (e)'s ring: R2's budget (49 slots) does not fit behind R1 at 80
+SERVE_NEAR_TIE = 0.05        # a first difference: the routes' logits apart by ≤ this of max|logit|
+SAY_TEXT = "Hello from the card!"  # (f)'s sentence
+SAY_NEW = 280                # (f)'s tokens: random weights emit a code ~1 token in 5.5
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -3804,22 +3838,18 @@ def orpheus_slice(trees: dict, dev, card: str) -> dict:
 
     def lm_ms(gen, prompts, sampler, label):
         """Log the LM alone: prefill + first token, then ms per decode step
-        (two runs) and tokens per second over all rows."""
+        and tokens per second over all rows (one run, for the script's time)."""
         kw = dict(sampler=sampler, eos_ids=(om.END_TOKEN,), seed=0)
         call = ((lambda n: gen.generate(prompts[0], max_new=n, **kw)) if len(prompts) == 1
                 else (lambda n: gen.generate_batch(prompts, max_new=n, **kw)))
         call(2)  # warm-up
         _, t_first = timed(lambda: call(1))
-        runs = []
-        for _ in range(2):
-            out, w = timed(lambda: call(ORPHEUS_MAX_NEW))
-            rows = [out] if len(prompts) == 1 else out
-            n = sum(len(r) for r in rows)
-            runs.append(f"{1e3 * (w - t_first) / (ORPHEUS_MAX_NEW - 1):.2f} ms per step, "
-                        f"{n / w:.1f} tokens/s")
+        out, w = timed(lambda: call(ORPHEUS_MAX_NEW))
+        n = sum(len(r) for r in ([out] if len(prompts) == 1 else out))
         log(f"orpheus {label} LM alone, B={len(prompts)}: prefill + first token "
-            f"{1e3 * t_first:.1f} ms; {ORPHEUS_MAX_NEW - 1} steps, two runs: {'; '.join(runs)} "
-            f"({card})")
+            f"{1e3 * t_first:.1f} ms; {ORPHEUS_MAX_NEW - 1} steps: "
+            f"{1e3 * (w - t_first) / (ORPHEUS_MAX_NEW - 1):.2f} ms per step, "
+            f"{n / w:.1f} tokens/s ({card})")
 
     # ------------------------------------------------ the W4A8 tree
     w4 = ("w4a8_matmul", "w4a8_matmul_stacked")
@@ -7232,6 +7262,545 @@ def kokoro_slice(dev, card: str) -> dict:
     return total
 
 
+# ------------------------------------------------ 19. serving and playback
+
+def serve_requests(rng, n: int) -> list:
+    """n (prompt ids, max_new): prompts of SERVE_PROMPT tokens below the
+    Orpheus control ids, max_new in SERVE_NEW, from `rng`."""
+    return [(rng.integers(0, 128000, int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)))
+             .tolist(), int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))) for _ in range(n)]
+
+
+@contextmanager
+def captured_logits(module, key=lambda: None):
+    """Record the logits of every step that `module`'s decode loops run and
+    of every first token sampled without a recent ring (a prefill's): into
+    {"first": [(1, V)], "spans": [(key(), [(B, V) a step])]}, f32 copies on
+    the card. Wraps the step handed to `module.decode_loop`; adds nothing
+    to the package."""
+    from tpu_audio_torch.ops import sampling
+
+    store = {"first": [], "spans": []}
+    loop, sample = module.decode_loop, sampling.sample
+
+    def wrapped_loop(step_fn, state, first, n, **kw):
+        steps = []
+        store["spans"].append((key(), steps))
+
+        def step(tok, cache):
+            lg, cache = step_fn(tok, cache)
+            steps.append(lg.float().clone())
+            return lg, cache
+        return loop(step, state, first, n, **kw)
+
+    def wrapped_sample(logits, cfg, recent=None, *a, **k):
+        if recent is None:
+            store["first"].append(logits.float().clone())
+        return sample(logits, cfg, recent, *a, **k)
+
+    with patched(module, "decode_loop", wrapped_loop), patched(sampling, "sample",
+                                                                wrapped_sample):
+        yield store
+
+
+@contextmanager
+def batcher_logits(batcher):
+    """`captured_logits` of a ContinuousBatcher's spans and admissions,
+    with the row → request map of each span and the admission order."""
+    from tpu_audio_torch.api import serving
+
+    admitted, admit = [], batcher._admit
+
+    def record(row, req):
+        admitted.append(req)
+        return admit(row, req)
+
+    batcher._admit = record
+    try:
+        with captured_logits(serving, lambda: list(batcher.row_req)) as store:
+            store["admitted"] = admitted
+            yield store
+    finally:
+        del batcher._admit
+
+
+def request_logits(store: dict, req) -> torch.Tensor:
+    """(len(req.tokens), V): row j the logits that chose req.tokens[j]."""
+    i = next(i for i, r in enumerate(store["admitted"]) if r is req)
+    rows = [store["first"][i][0]]
+    for owners, steps in store["spans"]:
+        for row, r in enumerate(owners):
+            if r is req:
+                rows.extend(s[row] for s in steps)
+    return torch.stack(rows)[:len(req.tokens)]
+
+
+def single_logits(gen, prompt, sampler, max_new: int):
+    """`gen.generate` of one prompt at the batcher's bucket: (tokens, their
+    logits (len, V) as `request_logits` lays them out)."""
+    from tpu_audio_torch.models.orpheus import model as om
+
+    with captured_logits(om) as store:
+        toks = gen.generate(prompt, sampler=sampler, eos_ids=(om.END_TOKEN,), max_new=max_new,
+                            bucket=SERVE_BUCKET)
+    rows = [store["first"][0][0]] + [s[0] for _, steps in store["spans"] for s in steps]
+    return toks, torch.stack(rows)[:len(toks)]
+
+
+def first_difference(tag: str, got: list, ref: list, got_lg, ref_lg, sampler) -> str:
+    """Where two greedy token streams of one prompt part: their first
+    differing step k, the reference's top-2 margin there and the two routes'
+    largest logit difference, both after the repetition penalty over the
+    shared prefix. A flip needs margin ≤ 2 × difference; that difference
+    must stay within SERVE_NEAR_TIE of the step's largest |logit|. Raises
+    otherwise; returns a line for the log."""
+    from tpu_audio_torch.ops import sampling
+
+    if got == ref:
+        return f"{len(got)} of {len(ref)} tokens equal"
+    k = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), min(len(got), len(ref)))
+    if k == min(len(got), len(ref)):
+        raise AssertionError(f"{tag}: one stream ends early ({len(got)} vs {len(ref)} tokens)")
+    recent = torch.full((1, sampler.repetition_window), -1, dtype=torch.int64,
+                        device=got_lg.device)
+    for t in ref[:k][-sampler.repetition_window:]:
+        recent = sampling.update_recent(recent, torch.tensor([t], device=got_lg.device))
+    if k:
+        pen = lambda lg: sampling.apply_repetition_penalty(lg[None], recent,  # noqa: E731
+                                                           sampler.repetition_penalty)[0]
+    else:  # the first token is sampled without the penalty
+        pen = lambda lg: lg  # noqa: E731
+    g, r = pen(got_lg[k]), pen(ref_lg[k])
+    top = torch.topk(r, 2).values
+    margin, diff = (top[0] - top[1]).item(), (g - r).abs().max().item()
+    scale = r.abs().max().item()
+    text = (f"{k} of {len(ref)} tokens equal; at step {k} the reference's top-2 margin "
+            f"{margin:.4e}, the routes' largest logit difference {diff:.4e} "
+            f"({diff / scale:.3e} of max|logit| {scale:.3f})")
+    if not (margin <= 2 * diff and diff <= SERVE_NEAR_TIE * scale):
+        raise AssertionError(f"{tag}: {text}: not a near tie (margin ≤ 2 × difference, "
+                             f"difference ≤ {SERVE_NEAR_TIE} of max|logit|)")
+    return text
+
+
+def percentiles(xs) -> str:
+    a = np.asarray(xs, np.float64) * 1e3
+    return f"p50 {np.percentile(a, 50):.1f} ms, p90 {np.percentile(a, 90):.1f} ms"
+
+
+def dequantised_f32(tree: dict) -> dict:
+    """The tree with every int8 leaf dequantised (codes × scale) to an f32
+    weight and every other float leaf in f32: the plain route's reference."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node.float() if node.is_floating_point() else node
+        if "weight_i8" in node:
+            out = {"weight": node["weight_i8"].float() * node["scale_i8"].float()}
+            if "bias" in node:
+                out["bias"] = node["bias"].float()
+            return out
+        return {k: walk(v) for k, v in node.items()}
+    return walk(tree)
+
+
+def f32_request_logits(params32: dict, cfg, prompt: list, tokens: list, dev) -> torch.Tensor:
+    """A fresh single-stream prefill of prompt + tokens[:-1] (left-padded to
+    SERVE_BUCKET, the pad key-masked, RoPE from the first real token) on an
+    f32 tree: (len(tokens), V), row j the logits after prompt + tokens[:j]."""
+    from tpu_audio_torch.nn import transformer
+
+    n = len(prompt)
+    pad = -(-n // SERVE_BUCKET) * SERVE_BUCKET
+    seq = [0] * (pad - n) + list(prompt) + list(tokens[:-1])
+    with torch.inference_mode():
+        cache, extra = transformer.decode_cache_and_mask(cfg, len(seq), pad - n, False,
+                                                         dtype=torch.float32, device=dev)
+        lg, _ = transformer.forward(params32, cfg, torch.tensor([seq], device=dev), cache,
+                                    extra, pos_offset=torch.tensor([pad - n], device=dev))
+    return lg[0, pad - 1:].float()
+
+
+def serve_faults() -> dict:
+    """The batcher's planted faults, by name: each plants itself in a
+    ContinuousBatcher (instance attributes; nothing in the package
+    changes)."""
+    def stale_mask(b):
+        """Span masks from each row's first request's row_start."""
+        first = {}
+        mask = b._mask
+
+        def masked(row_start):
+            if row_start is b.row_start:
+                for row, r in enumerate(b.row_req):
+                    if r is not None:
+                        first.setdefault(row, int(b.row_start[row]))
+                stale = b.row_start.clone()
+                for row, s in first.items():
+                    stale[row] = s
+                return mask(stale)
+            return mask(row_start)
+        b._mask = masked
+
+    def no_offset(b):
+        """RoPE at absolute slots in the spans."""
+        make = b.gen._step
+        b.gen = copy.copy(b.gen)
+        b.gen._step = lambda extra, off: make(extra, None)
+
+    def late_window(b):
+        def copy_late(row, lo, hi):
+            b.cache.k[:, row, lo + 1:hi + 1] = b._scratch.k[:, 0, lo:hi]
+            b.cache.v[:, row, lo + 1:hi + 1] = b._scratch.v[:, 0, lo:hi]
+        b._copy_window = copy_late
+
+    def pad_unmasked(b):
+        mask = b._mask
+        b._mask = lambda rs: mask(b._scratch.pos.reshape(1)) if rs.shape[0] == 1 else mask(rs)
+
+    return {"a refilled row's mask left at its previous request's row_start": stale_mask,
+            "pos_offset dropped: RoPE at absolute slots": no_offset,
+            "the admitted KV window copied one slot late": late_window,
+            "the left pad unmasked at admission": pad_unmasked}
+
+
+def serve_control(groups, cfg, dev, rng) -> None:
+    """(c): two requests admitted into recycled rows at different P (C into
+    A's row after its 4 spans, P 128; D at P 160, into the row C left, as
+    B's 6 spans end), their logits captured in the batcher's
+    span steps and admissions, held against a fresh single-stream prefill
+    of prompt + tokens on the f32 dequantised tree. Each of `groups` is
+    (label, tree, kernels, faults): the batcher on the kernels' plain
+    versions is the tree's yardstick; with `kernels`, the kernel route must
+    be within SLICE_RATIO of it; each fault of `faults` (names of
+    `serve_faults`) must read CV_FAULT_RATIO times its distance."""
+    from tpu_audio_torch.api.serving import ContinuousBatcher, Request
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    sampler = SamplerConfig(**SERVE_PENALTY)
+    prompts = [rng.integers(0, 128000, n).tolist() for n in (24, 50, 30, 45)]
+    plan = list(zip(prompts, (4 * SERVE_SPAN + 1, 6 * SERVE_SPAN + 1, 2 * SERVE_SPAN + 1,
+                              2 * SERVE_SPAN + 1)))
+    outputs = tuple(f"request {c} logits ({m}, {cfg.vocab_size})"
+                    for c, (_, m) in zip("CD", plan[2:]))
+    for label, tree, kernels, names in groups:
+        gen = om.CausalLMGenerator(tree, cfg, max_cache=SERVE_RING, pad_id=om.PAD_TOKEN)
+        params32 = dequantised_f32(tree)
+        tag = f"serve batcher, {label}"
+
+        def serve(plant=None):
+            b = ContinuousBatcher(gen, batch=2, span=SERVE_SPAN, sampler=sampler,
+                                  eos_ids=(om.END_TOKEN,), prompt_bucket=SERVE_BUCKET)
+            if plant is not None:
+                plant(b)
+            reqs = [Request(list(p), max_new=m) for p, m in plan]
+            admit = b._admit
+
+            def placed(row, req):
+                b.placed.append((row, b.pos))
+                return admit(row, req)
+
+            b.placed, b._admit = [], placed
+            with batcher_logits(b) as store:
+                for r in reqs:
+                    b.submit(r)
+                b.run_until_idle()
+            got = [request_logits(store, r) for r in reqs[2:]]
+            exact = [f32_request_logits(params32, cfg, r.prompt_ids, r.tokens, dev)
+                     for r in reqs[2:]]
+            return got, exact, b
+
+        with plain_kernels(i8mm):
+            plain, exact_p, b = serve()
+        p_err, p_cos = zip(*[measure(g, r)[1:] for g, r in zip(plain, exact_p)])
+        log(f"{tag}: (row, P) of the admissions of A, B, C, D: {b.placed}; the plain route "
+            "against f32: " + ", ".join(f"{n.split(' (')[0]} rel {e:.3e} cosine {c:.6f}"
+                                        for n, e, c in zip(outputs, p_err, p_cos)))
+        if kernels:
+            got, exact, _ = serve()
+            held_against_f32(tag, outputs, exact, p_err, "kernels", got, control=False,
+                             p_cos=p_cos)
+        faults = serve_faults()
+        for name in names:
+            got, exact, _ = serve(faults[name])
+            held_against_f32(tag, outputs, exact, p_err, name, got, control=True, p_cos=p_cos)
+        del params32
+
+
+def serve_run(tag: str, gen, reqs_spec, mods, rule: dict, absent, held, held_rel, card: str,
+              prof) -> tuple:
+    """(a)/(b): SERVE_BATCH rows, SERVE_BATCH requests up front and one more
+    after each span; the launches counted against `rule` (launches a span
+    step by wrapper; the admissions' 64-row prefills take none of them);
+    `held`'s calls of the third span held against their plain versions.
+    Returns (requests, launches, the batcher's capture)."""
+    from tpu_audio_torch.api import serving
+    from tpu_audio_torch.api.serving import ContinuousBatcher, Request
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+
+    b = ContinuousBatcher(gen, batch=SERVE_BATCH, span=SERVE_SPAN,
+                          sampler=SamplerConfig(**SERVE_PENALTY), eos_ids=(om.END_TOKEN,),
+                          prompt_bucket=SERVE_BUCKET)
+    reqs = [Request(list(p), max_new=m) for p, m in reqs_spec]
+    admit = b._admit
+
+    def timed_admit(row, req):
+        with prof.time(f"{tag} admission"):
+            return admit(row, req)
+
+    b._admit = timed_admit
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with batcher_logits(b) as store:
+        loop = serving.decode_loop  # the capturing one
+
+        def timed_loop(*a, **k):
+            with prof.time(f"{tag} span"):
+                return loop(*a, **k)
+
+        with patched(serving, "decode_loop", timed_loop):
+            for r in reqs[:SERVE_BATCH]:
+                b.submit(r)
+            pending = list(reqs[SERVE_BATCH:])
+            while True:
+                with (held_calls(f"{tag} span 3", *held, held_rel) if len(store["spans"]) == 2
+                      else contextlib.nullcontext()):
+                    more = b.step()
+                if pending:
+                    b.submit(pending.pop(0))
+                elif not more:
+                    break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = len(store["spans"])
+    occupancy = [sum(r is not None for r in owners) for owners, _ in store["spans"]]
+    launches = launch_counts(*mods)
+    steps = sum(len(s) for _, s in store["spans"])
+    n_tok = sum(len(r.tokens) for r in reqs)
+    if not all(r.done and 1 <= len(r.tokens) <= r.max_new for r in reqs) or len(b.completed) \
+            != len(reqs) or not all(0 <= t < gen.cfg.vocab_size for r in reqs for t in r.tokens):
+        raise AssertionError(f"{tag}: a request unserved, overlong or out of the vocabulary")
+    log(f"{tag}: {len(reqs)} requests, {n_tok} tokens in {spans} spans of {SERVE_SPAN} "
+        f"({steps} steps), mean occupancy {np.mean(occupancy):.3f} of {SERVE_BATCH} rows, "
+        f"{n_tok / wall:.1f} tokens/s over {wall:.3f} s ({card})")
+    log(f"{tag}: first token {percentiles([r.first_token_at - r.arrival for r in reqs])}; "
+        f"whole request {percentiles([r.done_at - r.arrival for r in reqs])} ({card})")
+    times = prof.summary()
+    log(f"{tag}: {1e3 * times[f'{tag} span']['mean_s']:.2f} ms a span, "
+        f"{1e3 * times[f'{tag} span']['mean_s'] / SERVE_SPAN:.2f} ms a step, "
+        f"{1e3 * times[f'{tag} admission']['mean_s']:.2f} ms an admission (CUDA events) "
+        f"({card})")
+    log(f"{tag} launches: {launches}; a span step: " + ", ".join(
+        f"{n} {launches[n] / steps:g}" for n in rule))
+    if any(launches[n] != k * steps for n, k in rule.items()) or any(launches[n] for n in absent):
+        raise AssertionError(f"{tag}: launches {launches} in {steps} steps, not {rule} a step, "
+                             f"or one of {absent}")
+    return reqs, launches, store
+
+
+def serve_slice(dev, card: str) -> dict:
+    """Phase 19: serving and playback on the card. Orpheus's LM at
+    Llama-3.2-3B width on random weights (`orpheus_trees(sg=False)`): (a)
+    `ContinuousBatcher` over a `CausalLMGenerator(max_cache=SERVE_RING)` on
+    the w8a8 tree at batch 8, spans of 16, prompt bucket 64, greedy under a
+    repetition penalty, SERVE_REQUESTS requests (8 up front, one more after
+    each span): spans, occupancy, tokens/s, ms a span and an admission (CUDA
+    events, `utils/profiling.Profiler`), first-token and whole-request
+    latency, the launch rule counted (the head's `int8_matmul` once a step,
+    4 × 28 layer linears a step through the same entry on views of the
+    stacked leaves, `int8_matmul_stacked` never), the int8 calls of one span
+    bit for bit against their plain versions; (b) the same on the W4A8 tree with
+    SERVE_W4A8_REQUESTS (the W4A8 calls of one span within rel 1e-5); (c)
+    the batcher's logits of two requests admitted into recycled rows at
+    different P against f32 with four planted faults; (d) each request of
+    (a) against the single-stream `generate` of its prompt; (e) C26 and C27:
+    a request whose budget does not fit the ring waits, the idle position
+    rewinds, its tokens equal a roomy ring's; (f) `say` on the w8a8 engine
+    into a PlayerSink on the null output and a FileSink; (g) memory
+    snapshots and the phase's profiler summary. Returns the launches of
+    (a), (b) and (f)."""
+    from tpu_audio_torch.api.player import AudioSamplePlayer
+    from tpu_audio_torch.api.playback import FileSink, PlaybackController, PlayerSink
+    from tpu_audio_torch.api.serving import ContinuousBatcher, Request
+    from tpu_audio_torch.api.tts import TTS, StreamingGranularity
+    from tpu_audio_torch.codecs.snac import model as snac
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.ops.kernels import fused_step as fs
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+    from tpu_audio_torch.utils import memory
+    from tpu_audio_torch.utils.audio_io import read_wav
+    from tpu_audio_torch.utils.profiling import Profiler
+
+    mods = (i8mm, w4mm, fs)
+    total = {n: 0 for m in mods for n in m.LAUNCHES}
+    log(f"serve memory before: {memory.snapshot(dev)}")
+    prof = Profiler(device=dev)
+    cfg = om.LLAMA_3B
+    t0 = time.perf_counter()
+    trees = orpheus_trees(dev, sg=False)
+    torch.cuda.synchronize()
+    log(f"serve: Orpheus's Llama-3.2-3B random weights (seed {SEED}), its W4A8 and w8a8 trees "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 19)
+    sampler = SamplerConfig(**SERVE_PENALTY)
+
+    # (a) the w8a8 tree, the engine's default
+    gen = om.CausalLMGenerator(trees["w8a8"], cfg, max_cache=SERVE_RING, pad_id=om.PAD_TOKEN)
+    spec = serve_requests(rng, SERVE_REQUESTS)
+    i8 = ("int8_matmul", "int8_matmul_stacked")
+    w4 = ("w4a8_matmul", "w4a8_matmul_stacked")
+    lyr = cfg.n_layers
+    # the int8 layers are served by views of the stacked leaves through
+    # int8_matmul (qkv, o, gateup, down a layer), the head by the same entry
+    reqs, launches, store = serve_run(
+        "serve w8a8", gen, spec, mods, {"int8_matmul": 4 * lyr + 1, "int8_matmul_stacked": 0},
+        ("fused_decode_step",) + w4, (i8mm, i8), 0.0, card, prof)
+    for n, c in launches.items():
+        total[n] += c
+
+    # (d) each request against the single-stream generate of its prompt
+    equal = 0
+    for i, r in enumerate(reqs):
+        ref, ref_lg = single_logits(gen, r.prompt_ids, sampler, r.max_new)
+        equal += r.tokens == ref
+        log(f"serve w8a8 request {i} ({len(r.prompt_ids)} prompt tokens, max_new {r.max_new}) "
+            f"against generate: " + first_difference(f"serve request {i}", r.tokens, ref,
+                                                     request_logits(store, r), ref_lg, sampler))
+    log(f"serve w8a8: {equal} of {len(reqs)} requests equal to their single-stream generate")
+    del store
+
+    # (b) the W4A8 tree
+    gen4 = om.CausalLMGenerator(trees["w4a8"], cfg, max_cache=SERVE_RING, pad_id=om.PAD_TOKEN)
+    _, launches, _ = serve_run(
+        "serve w4a8", gen4, serve_requests(rng, SERVE_W4A8_REQUESTS), mods,
+        {"w4a8_matmul": 1, "w4a8_matmul_stacked": 4 * lyr}, ("fused_decode_step",) + i8,
+        (w4mm, w4), 1e-5, card, prof)
+    for n, c in launches.items():
+        total[n] += c
+    del gen4
+
+    # (c) end to end against f32, with the batcher's faults
+    # each fault on the tree where its term shows (all four held on both
+    # trees): a position fault needs peaked attention (q, k x 3; on w8a8
+    # RoPE read 3.160x and the late window 3.629x), while the masks read
+    # 50.4x and 74.4x on w8a8 against 13.8x and 16.8x on q, k x 3
+    stale, rope, late, pad = serve_faults()
+    serve_control(((f"q, k x {QK_SCALE:g}", sharpened(trees["w8a8"], cfg, QK_SCALE), True,
+                    (rope, late)), ("w8a8", trees["w8a8"], False, (stale, pad))), cfg, dev, rng)
+    torch.cuda.empty_cache()
+
+    # (e) C26 and C27 at 3B: R2's budget does not fit behind R1 in a ring of
+    # SERVE_SMALL_RING; it waits, the idle position rewinds, and its tokens
+    # equal those of a fresh batcher on the same ring (R1's slots left in the
+    # rewound ring are masked: bit for bit) and, to a near tie, a roomy
+    # ring's (another attention length, other roundings)
+    small = om.CausalLMGenerator(trees["w8a8"], cfg, max_cache=SERVE_SMALL_RING,
+                                 pad_id=om.PAD_TOKEN)
+    p1, p2 = (rng.integers(0, 128000, n).tolist() for n in (40, 33))
+    b = ContinuousBatcher(small, batch=2, span=SERVE_SPAN, sampler=sampler,
+                          eos_ids=(om.END_TOKEN,), prompt_bucket=SERVE_BUCKET)
+    r1, r2 = Request(p1, max_new=2 * SERVE_SPAN + 1), Request(p2, max_new=3 * SERVE_SPAN + 1)
+    positions, waited = [], 0
+    with batcher_logits(b) as store:
+        b.submit(r1)
+        b.step()
+        b.submit(r2)
+        while b.step():
+            positions.append(b.pos)
+            waited += any(q is r2 for q in b.queue)
+            if b.pos > SERVE_SMALL_RING:
+                raise AssertionError(f"serve C26: position {b.pos} past the ring")
+    rewound = any(q < p for p, q in zip(positions, positions[1:]))
+    if not (waited and rewound and r2.done and len(r2.tokens) == r2.max_new):
+        raise AssertionError(f"serve C26/C27: waited {waited} spans, positions {positions}, "
+                             f"r2 {len(r2.tokens)} of {r2.max_new}")
+    fresh = ContinuousBatcher(small, batch=2, span=SERVE_SPAN, sampler=sampler,
+                              eos_ids=(om.END_TOKEN,), prompt_bucket=SERVE_BUCKET)
+    r2f = Request(list(p2), max_new=r2.max_new)
+    fresh.submit(r2f)
+    fresh.run_until_idle()
+    if r2f.tokens != r2.tokens:
+        raise AssertionError(f"serve C27: the rewound R2's {len(r2.tokens)} tokens against a "
+                             f"fresh batcher's {len(r2f.tokens)}: not equal")
+    roomy = ContinuousBatcher(gen, batch=2, span=SERVE_SPAN, sampler=sampler,
+                              eos_ids=(om.END_TOKEN,), prompt_bucket=SERVE_BUCKET)
+    r2b = Request(list(p2), max_new=r2.max_new)
+    with batcher_logits(roomy) as roomy_store:
+        roomy.submit(r2b)
+        roomy.run_until_idle()
+    log(f"serve C26/C27 at 3B, ring {SERVE_SMALL_RING}: R2 ({r2.max_new} tokens, "
+        f"{b._need(r2)} slots of budget) waited {waited} spans behind R1, the idle position "
+        f"rewound ({positions}), the ring never passed; R2 equal to a fresh batcher's on the "
+        f"same ring, {len(r2.tokens)} tokens; against a ring of {SERVE_RING}: "
+        + first_difference("serve C26", r2.tokens, r2b.tokens, request_logits(store, r2),
+                           request_logits(roomy_store, r2b), sampler))
+    del store, roomy_store, small, b, roomy, fresh
+
+    # (f) say on the w8a8 engine
+    snac_params = snac.init_params(SEED, snac.SNACConfig(), torch.float32, dev)
+    eng = TTS.orpheus().from_params(trees["w8a8"], cfg, snac_params)
+    player = AudioSamplePlayer(eng.sample_rate, backend="null")
+    tmp = tempfile.TemporaryDirectory()
+    wav = Path(tmp.name) / "say.wav"
+
+    class Tee:
+        def __init__(self, *sinks):
+            self.sinks = sinks
+
+        def write(self, chunk):
+            for s in self.sinks:
+                s.write(chunk)
+
+        def close(self):
+            for s in self.sinks:
+                s.close()
+
+    steps = step_counter(eng.lm)
+    controller = PlaybackController(eng)
+    reset(*mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = controller.play_stream(SAY_TEXT, sink=Tee(PlayerSink(eng.sample_rate, player=player),
+                                                    FileSink(str(wav), eng.sample_rate)),
+                                 granularity=StreamingGranularity.TOKEN,
+                                 max_new_tokens=SAY_NEW)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(*mods)
+    drained = player.await_drain(timeout=10.0)
+    back, sr = read_wav(str(wav))
+    tmp.cleanup()
+    audio = res.audio.samples
+    want = (np.clip(audio, -1.0, 1.0) * 32767).astype(np.int16) / np.float32(32768)
+    log(f"serve say: {res.chunks} chunks, {len(audio)} samples ({res.audio.duration:.3f} s), "
+        f"first audio after {controller.time_to_first_audio:.3f} s, {wall:.3f} s wall = "
+        f"{res.audio.duration / wall:.3f}x real time; the player took {player.samples_played} "
+        f"samples; launches {launches}, {steps['n']} decode steps ({card})")
+    if not (drained and player.samples_played == len(audio) > 0 and np.isfinite(audio).all()
+            and sr == eng.sample_rate and back.shape == want.shape
+            and np.array_equal(back, want)):
+        raise AssertionError(f"serve say: drained {drained}, played {player.samples_played} of "
+                             f"{len(audio)}, the WAV {back.shape} at {sr} Hz not the audio to "
+                             "int16 rounding")
+    if launches["fused_decode_step"] != steps["n"] or not steps["n"]:
+        raise AssertionError(f"serve say: {launches['fused_decode_step']} whole-stack steps for "
+                             f"{steps['n']} decode steps")
+    player.close()
+    for n, c in launches.items():
+        total[n] += c
+    del eng, trees, gen
+    torch.cuda.empty_cache()
+
+    # (g)
+    log(f"serve profiler: {json.dumps(prof.summary())} ({card})")
+    log(f"serve memory after: {memory.snapshot(dev)}")
+    return total
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -7379,6 +7948,9 @@ def main() -> None:
         return
     if "--kokoro-only" in sys.argv[1:]:  # phases 1, 2 and 18
         print_result([], tts_slices(dev, card, ((18, kokoro_slice),)))
+        return
+    if "--serve-only" in sys.argv[1:]:  # phases 1, 2 and 19
+        print_result([], tts_slices(dev, card, ((19, serve_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -7550,10 +8122,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3,
-    # 17. Chatterbox, 18. Kokoro: their launches, too, go on lines of their own
+    # 17. Chatterbox, 18. Kokoro, 19. serving and playback: their launches, too, go on
+    # lines of their own
     tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
                            (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice),
-                           (18, kokoro_slice)))
+                           (18, kokoro_slice), (19, serve_slice)))
     print_result(rows, launches)
 
 

@@ -30,5 +30,39 @@ checkpoint from a local directory or a pre-seeded Hugging Face cache
 (`utils/hub.py`): the safetensors reader and key remaps (`utils/weights.py`,
 `models/*/load.py`, `nn/load_llama.py`), the Whisper and `tokenizer.json`
 BPEs in plain Python (`utils/tokenizer.py`), and WAV files in and out
-(`utils/audio_io.py`, `ops/resample.py`).
+(`utils/audio_io.py`, `ops/resample.py`). CosyVoice2 and CosyVoice3,
+Chatterbox and Chatterbox Turbo, and Kokoro run through the same API.
+The serving and playback layer: `api/serving.ContinuousBatcher` (rolling
+admission into a static batch decoding in spans), `api/player.py` and
+`api/playback.py` (the sinks behind `say`), `api/providers.py`,
+`api/voice.py`, `native.py` (NumPy versions and an SPSC ring), and the
+utilities `utils/logging.py`, `utils/profiling.py` (stages timed by CUDA
+events), `utils/memory.py`, `utils/trimmer.py` and `utils/recorder.py`.
+
+The public names below load lazily, on first use:
+
+    from tpu_audio_torch import TTS, PlaybackController
+    engine = TTS.orpheus()
 """
+
+_LAZY = {
+    "STT": "tpu_audio_torch.api.stt",
+    "TTS": "tpu_audio_torch.api.tts",
+    "AudioResult": "tpu_audio_torch.api.results",
+    "TranscriptionResult": "tpu_audio_torch.api.results",
+    "StreamingGranularity": "tpu_audio_torch.api.tts",
+    "AudioSamplePlayer": "tpu_audio_torch.api.player",
+    "AudioFilePlayer": "tpu_audio_torch.api.player",
+    "PlaybackController": "tpu_audio_torch.api.playback",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'tpu_audio_torch' has no attribute {name!r}")
+
+
+__all__ = list(_LAZY)

@@ -14,13 +14,12 @@ with DAC), Marvis (`models/marvis/`, with Mimi), CosyVoice2
 the T3 Llama with CFG and the voice encoder) and Chatterbox Turbo
 (`models/chatterbox_turbo/`, the GPT-2 T3 and the meanflow flow) and
 Kokoro (`models/kokoro/`, ALBERT, the predictors and the iSTFT-NSF
-generator). Playback (`say`) is A18.
+generator). `say` streams into a playback sink (`api/playback.py`).
 """
 
 from __future__ import annotations
 
 import functools
-import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -30,8 +29,7 @@ from typing import Iterator
 import numpy as np
 
 from tpu_audio_torch.api.results import AudioResult
-
-_log = logging.getLogger("tpu_audio_torch.tts")
+from tpu_audio_torch.utils.logging import log_rtf
 
 
 class StreamingGranularity(str, Enum):
@@ -151,12 +149,16 @@ class TTSEngineBase:
         samples = np.concatenate(parts) if parts else np.zeros(0, np.float32)
         result = AudioResult(samples=samples, sample_rate=self.sample_rate,
                              processing_time=self.generation_time)
-        _log.info("%s.generate: %.3f s for %.3f s of audio", type(self).__name__,
-                  self.generation_time, result.duration)
+        log_rtf(f"{type(self).__name__}.generate", self.generation_time, result.duration)
         return result
 
     def say(self, text: str, sink=None, **kw) -> TTSGenerationResult:
-        raise NotImplementedError("playback is not ported yet (ROADMAP A18)")
+        """Generate and stream into a playback sink (`api/playback.py`;
+        None: `default_sink`, the sound device or, without one, the null
+        output)."""
+        from tpu_audio_torch.api.playback import PlaybackController
+
+        return PlaybackController(self).play_stream(text, sink=sink, **kw)
 
     def save(self, text: str, path: str, **kw) -> str:
         return self.generate(text, **kw).save(path)
