@@ -205,7 +205,7 @@ Phases (any failure raises and the script exits non-zero):
      pass from the padded tail, instance-norm statistics over the padding,
      the alignment one frame late, ups' weight norm per output channel).
      No kernel is on Kokoro's path: `encoder_attention` must not launch.
- 19. (run last) Serving and playback: Orpheus's LM at Llama-3.2-3B width
+ 19. Serving and playback: Orpheus's LM at Llama-3.2-3B width
      on random weights under `api/serving.ContinuousBatcher` (batch 8,
      spans of 16, prompt bucket 64, a ring of 2048 slots, greedy under a
      repetition penalty): 24 requests on the w8a8 tree (8 up front, one
@@ -223,9 +223,22 @@ Phases (any failure raises and the script exits non-zero):
      into a PlayerSink on the null output and a FileSink (first audio,
      × real time, the samples played, the WAV read back, one whole-stack
      step a decode step); memory snapshots and the profiler's summary.
-     Phases 12 to 19 print their walls and their launches on lines of
+ 20. (run last) Whisper fine-tuning through `training.train`, on the
+     training route (the JAX XLA formulation in autograd ops: no kernel has
+     a backward, and the wrappers refuse a tensor that requires a
+     gradient): 5 AdamW steps at large-v3-turbo width on random f32
+     weights at batch 2 with unequal masks (ms a step by CUDA events, peak
+     memory, a falling loss, every leaf's gradient finite and non-zero at
+     the first step, no kernel launched); the route in f32 against f64 at
+     full width and 2 + 2 layers with four planted faults; `evaluate` of
+     the trained tree through the fused bf16 encoder (rows 2-3, one launch
+     a layer each) against the route's f32 features and loss, with a stale
+     `Whisper` (built before the steps) as the control; `make_mesh()` as a
+     world of one on NCCL and `train(mesh=...)`'s losses against the
+     first steps'; the grad guard.
+     Phases 12 to 20 print their walls and their launches on lines of
      their own. Every end-to-end control must read at least 5× the plain
-     route's distance from f32; each prints its ratio.
+     route's distance from f32 (phase 20: from f64); each prints its ratio.
 
 Phase 3 also holds `ln_qkv` at batch 16 and B=1 on offset rows with
 seven planted faults (a partial last row tile among them), `attn_oproj_ln`
@@ -288,7 +301,9 @@ check of the CosyVoice2 engine, S3Gen and the S3 tokenizer.
 decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3);
 `--chatterbox-only` phases 1, 2 and 17 (Chatterbox and Chatterbox Turbo);
 `--kokoro-only` phases 1, 2 and 18 (Kokoro); `--serve-only` phases 1, 2
-and 19 (serving and playback).
+and 19 (serving and playback); `--train-only` phases 1, 2 and 20 (Whisper
+fine-tuning at large-v3-turbo width: `training.train`'s steps, the route
+against f64, `evaluate` through the fused encoder, a world-of-one mesh).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -436,6 +451,14 @@ SERVE_SMALL_RING = 128       # (e)'s ring: R2's budget (49 slots) does not fit b
 SERVE_NEAR_TIE = 0.05        # a first difference: the routes' logits apart by ≤ this of max|logit|
 SAY_TEXT = "Hello from the card!"  # (f)'s sentence
 SAY_NEW = 280                # (f)'s tokens: random weights emit a code ~1 token in 5.5
+TRAIN_STEPS = 5              # phase 20 (a)'s AdamW steps at full width
+TRAIN_LR = 1e-3              # 5 steps move a leaf ~5e-3, past bf16's step at its ~3e-2: (c)'s control
+TRAIN_TOKENS = (16, 32)      # the batch's two token streams: unequal masks (15 and 31 tokens)
+TRAIN_DEPTH64 = 2            # (b): encoder and decoder layers of the f64 comparison
+TRAIN_MESH_STEPS = 2         # (d)'s steps on the world-of-one mesh
+TRAIN_MESH_REL = 1e-5        # (d): its losses against (a)'s, where DTensor's decompositions round
+TRAIN_LOSS_REL = 1e-2        # (c): evaluate's bf16 loss against the training route's f32 loss
+TRAIN_MEM_GB = 45.0          # (a)'s expected peak: 13 GB of leaves, gradients, moments; ~1 GB a layer
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -7801,6 +7824,346 @@ def serve_slice(dev, card: str) -> dict:
     return total
 
 
+def train_batcher(cfg):
+    """Phase 20's data: two examples of synthetic mel with token streams of
+    TRAIN_TOKENS ids, so every batch is the same two rows (their order
+    drawn) with unequal masks."""
+    from tpu_audio_torch.training import Batcher, Example
+
+    rng = np.random.default_rng(SEED)
+    ex = [Example(mel=(rng.standard_normal((2 * cfg.n_audio_ctx, cfg.n_mels)) * 0.5
+                       ).astype(np.float32),
+                  tokens=rng.integers(0, 50257, n).astype(np.int32)) for n in TRAIN_TOKENS]
+    return Batcher(ex, batch_size=2, max_tokens=max(TRAIN_TOKENS) - 1, seed=SEED)
+
+
+class GradReport(torch.optim.AdamW):
+    """The default AdamW (`training.whisper.adamw`'s betas, eps and decay
+    0.01) that reads every leaf's gradient at its first step (`report`:
+    (group, leaf, finite and not all zero), a stacked leaf per layer, one
+    host read) and records a CUDA event after each step (`marks`)."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+        self.report, self.marks = None, []
+
+    def step(self, closure=None):
+        if self.report is None:
+            group = self.param_groups[0]
+            self.report = grad_report(zip(group["param_names"], group["params"]))
+        out = super().step(closure)
+        self.marks.append(torch.cuda.Event(enable_timing=True))
+        self.marks[-1].record()
+        return out
+
+
+def grad_report(named) -> list:
+    """(group, leaf, its gradient finite and not all zero) for every leaf:
+    the stem, each encoder and decoder block (a stacked leaf's slice i),
+    ln_post, the decoder's ln, the embeddings."""
+    keys, flags = [], []
+    for name, p in named:
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if ".blocks." in name:
+            side = name.split(".")[0]
+            g2 = g.flatten(1)
+            flags.append(torch.isfinite(g2).all(1) & (g2 != 0).any(1))
+            keys += [(f"{side} block {i}", f"{name}[{i}]") for i in range(g.shape[0])]
+        else:
+            group = ("stem" if ".conv" in name else "embedding" if "embedding" in name
+                     else name.rsplit(".", 1)[0])
+            flags.append((torch.isfinite(g).all() & (g != 0).any())[None])
+            keys.append((group, name))
+    return [(grp, leaf, ok) for (grp, leaf), ok in zip(keys, torch.cat(flags).tolist())]
+
+
+def tree_rel(got: dict, ref: dict) -> dict:
+    """Each leaf's ‖got − ref‖ / ‖ref‖, in f64."""
+    return {k: ((got[k].double() - ref[k].double()).norm() / ref[k].double().norm()).item()
+            for k in ref}
+
+
+def train_slice(dev, card: str) -> dict:
+    """Phase 20: Whisper fine-tuning on the card through `training.train`
+    (the training route: the JAX XLA formulation in autograd ops, since no
+    kernel has a backward). (a) large-v3-turbo at full width, random f32
+    leaves (`init_params`), a fixed batch of 2 with unequal masks,
+    TRAIN_STEPS AdamW steps at TRAIN_LR: ms a step (CUDA events), peak
+    memory, the loss falls, every leaf's gradient finite and non-zero at the
+    first step, no kernel launched; (b) the route at full width and
+    TRAIN_DEPTH64 + TRAIN_DEPTH64 layers in f32 and f64 on the card, TF32
+    off: the loss's and each leaf's gradient's distance, with four planted
+    faults ≥ CV_FAULT_RATIO × the route's own distance (a block's output
+    detached, as a kernel on the route would do; the loss as a mean of
+    half-batch means; hd^-0.25 on q only; AdamW at optax's default decay
+    1e-4, after the step against the 0.01 update, both from the f32
+    gradients, against the same step in f64); (c) `evaluate` of (a)'s
+    trained tree: the fused bf16 encoder (rows 2–3, one launch a layer
+    each), its features and loss against the training route's f32 ones,
+    and a `Whisper` built before the steps whose leaves were then updated
+    in place (stale packed QKV) as a control; (d) `make_mesh()` as a world
+    of one on NCCL and `train(mesh=...)`'s TRAIN_MESH_STEPS losses against
+    (a)'s, then the grad guard of the kernel wrappers. Returns (c)'s
+    launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from tpu_audio_torch.models.whisper import model as wmodel
+    from tpu_audio_torch.models.whisper.config import PRESETS
+    from tpu_audio_torch.ops.kernels import cross_kv_attention as ckv
+    from tpu_audio_torch.ops.kernels import encoder_attention as ea
+    from tpu_audio_torch.ops.kernels import fused_encoder as fe
+    from tpu_audio_torch.ops.kernels import fused_encoder_int8 as fe8
+    from tpu_audio_torch.ops.kernels import fused_mel, fused_step, fused_whisper_step
+    from tpu_audio_torch.ops.kernels import int8_matmul, quant_matmul, w4a8_matmul
+    from tpu_audio_torch.parallel import make_mesh
+    from tpu_audio_torch.training import evaluate, train
+    from tpu_audio_torch.training.data import evaluate_model, put
+    from tpu_audio_torch.training.whisper import adamw, loss_fn
+    from tpu_audio_torch.utils import pytree
+
+    mods = (fused_mel, fe, fe8, ea, ckv, fused_whisper_step, int8_matmul, quant_matmul,
+            w4a8_matmul, fused_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"train TF32: torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    cfg = PRESETS["large-v3-turbo"]
+    t0 = time.perf_counter()
+    params0 = wmodel.init_params(SEED, cfg, torch.float32, dev)
+    n_params = sum(v.numel() for v in pytree.flatten(params0).values())
+    # (c)'s control: built before the steps, its leaves updated in place after them
+    stale = wmodel.Whisper(cfg, pytree.unflatten({k: v.to(torch.bfloat16) for k, v in
+                                                  pytree.flatten(params0).items()}))
+    batcher = train_batcher(cfg)
+    batch = put(next(batcher.batches()), dev)
+    torch.cuda.synchronize()
+    log(f"train models: large-v3-turbo random f32 weights (seed {SEED}), {n_params:,} "
+        f"parameters, and a bf16 Whisper of them in {time.perf_counter() - t0:.1f} s")
+
+    # (a) full width, TRAIN_STEPS steps
+    opts = []
+
+    def report_adamw(ps):
+        opts.append(GradReport(ps, lr=TRAIN_LR))
+        return opts[-1]
+
+    reset(*mods)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    trained, losses = train(params0, cfg, batcher, TRAIN_STEPS, optimizer=report_adamw,
+                            log_every=0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {n: c for n, c in launch_counts(*mods).items() if c}
+    marks = [start] + opts[0].marks
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    log(f"train (a): large-v3-turbo f32 at batch 2 (masks of {batch['mask'].sum(1).tolist()} "
+        f"tokens), {TRAIN_STEPS} AdamW steps at lr {TRAIN_LR}: losses "
+        f"{[round(x, 4) for x in losses]}; ms a step (CUDA events, one step's end to the next) "
+        f"{[round(x, 2) for x in ms]}, steps 2-{TRAIN_STEPS} {np.mean(ms[1:]):.2f} ms; "
+        f"{wall:.2f} s wall; peak memory {peak:.2f} GiB (estimate {TRAIN_MEM_GB} GB); "
+        f"kernels launched {launched or 'none'} ({card})")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]) or launched:
+        raise AssertionError(f"train (a): losses {losses} not finite and falling, or a kernel "
+                             f"launched on the training route: {launched}")
+    groups: dict = {}
+    for grp, leaf, ok in opts[0].report:
+        groups.setdefault(grp, []).append(ok)
+    enc = [g for g in groups if g.startswith("encoder block")]
+    dec = [g for g in groups if g.startswith("decoder block")]
+    rest = [g for g in groups if g not in enc + dec]
+    log("train (a) gradients finite and non-zero at step 1: "
+        + ", ".join(f"{g} {sum(groups[g])}/{len(groups[g])}" for g in rest)
+        + f"; {len(enc)} encoder blocks, each {min(sum(groups[g]) for g in enc)}"
+          f"/{len(groups[enc[0]])}; {len(dec)} decoder blocks, each "
+          f"{min(sum(groups[g]) for g in dec)}/{len(groups[dec[0]])}; "
+          f"{sum(ok for _, _, ok in opts[0].report)} of {len(opts[0].report)} leaf slices")
+    bad = [leaf for _, leaf, ok in opts[0].report if not ok]
+    if bad or len(enc) != cfg.n_audio_layer or len(dec) != cfg.n_text_layer:
+        raise AssertionError(f"train (a): leaves without a finite, non-zero gradient: {bad[:20]}")
+    del opts
+
+    # (c) the kernel route after training (before (b), while the trained tree is here)
+    mel16 = batch["mel"].to(torch.bfloat16)
+    args = (batch["tokens_in"], batch["tokens_out"], batch["mask"])
+    with torch.no_grad():
+        for k, p in stale.tree()["encoder"].named_parameters(prefix="encoder"):
+            p.copy_(pytree.flatten(trained)[k])
+        for k, p in stale.tree()["decoder"].named_parameters(prefix="decoder"):
+            p.copy_(pytree.flatten(trained)[k])
+        exact_f = wmodel.encode_xla(trained, cfg, batch["mel"])
+        exact_l = loss_fn(trained, cfg, batch["mel"], *args).item()
+        bf = pytree.unflatten({k: v.to(torch.bfloat16) for k, v in pytree.flatten(trained).items()})
+        plain_f = wmodel.encode_xla(bf, cfg, mel16)
+        plain_l = loss_fn(bf, cfg, mel16, *args).item()
+        del bf
+    reset(*mods)
+    ev, ev_wall = timed(lambda: evaluate(trained, cfg, batcher.batches(epochs=1), max_batches=1))
+    counts = launch_counts(*mods)
+    log(f"train (c) evaluate: loss {ev['loss']:.6f}, token accuracy {ev['token_acc']:.4f}, "
+        f"{ev['batches']} batch, {ev_wall:.3f} s wall, launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    if (counts["ln_qkv"], counts["attn_oproj_ln"]) != (cfg.n_audio_layer,) * 2 or any(
+            c for n, c in counts.items() if n not in ("ln_qkv", "attn_oproj_ln")):
+        raise AssertionError(f"train (c): evaluate's launches {counts}, not one ln_qkv and one "
+                             "attn_oproj_ln a layer")
+    with torch.no_grad():
+        fresh = wmodel.Whisper(cfg, pytree.unflatten(
+            {k: v.to(torch.bfloat16) for k, v in pytree.flatten(trained).items()}))
+        kern_f = fresh.encode(mel16)
+        del fresh
+        stale_f = stale.encode(mel16)
+    stale_ev = evaluate_model(stale, batcher.batches(epochs=1), max_batches=1)
+    (_, p_err, p_cos), (_, k_err, k_cos), (_, s_err, s_cos) = (
+        measure(f, exact_f) for f in (plain_f, kern_f, stale_f))
+    k_l, s_l = (abs(x - exact_l) / abs(exact_l) for x in (ev["loss"], stale_ev["loss"]))
+    log(f"train (c): the training route f32 loss {exact_l:.6f}; the plain bf16 route: loss "
+        f"{plain_l:.6f} (rel {abs(plain_l - exact_l) / abs(exact_l):.3e}), features rel "
+        f"{p_err:.3e}, 1 - cosine {1 - p_cos:.3e}; evaluate (the kernels): loss rel "
+        f"{k_l:.3e} (bound {TRAIN_LOSS_REL}), features rel {k_err:.3e} = "
+        f"{k_err / p_err:.3f}x and 1 - cosine {1 - k_cos:.3e} = "
+        f"{(1 - k_cos) / (1 - p_cos):.3f}x the plain bf16 route's (bound {SLICE_RATIO}x) "
+        f"({card})")
+    if not (k_l <= TRAIN_LOSS_REL and k_err <= SLICE_RATIO * p_err
+            and 1 - k_cos <= SLICE_RATIO * (1 - p_cos)):
+        raise AssertionError("train (c): evaluate's loss or features outside the bound")
+    control_ratio("train (c)", "a Whisper built before the steps (stale packed QKV)",
+                  [s_err / p_err, (1 - s_cos) / (1 - p_cos), s_l / TRAIN_LOSS_REL],
+                  f"features rel {s_err:.3e}, 1 - cosine {1 - s_cos:.3e}, loss rel {s_l:.3e}",
+                  "the plain bf16 route's features distance (rel, 1 - cosine) / the loss bound")
+    del trained, stale, exact_f, plain_f, kern_f, stale_f
+    torch.cuda.empty_cache()
+
+    # (b) f32 against f64, full width at TRAIN_DEPTH64 + TRAIN_DEPTH64 layers
+    cfg_b = dataclasses.replace(cfg, n_audio_layer=TRAIN_DEPTH64, n_text_layer=TRAIN_DEPTH64)
+    tree_b = wmodel.init_params(SEED, cfg_b, torch.float32, dev)
+
+    def grads(dtype, loss=loss_fn):
+        m = wmodel.ParamTree(pytree.unflatten(
+            {k: v.to(dtype, copy=True) for k, v in pytree.flatten(tree_b).items()}))
+        m.requires_grad_(True)
+        lv = loss(m, cfg_b, batch["mel"].to(dtype), *args)
+        lv.backward()
+        return lv.detach(), {k: torch.zeros_like(p) if p.grad is None else p.grad
+                             for k, p in m.named_parameters()}
+
+    def dists(lv, g):
+        return {"loss": abs(lv.double() - l64).item() / abs(l64).item(), **tree_rel(g, g64)}
+
+    l64, g64 = grads(torch.float64)
+    own = dists(*grads(torch.float32))
+    yard = max(own.values())
+    worst = max(own, key=own.get)
+    log(f"train (b): the route in f32 against f64 at full width, {TRAIN_DEPTH64} + "
+        f"{TRAIN_DEPTH64} layers (TF32 off): loss rel {own['loss']:.3e}, leaves' gradients "
+        f"median {np.median(list(own.values())):.3e}, largest {own[worst]:.3e} ({worst}) "
+        f"({card})")
+
+    def detached_first(block):
+        seen = []
+
+        def run(bp, x, n_heads):
+            out = block(bp, x, n_heads)
+            seen.append(1)
+            return out.detach() if len(seen) == 1 else out
+        return run
+
+    def q_only(p, x, n_heads, mask=None):
+        b, t, d = x.shape
+        q = wmodel._heads(wmodel.linear(p["q"], x), n_heads) * (d // n_heads) ** -0.25
+        k = wmodel._heads(wmodel.linear(p["k"], x), n_heads)
+        v = wmodel._heads(wmodel.linear(p["v"], x), n_heads)
+        return wmodel.linear(p["o"], wmodel.attend_plain(q, k, v, mask).reshape(b, t, d))
+
+    def half_means(m, c, mel, tin, tout, mask):
+        return 0.5 * sum(loss_fn(m, c, mel[s], tin[s], tout[s], mask[s])
+                         for s in (slice(0, 1), slice(1, 2)))
+
+    faults = [("encoder block 0's output detached", lambda: faulty(
+                  wmodel, "encoder_block_xla", detached_first(wmodel.encoder_block_xla),
+                  lambda: grads(torch.float32))()),
+              ("the loss as a mean of two half-batch means",
+               lambda: grads(torch.float32, half_means)),
+              ("hd^-0.25 on q only", faulty(wmodel, "attention_xla", q_only,
+                                            lambda: grads(torch.float32)))]
+    for label, run in faults:
+        d = dists(*run())
+        w = max(d, key=d.get)
+        control_ratio("train (b)", label, [x / yard for x in d.values()],
+                      f"loss rel {d['loss']:.3e}, largest {d[w]:.3e} ({w})",
+                      "the route's own distance from f64")
+    g32 = grads(torch.float32)[1]
+
+    def stepped(dtype, decay):
+        """One AdamW step from tree_b in `dtype` on the f32 route's gradients:
+        each leaf's update, in f64."""
+        m = wmodel.ParamTree(pytree.unflatten(
+            {k: v.to(dtype, copy=True) for k, v in pytree.flatten(tree_b).items()}))
+        named = list(m.named_parameters())
+        for k, p in named:
+            p.grad = g32[k].to(dtype)
+        adamw(named, lr=TRAIN_LR, weight_decay=decay).step()
+        flat = pytree.flatten(tree_b)
+        return {k: p.detach().double() - flat[k].double() for k, p in named}
+
+    ref = stepped(torch.float64, 0.01)
+    own_s = tree_rel(stepped(torch.float32, 0.01), ref)
+    yard_s = max(own_s.values())
+    fault_s = tree_rel(stepped(torch.float32, 1e-4), ref)
+    log(f"train (b): one AdamW step (decay 0.01) in f32 against f64 on the same gradients: "
+        f"updates' largest rel {yard_s:.3e} ({max(own_s, key=own_s.get)})")
+    w = max(fault_s, key=fault_s.get)
+    control_ratio("train (b)", "AdamW at optax's default decay 1e-4",
+                  [fault_s[k] / yard_s for k in fault_s], f"largest {fault_s[w]:.3e} ({w})",
+                  "the f32 step's own distance from f64")
+    del tree_b, g64, g32, ref
+    torch.cuda.empty_cache()
+
+    # (d) a world of one on NCCL, then the grad guard
+    mesh = make_mesh()
+    log(f"train (d): make_mesh() {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{dist.get_backend()}, world {dist.get_world_size()}")
+    try:
+        t0 = time.perf_counter()
+        _, mesh_losses = train(params0, cfg, batcher, TRAIN_MESH_STEPS, mesh=mesh, log_every=0,
+                               optimizer=lambda ps: adamw(ps, lr=TRAIN_LR))
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses))
+    log(f"train (d): train(mesh=...) losses {mesh_losses} against (a)'s "
+        f"{losses[:TRAIN_MESH_STEPS]}: " + ("bit for bit" if mesh_losses ==
+                                            losses[:TRAIN_MESH_STEPS] else f"rel {rel:.3e}")
+        + f" (bound {TRAIN_MESH_REL}), {wall:.1f} s wall")
+    if not rel <= TRAIN_MESH_REL:
+        raise AssertionError("train (d): the mesh's losses are not (a)'s")
+    del params0
+    torch.cuda.empty_cache()
+    randn = randn_on(dev)
+    q, k, v = (randn(1, cfg.n_audio_ctx, cfg.n_audio_head, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    q.requires_grad_(True)
+    try:
+        ea.encoder_attention(q, k, v)
+        raise AssertionError("train (d): encoder_attention took an input that requires grad")
+    except RuntimeError as err:
+        refused = str(err)
+    with torch.no_grad():
+        out = ea.encoder_attention(q, k, v)
+    torch.cuda.synchronize()
+    log(f"train (d) grad guard: under grad mode {refused!r}; under no_grad it ran "
+        f"({tuple(out.shape)}, finite {bool(torch.isfinite(out).all())})")
+    if "no backward" not in refused or not torch.isfinite(out).all():
+        raise AssertionError("train (d): the grad guard")
+    return counts
+
+
 def hopper_report(lib_path: Path) -> None:
     """Phase 2: the build's warnings; each TMA + wgmma kernel's ptxas lines
     (registers, stack, spills) from the build log and, where cuobjdump is
@@ -7951,6 +8314,9 @@ def main() -> None:
         return
     if "--serve-only" in sys.argv[1:]:  # phases 1, 2 and 19
         print_result([], tts_slices(dev, card, ((19, serve_slice),)))
+        return
+    if "--train-only" in sys.argv[1:]:  # phases 1, 2 and 20
+        print_result([], tts_slices(dev, card, ((20, train_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -8122,11 +8488,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3,
-    # 17. Chatterbox, 18. Kokoro, 19. serving and playback: their launches, too, go on
-    # lines of their own
+    # 17. Chatterbox, 18. Kokoro, 19. serving and playback, 20. fine-tuning: their
+    # launches, too, go on lines of their own
     tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
                            (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice),
-                           (18, kokoro_slice), (19, serve_slice)))
+                           (18, kokoro_slice), (19, serve_slice), (20, train_slice)))
     print_result(rows, launches)
 
 

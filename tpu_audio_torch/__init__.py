@@ -38,6 +38,9 @@ admission into a static batch decoding in spans), `api/player.py` and
 `api/voice.py`, `native.py` (NumPy versions and an SPSC ring), and the
 utilities `utils/logging.py`, `utils/profiling.py` (stages timed by CUDA
 events), `utils/memory.py`, `utils/trimmer.py` and `utils/recorder.py`.
+Whisper fine-tuning (`training/`) runs on the training route, the JAX XLA
+formulation in autograd ops (no kernel has a backward), over a (dp, tp)
+mesh of torch.distributed where `parallel/` places it.
 
 The public names below load lazily, on first use:
 

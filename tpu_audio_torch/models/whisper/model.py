@@ -33,10 +33,14 @@ to the int8 matmul kernels (`ops/kernels/int8_matmul.py`), q4/q8 to the
 dequant-matmul kernel (`ops/kernels/quant_matmul.py`) up to 32 rows.
 `forward_cross_qk` is the full-sequence decoder pass of word timestamps
 (`timing.py`).
+
+The training route (`encode_xla`, `forward_cross_qk`) is the JAX XLA
+formulation in autograd ops; it reaches no kernel (below).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -47,7 +51,7 @@ from torch import nn
 
 from tpu_audio_torch.convert import params_from_numpy
 from tpu_audio_torch.models.whisper.config import WhisperConfig
-from tpu_audio_torch.nn.attention import attend, causal_mask, decode_mask
+from tpu_audio_torch.nn.attention import attend, attend_plain, causal_mask, decode_mask
 from tpu_audio_torch.nn.layers import (conv1d, embedding, embedding_as_linear,
                                        gelu, layer_norm, linear,
                                        sinusoidal_positions)
@@ -144,7 +148,8 @@ class ParamTree(nn.Module):
     read it like the JAX param dicts; `layer(i)` slices the stacked leaves
     into a plain dict of views. A stacked int8 weight is not sliced: the
     layer's dict carries the whole "weight_i8_stacked" and "layer_idx" i,
-    which `int8_linear` hands to the stacked kernel."""
+    which `int8_linear` hands to the stacked kernel. `requires_grad_(True)`
+    (nn.Module's) makes every leaf trainable, as `training.train` does."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -243,7 +248,10 @@ class Whisper(nn.Module):
     computed once here: for fp blocks in f32 and stored in the parameters'
     dtype (`fe.pack_qkv_weights`); for int8 blocks as int8 codes with f32
     column scales (`fe8.pack_qkv_weights_int8`). The per-op path reads the
-    tree's own leaves."""
+    tree's own leaves. The packed QKV and the B=1 step's f32 vectors are
+    copies: an update of the leaves in place (an optimizer's) leaves them
+    stale, so a trained tree is served by a `Whisper` built from it
+    (`training.evaluate` builds one)."""
 
     def __init__(self, cfg: WhisperConfig, params: dict):
         super().__init__()
@@ -286,8 +294,7 @@ class Whisper(nn.Module):
         """mel (B, 2·n_audio_ctx, n_mels) → audio features (B, n_audio_ctx, D)
         in mel's dtype."""
         cfg, p = self.cfg, self.encoder
-        x = gelu(conv1d(p["conv1"], mel, stride=1, padding=1))
-        x = gelu(conv1d(p["conv2"], x, stride=2, padding=1))
+        x = stem_conv(p["conv2"], stem_conv(p["conv1"], mel, stride=1), stride=2)
         x = x + self.audio_positions.to(x.dtype)
         if not FUSED_ENC or self.encoder_kind is None:
             return layer_norm(p["ln_post"], self._encode_blocks_per_op(x))
@@ -341,16 +348,7 @@ class Whisper(nn.Module):
     def precompute_cross_kv(self, audio_features: torch.Tensor):
         """Project encoder output into per-layer cross K/V once per window:
         two (L, B, T, H, hd) tensors, K already scaled."""
-        cfg = self.cfg
-        h = cfg.n_text_head
-        scale = (cfg.n_text_state // h) ** -0.25
-        cross = self.decoder["blocks"]["cross_attn"]
-        ks, vs = [], []
-        for i in range(cfg.n_text_layer):
-            bp = cross.layer(i)
-            ks.append(_heads(linear(bp["k"], audio_features), h) * scale)
-            vs.append(_heads(linear(bp["v"], audio_features), h))
-        return torch.stack(ks), torch.stack(vs)
+        return precompute_cross_kv(self.tree(), self.cfg, audio_features)
 
     def init_state(self, audio_features: torch.Tensor, batch: int = 1,
                    dtype: torch.dtype = torch.float32,
@@ -438,31 +436,188 @@ class Whisper(nn.Module):
 
     def forward_cross_qk(self, tokens: torch.Tensor, audio_features: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The full-sequence decoder pass of word timestamps: tokens (B, T)
-        at positions 0.. over the audio features → (logits (B, T, V), the raw
-        f32 cross-attention scores (L, B, H, T, T_audio)), which
-        `timing.find_alignment` soft-maxes after choosing its heads. Kept off
-        the decode path, as in the JAX package."""
-        cfg, p = self.cfg, self.decoder
-        b, t = tokens.shape
-        h, d = cfg.n_text_head, cfg.n_text_state
-        scale = (d // h) ** -0.25
-        ck, cv = self.precompute_cross_kv(audio_features)
-        x = embedding(p["token_embedding"], tokens)
-        x = x + p["positional_embedding"][:t][None].to(x.dtype)
-        mask = causal_mask(t, t, device=tokens.device)
-        qks = []
-        for i in range(cfg.n_text_layer):
-            bp = p["blocks"].layer(i)
-            x = x + _self_attention(bp["attn"], layer_norm(bp["ln1"], x), h, mask)
-            hn = layer_norm(bp["ln_cross"], x)
-            qc = _heads(linear(bp["cross_attn"]["q"], hn), h) * scale
-            scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), ck[i].to(qc.dtype).float())
-            w = torch.softmax(scores, dim=-1)
-            oc = torch.einsum("bhqk,bkhd->bqhd", w.to(cv.dtype), cv[i])
-            x = x + linear(bp["cross_attn"]["o"], oc.reshape(b, t, d))
-            hn = layer_norm(bp["ln2"], x)
-            x = x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
-            qks.append(scores)
-        x = layer_norm(p["ln"], x)
-        return embedding_as_linear(p["token_embedding"], x), torch.stack(qks)
+        """The full-sequence decoder pass of word timestamps (module
+        `forward_cross_qk`); kept off the decode path, as in the JAX package."""
+        return forward_cross_qk(self.tree(), self.cfg, tokens, audio_features)
+
+    def tree(self) -> dict:
+        """The parameters as the training route's functions take them."""
+        return {"encoder": self.encoder, "decoder": self.decoder}
+
+
+# ------------------------------------------------------------ training route
+#
+# The JAX package's XLA formulation in autograd ops: the formulation its
+# `jax.value_and_grad` differentiates, since no JAX kernel has a backward
+# and every kernel gate is off on the CPU where its training runs. The conv
+# stem, per-op blocks with q·k in f32 through `attend_plain`, and the
+# decoder of `forward_cross_qk`: no function here reaches a wrapper of
+# `ops/kernels` (on a card they refuse a tensor that needs a gradient),
+# and nothing switches to the route by itself: `training.loss_fn` asks for
+# `encode_xla` by name. Each function takes a parameter tree (nested dicts,
+# `ParamTree`s, or `Whisper.tree()`) of fp leaves, which may be DTensors
+# (`parallel.shard_tree`).
+
+def layer_of(tree, i: int) -> dict:
+    """Layer i of a stacked (L, ...) subtree: `ParamTree.layer`, or each
+    leaf's [i] of a dict."""
+    if isinstance(tree, ParamTree):
+        return tree.layer(i)
+    return {k: layer_of(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def on_rows(fn, x: torch.Tensor, *leaves: torch.Tensor) -> torch.Tensor:
+    """fn(x, *leaves). Where the leaves are DTensors, fn runs on each rank's
+    batch rows of x with the leaves whole (gathered where they are
+    sharded), and autograd is told that a leaf's gradient is a partial sum
+    over the ranks that hold other rows. It carries what DTensor's own rules
+    do not: a conv whose weight is sharded over output channels
+    (`parallel.whisper_rules`; torch 2.11's conv rule also exchanges halos
+    along time where only the batch is sharded, and refuses stride 2), and
+    the backward of an embedding lookup (torch 2.11's index_put rule)."""
+    if not hasattr(leaves[0], "device_mesh"):
+        return fn(x, *leaves)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = leaves[0].device_mesh
+    whole = [Replicate()] * mesh.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, whole)
+    if any(pl.is_shard() and pl.dim != 0 for pl in x.placements):
+        raise ValueError(f"on_rows: rows sharded over {x.placements}, not over the batch")
+    rows = [Partial() if pl.is_shard() else Replicate() for pl in x.placements]
+    y = fn(x.to_local(), *(w.redistribute(mesh, whole).to_local(grad_placements=rows)
+                           for w in leaves))
+    shape = torch.Size((x.shape[0], *y.shape[1:]))
+    return DTensor.from_local(y, mesh, x.placements, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def stem_conv(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """conv1d (kernel 3, padding 1) + GELU, by `on_rows`."""
+    return on_rows(lambda x, w, b: gelu(conv1d({"weight": w, "bias": b}, x, stride=stride,
+                                               padding=1)), x, p["weight"], p["bias"])
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding's rows (`nn.layers.embedding`; an fp table by
+    `on_rows`)."""
+    if "weight" not in p:
+        return embedding(p, tokens)
+    return on_rows(lambda ids, w: embedding({"weight": w}, ids), tokens, p["weight"])
+
+
+def per_head(fn, tensors, head_dims):
+    """fn(*tensors) on each rank's own rows and heads where the (B, T, H,
+    hd) inputs are DTensors sharded over the batch (dim 0) or the heads
+    (dim 2) only, each placed as the first: attention runs per row and
+    head, so it needs no collective, and DTensor's rule for its einsum
+    cannot flatten a batch and a head dim that are both sharded (torch
+    2.11). fn returns a tuple; its i-th output keeps the batch at dim 0 and
+    the heads at head_dims[i]. On plain tensors, fn itself."""
+    q = tensors[0]
+    if not hasattr(q, "device_mesh"):
+        return fn(*tensors)
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, place = q.device_mesh, q.placements
+    if any(pl.is_shard() and (pl.dim not in (0, 2) or q.shape[pl.dim] % mesh.size(m))
+           for m, pl in enumerate(place)):
+        raise ValueError(f"per_head: q placed {place}, not evenly over rows or heads")
+    outs = fn(*(t.redistribute(mesh, place).to_local() for t in tensors))
+    return tuple(DTensor.from_local(o, mesh, [Shard(h) if pl.is_shard() and pl.dim == 2 else pl
+                                              for pl in place])
+                 for o, h in zip(outs, head_dims))
+
+
+@functools.lru_cache(maxsize=4)
+def _audio_positions(n_ctx: int, d: int) -> torch.Tensor:
+    return torch.from_numpy(sinusoidal_positions(n_ctx, d))
+
+
+def stem_xla(p: dict, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """conv1 + GELU → conv2 (stride 2) + GELU → + sinusoids."""
+    x = stem_conv(p["conv2"], stem_conv(p["conv1"], mel, stride=1), stride=2)
+    pos = _audio_positions(cfg.n_audio_ctx, cfg.n_audio_state)
+    return x + pos.to(device=x.device, dtype=x.dtype)
+
+
+def attention_xla(p: dict, x: torch.Tensor, n_heads: int, mask=None) -> torch.Tensor:
+    """Self-attention: q and k each scaled by hd^-0.25, `attend_plain`."""
+    b, t, d = x.shape
+    scale = (d // n_heads) ** -0.25
+    q = _heads(linear(p["q"], x), n_heads) * scale
+    k = _heads(linear(p["k"], x), n_heads) * scale
+    v = _heads(linear(p["v"], x), n_heads)
+    o, = per_head(lambda *qkv: (attend_plain(*qkv, mask),), (q, k, v), (2,))
+    return linear(p["o"], o.reshape(b, t, d))
+
+
+def encoder_block_xla(bp: dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """One pre-norm encoder block: self-attention, then the GELU MLP."""
+    x = x + attention_xla(bp["attn"], layer_norm(bp["ln1"], x), n_heads)
+    hn = layer_norm(bp["ln2"], x)
+    return x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
+
+
+def encode_xla(params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """The training route's encoder: mel (B, 2·n_audio_ctx, n_mels) →
+    features (B, n_audio_ctx, D) in mel's dtype, as the JAX `encode`
+    computes them with its kernels off."""
+    p = params["encoder"]
+    x = stem_xla(p, cfg, mel)
+    for i in range(cfg.n_audio_layer):
+        x = encoder_block_xla(layer_of(p["blocks"], i), x, cfg.n_audio_head)
+    return layer_norm(p["ln_post"], x)
+
+
+def precompute_cross_kv(params, cfg: WhisperConfig, audio_features: torch.Tensor):
+    """Each decoder layer's cross K (scaled by hd^-0.25) and V over the
+    audio features: two (L, B, T, H, hd) tensors."""
+    h = cfg.n_text_head
+    scale = (cfg.n_text_state // h) ** -0.25
+    cross = params["decoder"]["blocks"]["cross_attn"]
+    ks, vs = [], []
+    for i in range(cfg.n_text_layer):
+        bp = layer_of(cross, i)
+        ks.append(_heads(linear(bp["k"], audio_features), h) * scale)
+        vs.append(_heads(linear(bp["v"], audio_features), h))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_attention(q, k, v):
+    """(the attention (B, T, H, hd), its raw scores (B, H, T, T_audio) in
+    f32, or f64 for f64 q)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v), scores
+
+
+def forward_cross_qk(params, cfg: WhisperConfig, tokens: torch.Tensor,
+                     audio_features: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-sequence decoder pass: tokens (B, T) at positions 0.. over
+    the audio features → (logits (B, T, V), the raw cross-attention scores
+    (L, B, H, T, T_audio), f32 or f64), which `timing.find_alignment`
+    soft-maxes after choosing its heads."""
+    p = params["decoder"]
+    b, t = tokens.shape
+    h, d = cfg.n_text_head, cfg.n_text_state
+    scale = (d // h) ** -0.25
+    ck, cv = precompute_cross_kv(params, cfg, audio_features)
+    x = embed_tokens(p["token_embedding"], tokens)
+    x = x + p["positional_embedding"][:t][None].to(x.dtype)
+    mask = causal_mask(t, t, device=x.device)
+    qks = []
+    for i in range(cfg.n_text_layer):
+        bp = layer_of(p["blocks"], i)
+        x = x + attention_xla(bp["attn"], layer_norm(bp["ln1"], x), h, mask)
+        hn = layer_norm(bp["ln_cross"], x)
+        qc = _heads(linear(bp["cross_attn"]["q"], hn), h) * scale
+        oc, scores = per_head(_cross_attention, (qc, ck[i].to(qc.dtype), cv[i]), (2, 1))
+        x = x + linear(bp["cross_attn"]["o"], oc.reshape(b, t, d))
+        hn = layer_norm(bp["ln2"], x)
+        x = x + linear(bp["mlp"]["fc2"], gelu(linear(bp["mlp"]["fc1"], hn)))
+        qks.append(scores)
+    x = layer_norm(p["ln"], x)
+    return embedding_as_linear(p["token_embedding"], x), torch.stack(qks)

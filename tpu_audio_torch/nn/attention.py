@@ -6,7 +6,8 @@ masks are additive f32 biases. As in the JAX `attend`, long unmasked
 self-attention (no mask, equal head counts, q and k of one shape,
 `encoder_attention.supported`) goes to the `encoder_attention` kernel: the
 Whisper encoder's per-op path on quantised trees. Every other call is the
-plain computation.
+plain computation, `attend_plain`, which a caller that needs gradients
+calls itself: the kernel has no backward.
 """
 
 from __future__ import annotations
@@ -29,10 +30,18 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_scaled=True). mask: broadcastable to (B, H or Hkv, Tq, Tk), additive f32.
     On the kernel's route the scale multiplies the f32 scores instead.
     """
-    b, tq, h, d = q.shape
-    hkv = k.shape[2]
     if ea.supported(q, k, mask):  # unmasked, q and k of one shape, T ≥ 512
         return ea.encoder_attention(q, k, v, scale=scale)
+    return attend_plain(q, k, v, mask, scale)
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor | None = None, scale: float = 1.0) -> torch.Tensor:
+    """`attend` without the kernel's route: the JAX function's einsum,
+    softmax, einsum in autograd ops, at any length (the Whisper training
+    route, `models/whisper/model.encode_xla`)."""
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
     if scale != 1.0:
         q = q * torch.tensor(scale, dtype=q.dtype)
     ct = torch.promote_types(q.dtype, torch.float32)  # f32 scores, f64 for f64 q

@@ -134,7 +134,14 @@ class Kernel:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The wrappers' device rule: a kernel takes CUDA tensors on one device;
-    anything else raises."""
+    anything else raises. So does a tensor that requires a gradient while
+    grad mode is on: a kernel's output has no `grad_fn`, so autograd would
+    stop at it without a word. Gradients take the training route
+    (`models/whisper/model.encode_xla`, `training.loss_fn`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward, and an input requires a "
+                           "gradient; train through the training route (encode_xla, "
+                           "training.loss_fn), or call it under torch.no_grad()")
     device = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != device:
