@@ -236,7 +236,30 @@ Phases (any failure raises and the script exits non-zero):
      `Whisper` (built before the steps) as the control; `make_mesh()` as a
      world of one on NCCL and `train(mesh=...)`'s losses against the
      first steps'; the grad guard.
-     Phases 12 to 20 print their walls and their launches on lines of
+ 21. tensor-parallel serving: (a) a world-of-one NCCL mesh at
+     Llama-3.2-3B width on the w8a8, W4A8 and q4 trees, the first steps'
+     f32 logits and a sampled generate's tokens of
+     `CausalLMGenerator(mesh=)` bit for bit those of `mesh=None` on the
+     same per-layer route, ms a token of both in turns, an all-reduce's
+     device time, the launches; (b) tp 2 and 4 rank by rank in this process
+     on one 3B layer of each tree and the super-group one: every kernel call
+     on the ranks' local shapes held against its plain version (rows 12-17
+     and 19), the column blocks against the unsharded product, the
+     row-parallel sum at most 1.5× as far from the exact f32 product as the
+     unsharded kernel plus a bf16 half-ulp a partial, cosine 0.999 to the
+     unsharded product; the super-group tree refused at tp 8; (c) three controls
+     ≥ 5× against the exact f32 product: the fused qkv / gateup unpermuted,
+     a rank's partial dropped, a rank handed the next rank's shard; (d)
+     `TTS.orpheus(mesh=)`'s sentence through SNAC equal to the unsharded
+     per-layer engine's; (e) CosyVoice2 (fp LM, the flow by local shards
+     under flow_rules) and `CosyVoice3Engine.from_params(mesh=)` at world
+     one: each LM's tokens and a 2 s voice conversion (flow and HiFT) equal
+     to its unsharded per-layer engine's.
+ 22. the examples: the port's console (`examples/webapp.py --tiny`) on
+     127.0.0.1 answering the page, a TTS WAV, an SSE stream and an STT
+     upload; `batch_serving`'s `transcribe_batch` and Orpheus
+     `generate_batch` at full width, one layer deep, on random weights.
+     Phases 12 to 22 print their walls and their launches on lines of
      their own. Every end-to-end control must read at least 5× the plain
      route's distance from f32 (phase 20: from f64); each prints its ratio.
 
@@ -304,6 +327,8 @@ decoding); `--cosyvoice3-only` phases 1, 2 and 16 (CosyVoice3);
 and 19 (serving and playback); `--train-only` phases 1, 2 and 20 (Whisper
 fine-tuning at large-v3-turbo width: `training.train`'s steps, the route
 against f64, `evaluate` through the fused encoder, a world-of-one mesh).
+`--mesh-only` runs phases 1, 2 and 21 (tensor-parallel serving);
+`--examples-only` phases 1, 2 and 22 (the examples).
 `python3 chip_smoke.py --w8a8-only` runs phases 1, 2, the four W8A8
 encoder kernels' part of phase 3 and phase 7's int8 against bf16 encoder at
 batch 16: a short check of `csrc/fused_encoder_int8.cu` and
@@ -459,6 +484,17 @@ TRAIN_MESH_STEPS = 2         # (d)'s steps on the world-of-one mesh
 TRAIN_MESH_REL = 1e-5        # (d): its losses against (a)'s, where DTensor's decompositions round
 TRAIN_LOSS_REL = 1e-2        # (c): evaluate's bf16 loss against the training route's f32 loss
 TRAIN_MEM_GB = 45.0          # (a)'s expected peak: 13 GB of leaves, gradients, moments; ~1 GB a layer
+MESH_NEW = 28                # phase 21 (a): tokens a generate at Orpheus-3B width
+MESH_LOGIT_STEPS = 3         # (a): greedy steps after the prefill whose f32 logits are held
+MESH_TPS = (2, 4)            # (b): tensor-parallel widths served rank by rank in one process
+MESH_ROWS = (1, 8)           # (b): rows of x a product
+MESH_SUM_ULP = 2.0 ** -9      # (b): a partial's bf16 rounding before the sum (half an ulp)
+MESH_TTS_NEW = 280           # (d): the engines' tokens: random weights emit a code ~1 in 5.5
+MESH_CV_TEXT = "Hello from the card."  # (d): the Orpheus engines' sentence
+MESH_CV_NEW = 48             # (e): the CosyVoice LMs' tokens
+MESH_CV_SECONDS = 2          # (e): the voice conversion's source audio
+EXAMPLE_LAYERS = 1           # phase 22: batch_serving's depth (full width)
+EXAMPLE_CLIPS = (3, 5)       # phase 22: batch_serving's clips (s)
 SPIN_CYCLES = 50_000_000     # ~25 ms at the H100's clock: covers queuing a timed loop
 # pair_codes' scales against the plain ones: where one key holds most of a
 # row's weight, the kernel and the plain version may round its probability
@@ -8219,6 +8255,467 @@ def randn_on(dev, seed: int = SEED):
     return randn
 
 
+def mesh_generators(tree, cfg, mesh, dev):
+    """(the unsharded generator on the per-layer route, the mesh's): the
+    same tree, the whole-stack step off in both."""
+    from tpu_audio_torch.models.orpheus import model as om
+
+    ref = om.CausalLMGenerator(tree, cfg, max_cache=None, pad_id=om.PAD_TOKEN)
+    ref._fused_ok = lambda: False
+    return ref, om.CausalLMGenerator(tree, cfg, max_cache=None, pad_id=om.PAD_TOKEN, mesh=mesh)
+
+
+@torch.inference_mode()
+def first_logits(gen, prompt: list[int], steps: int, dev) -> torch.Tensor:
+    """The f32 logits of the prefill and of `steps` greedy steps after it
+    (each fed the argmax of the last), through `gen`'s own forward."""
+    from tpu_audio_torch.nn import transformer
+
+    p, start = gen._prompt(prompt, 32)
+    cache, extra = transformer.decode_cache_and_mask(gen.cfg_run, p.shape[0] + steps, start,
+                                                     False, dtype=gen.cache_dtype, device=dev)
+    off = torch.tensor([start], device=dev)
+    lg, cache = gen._forward(p[None], cache, extra, off)
+    out = [lg[0, -1].float()]
+    for _ in range(steps):
+        lg, cache = gen._forward(out[-1].argmax().view(1, 1), cache, extra, off)
+        out.append(lg[0, -1].float())
+    return torch.stack(out)
+
+
+def mesh_gap(gen, prompt, kw, card: str) -> None:
+    """Where a world-of-one mesh's extra time a token goes: the host time
+    spent in `dist.all_reduce` during a generate, and the generate again
+    with the all-reduces skipped (an identity at world one)."""
+    import torch.distributed as dist
+
+    from tpu_audio_torch.nn import transformer
+
+    spent = []
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    def per_token():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gen.generate(prompt, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / kw["max_new"]
+
+    real = dist.all_reduce
+    with patched(dist, "all_reduce", timed):
+        with_calls = per_token()
+    with patched(transformer, "psum", lambda t, axis_name=None: t):
+        skipped = per_token()
+    log(f"mesh (a) w8a8: {len(spent)} all-reduces a generate, {sum(spent) * 1e3 / kw['max_new']:.2f} "
+        f"ms of host time a token in them ({sum(spent) / len(spent) * 1e6:.1f} us a call); ms a "
+        f"token {with_calls:.2f} with them, {skipped:.2f} with them skipped ({card})")
+
+
+def mesh_layer_trees(dev) -> tuple:
+    """(cfg, {kind: tree}): one Llama-3.2-3B layer (random, seed SEED + 7)
+    in each served format: w8a8 and W4A8 (fused), super-group (fused), q4
+    (the checkpoint's unfused leaves)."""
+    import dataclasses
+
+    from tpu_audio_torch.models.orpheus.model import LLAMA_3B
+    from tpu_audio_torch.ops import quant
+
+    cfg = dataclasses.replace(LLAMA_3B, n_layers=1, vocab_size=256)
+    q4 = quant.quantize_tree(llama_params(cfg, dev, SEED + 7), bits=4,
+                             predicate=lambda k, v: not k.startswith("embed"))
+    return cfg, {"w8a8": quant.requantize_tree_int8(q4), "w4a8": quant.repack_tree_w4a8(q4),
+                 "sg": quant.requantize_tree_w4a8_sg(q4), "q4": q4}
+
+
+def mesh_layer(kind: str, tree: dict, cfg, tp: int, randn, total: dict) -> None:
+    """Phase 21 (b) and (c) on one 3B layer at tensor-parallel width tp,
+    rank by rank in this process: each rank's column- and row-parallel
+    products through the route (the kernels on the rank's local shapes),
+    every kernel call held against its plain version; the other entry of
+    the format on the same local leaves (rows 13, 14, 16); the column
+    blocks against the unsharded product's; the row-parallel sum (summed
+    in bf16, as the all-reduce sums) at most SLICE_RATIO times as far from
+    the exact f32 product as the unsharded kernel, plus tp half-ulps of
+    bf16 (MESH_SUM_ULP: each partial is rounded to bf16 before the sum),
+    cosine > 0.999 to the unsharded product; three planted controls against
+    the exact f32 product."""
+    from tpu_audio_torch.nn import layers, transformer
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.parallel import tp_quant
+
+    mods = (i8mm, w4mm, qmm)
+    tag = f"mesh (b) {kind} tp {tp}"
+    locs = [tp_quant.local_params(tree, cfg, tp, r) for r in range(tp)]
+    full = transformer._layer(tree["layers"], 0)
+    views = [transformer._layer(lc["layers"], 0) for lc in locs]
+    fused = "qkv" in tree["layers"]["attn"]
+    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.kv_heads
+    cols = ([("attn", "qkv", [h * hd, kvh * hd, kvh * hd]),
+             ("mlp", "gateup", [cfg.hidden_dim] * 2)] if fused else
+            [("attn", n, [w]) for n, w in (("q", h * hd), ("k", kvh * hd), ("v", kvh * hd))]
+            + [("mlp", n, [cfg.hidden_dim]) for n in ("gate", "up")])
+    rows_ = [("attn", "o", h * hd), ("mlp", "down", cfg.hidden_dim)]
+
+    def exact(sub, name, x):
+        return x.float() @ quant.dequantize(tree["layers"][sub][name])[0].T
+
+    def rel(a, b):
+        return measure(a, b)[1]
+
+    reset(*mods)
+    readings = {"col": [], "col faults": [], "row": [], "row faults": [], "drop": [],
+                "wrong": []}
+    with held_calls(tag, i8mm, ("int8_matmul", "int8_matmul_stacked"), 0.0), \
+            held_calls(tag, w4mm, tuple(w4mm.LAUNCHES), 1e-5), \
+            held_calls(tag, qmm, ("quant_matmul",), 1e-4):
+        for n_rows in MESH_ROWS:
+            x = randn(n_rows, cfg.dim, dtype=torch.bfloat16)
+            for sub, name, sections in cols:
+                perm = torch.as_tensor(tp_quant._fused_perm(sections, tp), device=x.device)
+                ref = layers.linear(full[sub][name], x)[..., perm]
+                ex = exact(sub, name, x)[..., perm]
+                n = ref.shape[-1] // tp
+                got = [layers.linear(v[sub][name], x) for v in views]
+                compare(f"{tag} {sub}.{name} {n_rows} rows: the ranks' blocks against the "
+                        f"unsharded product's", torch.cat(got, -1), ref, rel=1e-3)
+                leaf = tree["layers"][sub][name]
+                for r in range(tp):
+                    blk = slice(r * n, (r + 1) * n)
+                    e = rel(got[r], ex[..., blk])
+                    readings["col"].append(e)
+                    if len(sections) > 1 and r == tp - 1:  # the unpermuted fused block
+                        bad = transformer._layer({"x": tp_quant._leaf_local(leaf, "col", r, tp)},
+                                                 0)["x"]
+                        readings["col faults"].append(rel(layers.linear(bad, x), ex[..., blk]) / e)
+            for sub, name, k in rows_:
+                xr = randn(n_rows, k, dtype=torch.bfloat16)
+                kb = k // tp
+                parts = [layers.linear(v[sub][name], xr[..., r * kb:(r + 1) * kb].contiguous())
+                         for r, v in enumerate(views)]
+                total_ = parts[0]
+                for p in parts[1:]:
+                    total_ = total_ + p  # bf16 adds, as the all-reduce sums bf16 partials
+                ref = layers.linear(full[sub][name], xr)
+                ex = exact(sub, name, xr)
+                e_sum, e_full = rel(total_, ex), rel(ref, ex)
+                bound = SLICE_RATIO * e_full + tp * MESH_SUM_ULP
+                cos = measure(total_, ref)[2]
+                text = (f"{tag} {sub}.{name} {n_rows} rows: the sum of {tp} partials {e_sum:.3e} "
+                        f"from the exact f32 product, the unsharded kernel {e_full:.3e} (bound "
+                        f"{bound:.3e}), cosine {cos:.6f} to the unsharded product")
+                if not (e_sum <= bound and cos > 0.999):
+                    raise AssertionError(f"{text}: outside")
+                log(text)
+                readings["row"].append((e_sum, e_full))
+                dropped = sum(parts[:-1][1:], parts[0]) if tp > 1 else torch.zeros_like(ref)
+                readings["drop"].append(rel(dropped, ex) / e_sum)
+                wrong = layers.linear(views[1][sub][name], xr[..., :kb].contiguous())
+                readings["wrong"].append(rel(sum(parts[1:], wrong), ex) / e_sum)
+            # the other entry of the format on the same local leaves
+            for v, lc in zip(views, locs):
+                for sub, name, k in [(s, n, None) for s, n, _ in cols] + rows_:
+                    leaf = lc["layers"][sub][name]
+                    kin = x.shape[-1] if k is None else k // tp
+                    xx = randn(n_rows, kin, dtype=torch.bfloat16)
+                    if "weight_i8" in leaf:
+                        i8mm.int8_matmul_stacked(xx, leaf["weight_i8"], leaf["scale_i8"][0], 0,
+                                                 out_dtype=torch.bfloat16)
+                    elif "weight_q4p" in leaf:
+                        w4mm.w4a8_matmul(xx, leaf["weight_q4p"][0], leaf["scales"][0],
+                                         leaf["biases"][0])
+                    elif "weight_q4s" in leaf:
+                        w4mm.w4a8_sg_matmul(xx, leaf["weight_q4s"][0], leaf["scales_sg"][0])
+    counts = launch_counts(*mods)
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+    log(f"{tag}: launches {({n: c for n, c in counts.items() if c})}; the ranks' column "
+        f"blocks from the exact f32 product: largest rel {max(readings['col']):.3e}; the "
+        f"row-parallel sums: largest rel {max(e for e, _ in readings['row']):.3e} from the exact "
+        f"f32 product, the unsharded kernel's {max(e for _, e in readings['row']):.3e}")
+    if readings["col faults"]:
+        control_ratio(tag, "the fused qkv / gateup unpermuted", readings["col faults"],
+                      "a rank's block from the exact f32 product",
+                      "the rank's own distance from it")
+    control_ratio(tag, "one rank's partial dropped from the sum", readings["drop"],
+                  "the sum from the exact f32 product", "the route's sum's distance from it")
+    control_ratio(tag, "a rank handed the next rank's shard", readings["wrong"],
+                  "the sum from the exact f32 product", "the route's sum's distance from it")
+
+
+def mesh_slice(dev, card: str) -> dict:
+    """Phase 21: tensor-parallel serving. (a) a world-of-one NCCL mesh
+    (`make_mesh()`) at Llama-3.2-3B width on the w8a8, W4A8 and q4 trees:
+    the first steps' f32 logits and a sampled generate's tokens of
+    `CausalLMGenerator(mesh=)` bit for bit those of `mesh=None` on the same
+    per-layer route, ms a token of both (in turns), an all-reduce's device
+    time, the launches; (b), (c) `mesh_layer` at tp 2 and 4 on one layer of
+    each tree, and the super-group tree's refusal at tp 8; (d)
+    `TTS.orpheus(mesh=)` on the w8a8 tree: a sentence through SNAC equal to
+    the unsharded per-layer engine's; (e) CosyVoice2 (the fp 0.5B LM, the
+    flow by local shards under flow_rules) and `CosyVoice3Engine.from_params
+    (mesh=)` at world one: each LM's tokens and a voice conversion (the
+    flow and HiFT) equal to its unsharded per-layer engine's. Returns the
+    launches."""
+    import torch.distributed as dist
+
+    from tpu_audio_torch.api.tts import TTS
+    from tpu_audio_torch.codecs.s3gen import model as s3gen
+    from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
+    from tpu_audio_torch.codecs.snac import model as snac
+    from tpu_audio_torch.models.cosyvoice2 import lm as cvlm
+    from tpu_audio_torch.models.cosyvoice3 import model as cv3
+    from tpu_audio_torch.models.orpheus import model as om
+    from tpu_audio_torch.models.orpheus.model import LLAMA_3B
+    from tpu_audio_torch.ops import quant
+    from tpu_audio_torch.ops.kernels import int8_matmul as i8mm
+    from tpu_audio_torch.ops.kernels import quant_matmul as qmm
+    from tpu_audio_torch.ops.kernels import w4a8_matmul as w4mm
+    from tpu_audio_torch.ops.sampling import SamplerConfig
+    from tpu_audio_torch.parallel import make_mesh, tp_quant
+    from tpu_audio_torch.utils.weights import ShapeRNG
+
+    mods = (i8mm, w4mm, qmm)
+    total: dict = {}
+    t0 = time.perf_counter()
+    q4 = quant.quantize_tree(llama_params(LLAMA_3B, dev, SEED), bits=4)
+    trees = {"w8a8": quant.requantize_tree_int8(q4), "w4a8": quant.repack_tree_w4a8(q4),
+             "q4": q4}
+    torch.cuda.synchronize()
+    log(f"mesh: Llama-3.2-3B random weights (seed {SEED}), its q4, w8a8 and W4A8 trees in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = make_mesh()
+    group = mesh.get_group("tp")
+    log(f"mesh (a): make_mesh() {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{dist.get_backend()}, world {dist.get_world_size()}")
+    try:
+        buf = torch.randn(1, LLAMA_3B.dim, device=dev, dtype=torch.bfloat16)
+        ar_ms = time_ms(lambda: dist.all_reduce(buf, group=group), 200)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(200):
+            dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        idle_us = (time.perf_counter() - t1) * 5e3
+        # behind a spin kernel: a call that waits for the card (a host sync)
+        # returns only after the spin, one that queues returns at once
+        torch.cuda._sleep(SPIN_CYCLES)
+        t1 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        busy_ms = (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = (time.perf_counter() - t1) * 1e3
+        log(f"mesh (a): one all-reduce of a (1, {LLAMA_3B.dim}) bf16 row at world one: "
+            f"{ar_ms * 1e3:.2f} us of device time, {idle_us:.1f} us of host time a call, 200 "
+            f"in a row; behind a {spin_ms:.1f} ms spin kernel the call returned after "
+            f"{busy_ms:.3f} ms ({card})")
+        prompt = om.build_prompt_ids([(i * 7919) % 120000 for i in range(20)])
+        sampler = SamplerConfig(temperature=0.6, top_p=0.8, repetition_penalty=1.3,
+                                repetition_window=om.REPETITION_WINDOW)
+        kw = dict(sampler=sampler, eos_ids=(om.END_TOKEN,), max_new=MESH_NEW, seed=1)
+        log(f"mesh (a): quant_matmul's rows a launch at 32 rows, K {LLAMA_3B.hidden_dim} → "
+            f"{LLAMA_3B.dim} (the q4 tree's prefill of the down projection, ROADMAP C36): "
+            + ", ".join(f"{dt} x {qmm.rows_a_launch(dev, 32, LLAMA_3B.hidden_dim, LLAMA_3B.dim, 4, dt)}"
+                        for dt in (torch.float32, torch.bfloat16)))
+        for kind, tree in trees.items():
+            ref, gen = mesh_generators(tree, LLAMA_3B, mesh, dev)
+            held_exact(f"mesh (a) {kind}: the prefill's and {MESH_LOGIT_STEPS} steps' f32 "
+                       f"logits against mesh=None's",
+                       first_logits(gen, prompt, MESH_LOGIT_STEPS, dev),
+                       first_logits(ref, prompt, MESH_LOGIT_STEPS, dev))
+            walls, toks = {"mesh": [], "none": []}, {}
+            for name in ("none", "mesh", "mesh", "none"):
+                g = gen if name == "mesh" else ref
+                reset(*mods)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                toks[name] = g.generate(prompt, **kw)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t1) * 1e3 / MESH_NEW)
+                if name == "mesh":
+                    counts = launch_counts(*mods)
+                    for n, c in counts.items():
+                        total[n] = total.get(n, 0) + c
+            need = {"w8a8": ("int8_matmul",), "w4a8": ("w4a8_matmul", "w4a8_matmul_stacked"),
+                    "q4": ("quant_matmul",)}[kind]
+            if not all(counts[n] for n in need):
+                raise AssertionError(f"mesh (a) {kind}: a kernel of the path never launched: "
+                                     f"{counts}")
+            if toks["mesh"] != toks["none"] or len(toks["mesh"]) < MESH_NEW // 2:
+                raise AssertionError(f"mesh (a) {kind}: tokens {toks['mesh']} against "
+                                     f"mesh=None's {toks['none']}")
+            if kind == "w8a8":
+                mesh_gap(gen, prompt, kw, card)
+            log(f"mesh (a) {kind}: {len(toks['mesh'])} tokens equal to mesh=None's; ms a token "
+                f"(prefill included) mesh {walls['mesh']}, mesh=None {walls['none']}; launches "
+                f"a generate {({n: c for n, c in counts.items() if c})}, "
+                f"{sum(counts.values()) / MESH_NEW:.1f} a token ({card})")
+        # (d) the engine through SNAC
+        snac_params = snac.init_params(SEED + 1, snac.SNACConfig(), torch.bfloat16, dev)
+        ref = TTS.orpheus(device=dev).from_params(trees["w8a8"], LLAMA_3B, snac_params)
+        ref.lm._fused_ok = lambda: False
+        eng = TTS.orpheus(mesh=mesh, device=dev).from_params(trees["w8a8"], LLAMA_3B,
+                                                             snac_params, mesh=mesh)
+        got, want = (e.generate(MESH_CV_TEXT, max_new_tokens=MESH_TTS_NEW).samples
+                     for e in (eng, ref))
+        if not (len(got) and np.array_equal(got, want)):
+            raise AssertionError(f"mesh (d): {len(got)} samples against mesh=None's "
+                                 f"{len(want)}, or unequal")
+        log(f"mesh (d): TTS.orpheus(mesh=) on w8a8, {MESH_TTS_NEW} tokens: {len(got)} samples "
+            f"({len(got) / 24000:.2f} s) equal to the per-layer engine's bit for bit")
+        del trees, q4, ref, eng
+        torch.cuda.empty_cache()
+        # (e) the CosyVoices at world one
+        lm_cfg, s3cfg, tokcfg = cvlm.CosyLMConfig(), s3gen.S3GenConfig(), s3tok.S3TokenizerConfig()
+        bf16, _ = cosy_lm_trees(lm_cfg, dev)
+        s3 = s3_card_params(s3gen.numpy_params(ShapeRNG(), s3cfg), dev, SEED + 1)
+        tokp = s3_card_params(s3tok.numpy_params(ShapeRNG(), tokcfg), dev, SEED + 2)
+        flow_cfg = cv3.CV3FlowConfig()
+        flow = s3_card_params(cv3.numpy_params(ShapeRNG(), flow_cfg), dev, SEED + 5)
+        src = (0.1 * np.random.default_rng(SEED + 21).standard_normal(
+            MESH_CV_SECONDS * 16000)).astype(np.float32)
+        text_ids = list(MESH_CV_TEXT.encode())
+        for name, factory, flow_tree, fcfg in (
+                ("CosyVoice2", TTS.cosyvoice2, s3, s3cfg),
+                ("CosyVoice3", TTS.cosyvoice3, flow, flow_cfg)):
+            engines = [factory(device=dev).from_params(bf16, lm_cfg, flow_tree, fcfg, tokp,
+                                                       tokcfg, mesh=m) for m in (None, mesh)]
+            engines[0].lm.fused_ok = lambda: False
+            t1 = time.perf_counter()
+            want, got = (e.lm.generate(text_ids, [], [0, 1, 2, 3], seed=3, max_new=MESH_CV_NEW)
+                         for e in engines)
+            if got != want or not got:
+                raise AssertionError(f"mesh (e) {name}: LM tokens {got} against mesh=None's "
+                                     f"{want}")
+            want_a, got_a = (e.voice_conversion(src, 16000) for e in engines)
+            if not (len(got_a) and np.array_equal(got_a, want_a)):
+                raise AssertionError(f"mesh (e) {name}: {len(got_a)} samples against "
+                                     f"mesh=None's {len(want_a)}, or unequal")
+            log(f"mesh (e) {name} from_params(mesh=): the fp LM's {len(got)} tokens and "
+                f"{MESH_CV_SECONDS} s converted by the flow's local shards under flow_rules and "
+                f"HiFT ({len(got_a)} samples) equal to the unsharded per-layer engine's bit for "
+                f"bit ({time.perf_counter() - t1:.1f} s for both)")
+        del bf16, s3, tokp, flow, engines
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # (b), (c): tp 2 and 4, rank by rank, on one layer
+    cfg, layer_trees = mesh_layer_trees(dev)
+    randn = randn_on(dev, SEED + 21)
+    for tp in MESH_TPS:
+        for kind, tree in layer_trees.items():
+            mesh_layer(kind, tree, cfg, tp, randn, total)
+    missing = [n for n in ("int8_matmul", "int8_matmul_stacked", "w4a8_matmul",
+                           "w4a8_matmul_stacked", "w4a8_sg_matmul", "w4a8_sg_matmul_stacked",
+                           "quant_matmul") if not total.get(n)]
+    if missing:
+        raise AssertionError(f"mesh: kernels never launched on the ranks' shapes: {missing}")
+    try:
+        tp_quant.check_tp_quant_supported(layer_trees["sg"], cfg, 8)
+    except ValueError as err:
+        log(f"mesh (b) sg tp 8: refused at construction: {err}")
+    else:
+        raise AssertionError("mesh (b): the super-group tree at tp 8 was not refused")
+    return total
+
+
+def examples_slice(dev, card: str) -> dict:
+    """Phase 22: the port's examples on the card. The console
+    (`examples.webapp`, its --tiny engines) on 127.0.0.1 at a free port,
+    served from a thread: the page, one TTS WAV, one SSE stream and one STT
+    upload; then `batch_serving`'s two runs at full width, EXAMPLE_LAYERS
+    deep, on random weights: Whisper large-v3-turbo's `transcribe_batch` of
+    EXAMPLE_CLIPS and Orpheus's `generate_batch` of two texts on the w8a8
+    tree. Returns their launches."""
+    import base64
+    import threading
+    import urllib.request
+
+    from tpu_audio_torch.examples import batch_serving, webapp
+    from tpu_audio_torch.ops.kernels import (cross_kv_attention, encoder_attention,
+                                             fused_encoder, fused_mel, fused_step, int8_matmul,
+                                             quant_matmul, w4a8_matmul)
+    from tpu_audio_torch.utils.audio_io import write_wav
+
+    mods = (fused_mel, fused_encoder, encoder_attention, cross_kv_attention, int8_matmul,
+            fused_step, quant_matmul, w4a8_matmul)
+    t0 = time.perf_counter()
+    httpd = webapp.serve(port=0, tiny=True, poll=True, device=str(dev))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=300) as r:
+                return r.headers.get("Content-Type", ""), r.read()
+        ctype, page = get("/")
+        if "text/html" not in ctype or b"tpu-audio" not in page:
+            raise AssertionError(f"examples: the console's page: {ctype}")
+        ctype, wav = get("/api/tts?engine=marvis&text=Hello%20from%20the%20card")
+        n = int.from_bytes(wav[40:44], "little")
+        if ctype != "audio/wav" or wav[:4] != b"RIFF" or not n or len(wav) != 44 + n:
+            raise AssertionError(f"examples: /api/tts gave {ctype}, {len(wav)} bytes")
+        ctype, body = get("/api/tts_stream?engine=marvis&text=Hi")
+        events = [json.loads(ln[6:]) for ln in body.decode().splitlines()
+                  if ln.startswith("data: ")]
+        pcm = [np.frombuffer(base64.b64decode(e["pcm"]), np.float32) for e in events[:-1]]
+        if (events[-1] != {"done": True} or not pcm
+                or not all(len(p) and np.isfinite(p).all() for p in pcm)):
+            raise AssertionError(f"examples: /api/tts_stream gave {len(events)} events")
+        audio = (0.1 * np.sin(np.arange(16000) / 10)).astype(np.float32)
+        req = urllib.request.Request(url + "/api/stt?engine=funasr",
+                                     data=webapp.wav_bytes(audio, 16000), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            stt = json.loads(r.read())
+        if not isinstance(stt.get("text"), str) or "seconds" not in stt:
+            raise AssertionError(f"examples: /api/stt gave {stt}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    log(f"examples: the console at {url} (--tiny engines on {dev}): the page, a WAV of "
+        f"{n // 2} samples, {len(pcm)} SSE chunks, an STT upload in {stt['seconds']:.3f} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    total: dict = {}
+    rng = np.random.default_rng(SEED + 22)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, secs in enumerate(EXAMPLE_CLIPS):
+            paths.append(os.path.join(tmp, f"clip{i}.wav"))
+            write_wav(paths[-1], (0.1 * rng.standard_normal(secs * 16000)).astype(np.float32),
+                      16000)
+        base = ["--device", str(dev), "--layers", str(EXAMPLE_LAYERS)]
+        for mode, args, need in (
+                ("stt", ["stt", *paths, "--batch-size", "2"], ("fused_log_mel", "ln_qkv")),
+                ("tts", ["tts", *ORPHEUS_TEXTS[:2], "--max-new-tokens", "28", "--out-dir", tmp],
+                 ("int8_matmul",))):
+            reset(*mods)
+            t1 = time.perf_counter()
+            out = batch_serving.main(base + args)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts(*mods).items() if v}
+            log(f"examples: batch_serving {mode} (full width, {EXAMPLE_LAYERS} layer): "
+                f"{len(out)} outputs in {time.perf_counter() - t1:.1f} s; launches {counts}")
+            if len(out) != 2 or not all(counts.get(k) for k in need):
+                raise AssertionError(f"examples: batch_serving {mode}: a kernel of its path "
+                                     f"never launched ({need}) or {len(out)} outputs")
+            if mode == "stt" and counts["fused_log_mel"] != len(paths):
+                raise AssertionError("examples: batch_serving stt: not one log-mel launch a clip")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def tts_slices(dev, card: str, phases=((12, oute_slice), (13, marvis_slice))) -> dict:
     """Phases 12 and 13 (or `phases`), each with its wall and its launches
     on a line of its own; returns their launches summed."""
@@ -8317,6 +8814,12 @@ def main() -> None:
         return
     if "--train-only" in sys.argv[1:]:  # phases 1, 2 and 20
         print_result([], tts_slices(dev, card, ((20, train_slice),)))
+        return
+    if "--mesh-only" in sys.argv[1:]:  # phases 1, 2 and 21
+        print_result([], tts_slices(dev, card, ((21, mesh_slice),)))
+        return
+    if "--examples-only" in sys.argv[1:]:  # phases 1, 2 and 22
+        print_result([], tts_slices(dev, card, ((22, examples_slice),)))
         return
     if "--load-only" in sys.argv[1:]:  # phases 1, 2 and 11
         t_phase = time.perf_counter()
@@ -8488,11 +8991,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------- 12. OuteTTS, 13. Marvis, 14. CosyVoice2, 15. speculative, 16. CosyVoice3,
-    # 17. Chatterbox, 18. Kokoro, 19. serving and playback, 20. fine-tuning: their
-    # launches, too, go on lines of their own
+    # 17. Chatterbox, 18. Kokoro, 19. serving and playback, 20. fine-tuning, 21.
+    # tensor-parallel serving, 22. the examples: their launches, too, go on lines of
+    # their own
     tts_slices(dev, card, ((12, oute_slice), (13, marvis_slice), (14, cosyvoice_slice),
                            (15, spec_slice), (16, cosyvoice3_slice), (17, chatterbox_slice),
-                           (18, kokoro_slice), (19, serve_slice), (20, train_slice)))
+                           (18, kokoro_slice), (19, serve_slice), (20, train_slice),
+                           (21, mesh_slice), (22, examples_slice)))
     print_result(rows, launches)
 
 

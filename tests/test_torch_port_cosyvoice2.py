@@ -242,16 +242,17 @@ def test_a_512_slot_cache_refuses_a_30_token_sentence(lm_parts):
 
 def test_unported_options_raise(lm_parts):
     _, tcfg, _, tp = lm_parts
-    """mesh= (ROADMAP A19) still raises; speculative= takes "ngram" only
-    (A9 is ported), and CosyVoice3's factory builds its engine (A12)."""
+    """mesh= (ROADMAP A19) takes a DeviceMesh only; speculative= takes
+    "ngram" only (A9 is ported), and CosyVoice3's factory builds its engine
+    (A12)."""
     gen = tlm.CosyLMGenerator(tp, tcfg)
     with pytest.raises(ValueError, match="speculative"):
         gen.generate(TEXT, [], [], speculative="draft")
     with pytest.raises(ValueError, match="speculative"):
         next(tlm.CosyLMStreamer(gen).stream(TEXT, [], [], speculative="draft"))
-    with pytest.raises(NotImplementedError, match="A19"):
+    with pytest.raises(TypeError, match="mesh must be a torch DeviceMesh.*got object"):
         tlm.CosyLMGenerator(tp, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A19"):
+    with pytest.raises(TypeError, match="mesh must be a torch DeviceMesh.*got object"):
         TTS.cosyvoice2(mesh=object())
     with pytest.raises(ValueError, match="speculative"):
         TTS.cosyvoice2(speculative="draft")

@@ -351,11 +351,12 @@ def test_builders_default_to_the_card():
 
 def test_unported_parts_raise():
     _, tcfg = configs()
-    # the int8 cache is ported (ROADMAP A9); tensor parallelism is A19
+    # the int8 cache is ported (ROADMAP A9); tensor parallelism too (A19):
+    # axis_name is the tp process group, and a name is refused, named
     assert isinstance(tt.make_cache(tcfg, 1, 4, quantized=True, device="cpu"),
                       QuantizedKVCache)
     cache = tt.make_cache(tcfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    with pytest.raises(TypeError, match="axis_name must be the tp process group.*'tp'"):
         tt.forward_hidden({}, tcfg, torch.zeros(1, 1, 128), cache, axis_name="tp")
     # RAS is ported (ROADMAP A11); its options without a recent window draw plainly
     assert tsamp.sample(torch.zeros(1, 10), tsamp.SamplerConfig(ras=True),

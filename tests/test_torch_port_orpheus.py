@@ -227,8 +227,8 @@ def test_frames_prompts_and_unported_paths(tmp_path, monkeypatch):
         k: getattr(jm.LLAMA_3B, k) for k in tt.TransformerConfig.__dataclass_fields__})
     cfg = configs()[1]
     params = tt.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A19"):
-        tm.CausalLMGenerator(params, cfg, mesh=object())
+    with pytest.raises(TypeError, match="mesh must be a torch DeviceMesh.*got object"):
+        tm.CausalLMGenerator(params, cfg, mesh=object())  # mesh= is served (A19): a mesh only
     # speculative decoding is ported (ROADMAP A9): the options are taken
     draft = tm.DraftModel(params, cfg)
     assert TTS.orpheus(speculative=draft).speculative is draft
@@ -238,7 +238,7 @@ def test_frames_prompts_and_unported_paths(tmp_path, monkeypatch):
     monkeypatch.setenv("TPU_AUDIO_CACHE", str(tmp_path / "empty"))
     with pytest.raises(ModelLoadError, match="orpheus-3b-0.1-ft-4bit"):
         TTS.orpheus().load()
-    with pytest.raises(NotImplementedError, match="A19"):
+    with pytest.raises(TypeError, match="mesh must be a torch DeviceMesh.*got object"):
         TTS.orpheus(mesh=object())
     assert isinstance(TTS.orpheus(), OrpheusEngine)
 

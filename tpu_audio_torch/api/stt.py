@@ -1,10 +1,10 @@
 """Public STT API: the engine contract and the factories (port of
-tpu_audio/api/stt.py: STTEngineBase, WhisperEngine, STT.whisper, and
-STT.fun_asr as `STT.funasr`).
+tpu_audio/api/stt.py: STTEngineBase, WhisperEngine, STT.whisper,
+STT.fun_asr, with `STT.funasr` its alias).
 
 `STT.whisper(...)` returns an engine with load / transcribe / translate /
 detect_language / transcribe_batch / warmup / stop / unload / cleanup and
-the is_transcribing / transcription_time state; `STT.funasr(...)` the
+the is_transcribing / transcription_time state; `STT.fun_asr(...)` the
 Fun-ASR engine (`api/stt_funasr.py`: transcribe / translate /
 transcribe_streaming). `load()` reads the checkpoint of `repo` (a local
 directory, or a repo id whose snapshot sits in the pre-seeded cache,
@@ -176,8 +176,10 @@ class STT:
         return WhisperEngine(model, quantization, repo, device)
 
     @staticmethod
-    def funasr(model_type: str = "nano", quantization: str = "q4",
-               device: torch.device | str = "cuda"):
+    def fun_asr(model_type: str = "nano", quantization: str = "q4",
+                device: torch.device | str = "cuda"):
         from tpu_audio_torch.api.stt_funasr import FunASREngine
 
         return FunASREngine(model_type, quantization, device)
+
+    funasr = fun_asr  # the name the port first gave it

@@ -176,8 +176,10 @@ class TTS:
                 speculative=None, gamma: int = 8, device="cuda"):
         """quantization: how `load()` serves the 4-bit checkpoint ("w8a8",
         "w4a8" or "q4", `OrpheusEngine`); speculative: None, "ngram" or a
-        `DraftModel`, gamma drafts a target pass; mesh= is ROADMAP A19 and
-        raises; device: the card unless the caller asks for the CPU."""
+        `DraftModel`, gamma drafts a target pass; mesh: a
+        `parallel.make_mesh` DeviceMesh with a "tp" axis, for
+        tensor-parallel serving of the LM; device: the card unless the
+        caller asks for the CPU."""
         from tpu_audio_torch.models.orpheus.engine import OrpheusEngine
 
         return OrpheusEngine(voice=voice, mesh=mesh, quantization=quantization,
@@ -237,10 +239,12 @@ class TTS:
     @staticmethod
     def cosyvoice2(quantization: str = "w8a8", mesh=None, speculative=None,
                    device="cuda"):
-        """quantization: how `load()` serves the 4-bit LM ("w8a8", "w4a8"
-        or "q4"); speculative: None or "ngram" (prompt lookup in the LM,
-        sentence and token streaming); mesh= is ROADMAP A19 and raises; device:
-        the card unless the caller asks for the CPU. For `load()`:
+        """quantization: how `load()` serves the 4-bit LM ("w8a8", "w4a8",
+        "q4", or dequantised: "bf16", "fp16", "none"); speculative: None or
+        "ngram" (prompt lookup in the LM, sentence and token streaming);
+        mesh: a DeviceMesh with a "tp" axis, for tensor-parallel serving of
+        the LM and the flow (an fp quantization only); device: the card
+        unless the caller asks for the CPU. For `load()`:
         `CosyVoice2Engine.from_params` is a classmethod that builds its own
         engine on its trees' device."""
         from tpu_audio_torch.models.cosyvoice2.engine import CosyVoice2Engine

@@ -76,8 +76,8 @@ def rel_pos_emb(t: int, d: int, device) -> torch.Tensor:
 
 def _rel_attention(p, x: torch.Tensor, pos_emb: torch.Tensor, bias: torch.Tensor,
                    heads: int) -> torch.Tensor:
-    b, t, d = x.shape
-    hd = d // heads
+    b, t, _ = x.shape
+    hd = p["pos_bias_u"].shape[-1]  # the head size (heads may be a rank's share)
     q = layers.linear(p["linear_q"], x).reshape(b, t, heads, hd)
     k = layers.linear(p["linear_k"], x).reshape(b, t, heads, hd)
     v = layers.linear(p["linear_v"], x).reshape(b, t, heads, hd)
@@ -88,7 +88,7 @@ def _rel_attention(p, x: torch.Tensor, pos_emb: torch.Tensor, bias: torch.Tensor
     bd = torch.einsum("bqhd,pkhd->bhqk", q_v.float(), pe.float())
     w = torch.softmax((ac + bd) / math.sqrt(hd) + bias, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
-    return layers.linear(p["linear_out"], o.reshape(b, t, d))
+    return layers.linear(p["linear_out"], o.reshape(b, t, heads * hd))
 
 
 def _encoder_layer(p, x, pos_emb, bias, heads):

@@ -12,6 +12,7 @@ frames then dropped by the caller. S3Token2Wav adds the HiFT vocoder and a
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,6 +42,18 @@ class S3GenConfig:
     campplus: campplus.CAMPPlusConfig = field(default_factory=campplus.CAMPPlusConfig)
     pre_lookahead_len: int = 3
     token_mel_ratio: int = 2
+
+
+def tp_config(cfg: S3GenConfig, tp: int) -> S3GenConfig:
+    """The config a rank of `tp` serves its flow shards at
+    (`parallel.shardings.local_tree` with flow_rules): the conformer's and
+    the estimator's heads divided by tp."""
+    if cfg.conformer.heads % tp or cfg.estimator.num_heads % tp:
+        raise ValueError(f"flow heads {cfg.conformer.heads} / {cfg.estimator.num_heads} not "
+                         f"divisible by tp={tp}")
+    return dataclasses.replace(
+        cfg, conformer=dataclasses.replace(cfg.conformer, heads=cfg.conformer.heads // tp),
+        estimator=dataclasses.replace(cfg.estimator, num_heads=cfg.estimator.num_heads // tp))
 
 
 def numpy_params(rng: np.random.Generator, cfg: S3GenConfig) -> dict:

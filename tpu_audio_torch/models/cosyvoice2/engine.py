@@ -16,12 +16,20 @@ flow window → the windowed HiFT; the first chunk faded in.
 `load()` reads the 4-bit checkpoint (`models/cosyvoice2/load.py`) onto
 `device` (the card unless the caller asks for the CPU) and serves the LM
 as per-channel int8 ("w8a8", the default: the whole-stack step kernel and
-the int8 speech head), W4A8 ("w4a8") or as it is ("q4"). `from_params`
+the int8 speech head), W4A8 ("w4a8"), as it is ("q4"), or dequantised to
+bf16 ("bf16"), fp16 ("fp16") or the device's serving dtype ("none"). The
+JAX engine takes the three fp names but serves the 4-bit tree as it is
+under them (ROADMAP C35). `from_params`
 takes built trees; its LM cache is sized for each request, where the JAX
 engine's `max_cache=512` clamps a 30-token sentence's 600-odd slots
 (ROADMAP C18). `speculative="ngram"` decodes the LM by prompt-lookup
 speculative decoding, on the sentence path and in the token stream's
-spans (`lm.CosyLMStreamer`); `mesh=` is ROADMAP A19 and raises. The
+spans (`lm.CosyLMStreamer`). `mesh=` (a `parallel.make_mesh` DeviceMesh
+with a "tp" axis) needs an fp LM, as in the JAX engine: the LM is served
+tensor-parallel (`lm.CosyLMGenerator`), and the flow's conformer and CFM
+estimator by local shards under `parallel.flow_rules`
+(`parallel.shardings.local_tree`, heads by `s3gen.tp_config`); HiFT,
+CAMPPlus and the tokenizer stay whole on every rank. The
 Whisper auto-transcription of a reference without `ref_text` needs its
 checkpoint.
 """
@@ -38,19 +46,32 @@ from tpu_audio_torch.api.tts import AudioChunk, StreamingGranularity, TTSEngineB
 from tpu_audio_torch.codecs.s3gen import model as s3gen
 from tpu_audio_torch.codecs.s3gen.noise import Noise
 from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
-from tpu_audio_torch.convert import tree_device
+from tpu_audio_torch.convert import serving_dtype, tree_device
 from tpu_audio_torch.models.cosyvoice2 import lm as lm_mod
 from tpu_audio_torch.ops import frontends
 from tpu_audio_torch.ops.resample import resample
+from tpu_audio_torch.parallel import tp_quant
+from tpu_audio_torch.parallel.shardings import flow_rules, local_tree
 from tpu_audio_torch.utils import text as textutils
 from tpu_audio_torch.utils.tokenizer import load_tokenizer
 
 SR_OUT = 24000
 SR_TOK = 16000
 ENDOFPROMPT = "<|endofprompt|>"
-QUANTIZATIONS = ("w8a8", "w4a8", "q4")
+FP_QUANTIZATIONS = ("bf16", "fp16", "none")
+QUANTIZATIONS = ("w8a8", "w4a8", "q4") + FP_QUANTIZATIONS
 TOKEN_BUCKET = 25  # token2wav pads the tokens to a multiple
 MODES = ("zero_shot", "cross_lingual", "instruct")
+
+
+def fp_lm(lm_params: dict, quantization: str, device) -> dict:
+    """The checkpoint's LM dequantised for an fp quantization: bf16, fp16,
+    or ("none") the device's serving dtype."""
+    from tpu_audio_torch.ops import quant
+
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(quantization,
+                                                               serving_dtype(device))
+    return quant.dequantize_tree(lm_params, dtype)
 
 
 @dataclass
@@ -72,12 +93,15 @@ class CosyVoice2Engine(TTSEngineBase):
                  speculative: str | None = None, gamma: int = 4,
                  device: torch.device | str = "cuda"):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
-                                      "(ROADMAP A19)")
         lm_mod.check_speculative(speculative)
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization must be one of {QUANTIZATIONS}, got {quantization!r}")
+        if mesh is not None:
+            tp_quant.tp_axis(mesh)  # refuses a non-mesh object, naming it
+            if quantization not in FP_QUANTIZATIONS:
+                raise ValueError(f"mesh serving needs an fp LM (quantization one of "
+                                 f"{FP_QUANTIZATIONS}), got {quantization!r}")
+        self.mesh = mesh
         self.speed = speed
         self.quantization = quantization
         self.speculative = speculative
@@ -107,8 +131,17 @@ class CosyVoice2Engine(TTSEngineBase):
             lm_params = quant.requantize_tree_int8(lm_params)
         elif self.quantization == "w4a8":
             lm_params = quant.repack_tree_w4a8(lm_params)
-        self.lm = lm_mod.CosyLMGenerator(lm_params, self.lm_cfg)
+        elif self.quantization in FP_QUANTIZATIONS:
+            lm_params = fp_lm(lm_params, self.quantization, self.device)
+        self.lm = lm_mod.CosyLMGenerator(lm_params, self.lm_cfg, mesh=self.mesh)
+        self._shard_flow()
         self.is_loaded = True
+
+    def _shard_flow(self) -> None:
+        """Under a mesh: this rank's flow shards and local head counts."""
+        if self.mesh is not None:
+            self.s3gen_params = local_tree(self.s3gen_params, self.mesh, flow_rules)
+            self.s3gen_cfg = s3gen.tp_config(self.s3gen_cfg, tp_quant.tp_axis(self.mesh)[2])
 
     @classmethod
     def from_params(cls, lm_params, lm_cfg, s3gen_params, s3gen_cfg, tok_params, tok_cfg,
@@ -117,12 +150,14 @@ class CosyVoice2Engine(TTSEngineBase):
                     gamma: int = 4) -> "CosyVoice2Engine":
         """An engine over built trees (the LM bf16, int8, q4 or W4A8). The
         LM cache holds `max_cache` slots, or with None (the default) as
-        many as each request needs."""
-        eng = cls(mesh=mesh, speculative=speculative, gamma=gamma,
-                  device=tree_device(s3gen_params))
+        many as each request needs. mesh: tensor-parallel serving of the
+        LM and the flow, the engine's quantization "none", as in JAX."""
+        eng = cls(quantization="none" if mesh is not None else "w8a8", mesh=mesh,
+                  speculative=speculative, gamma=gamma, device=tree_device(s3gen_params))
         eng.lm_cfg = lm_cfg
-        eng.lm = lm_mod.CosyLMGenerator(lm_params, lm_cfg, max_cache=max_cache)
+        eng.lm = lm_mod.CosyLMGenerator(lm_params, lm_cfg, max_cache=max_cache, mesh=mesh)
         eng.s3gen_params, eng.s3gen_cfg = s3gen_params, s3gen_cfg
+        eng._shard_flow()
         eng.tok_params, eng.tok_cfg = tok_params, tok_cfg
         eng.tokenizer = tokenizer or load_tokenizer(None)
         eng.is_loaded = True

@@ -29,7 +29,15 @@ drafts verified in one per-layer pass at gamma + 1 rows on the plain cache
 span of that loop, resumed from the last span's cache, last and
 second-last tokens, recent ring and history; with the same draws
 (`draws(iteration)`, numbered across spans) its tokens are the one-shot
-`generate`'s. `mesh=` is ROADMAP A19 and raises.
+`generate`'s.
+
+`mesh=` (a `parallel.make_mesh` DeviceMesh with a "tp" axis) serves the
+Qwen2 stack tensor-parallel on an fp tree: each rank keeps its megatron
+shard (`parallel/tp_quant.local_params`) and all-reduces the row-parallel
+sums (`transformer.forward_hidden`'s `axis_name`); embeddings and the
+speech head stay whole. A tree with quantised layer leaves runs replicated
+on every rank, as in the JAX generator, whose rules match `.weight` leaves
+only. Under a mesh every step runs per layer (no whole-stack step).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from tpu_audio_torch.ops import sampling
 from tpu_audio_torch.ops import speculative as spec
 from tpu_audio_torch.ops.decoding import SYNC_EVERY, decode_loop
 from tpu_audio_torch.ops.sampling import SamplerConfig
+from tpu_audio_torch.parallel import tp_quant
 
 QWEN2_05B = transformer.TransformerConfig(
     dim=896, n_layers=24, n_heads=14, n_kv_heads=2, hidden_dim=4864, vocab_size=151936,
@@ -98,6 +107,14 @@ def check_speculative(speculative) -> None:
         raise ValueError(f"speculative must be None or 'ngram', got {speculative!r}")
 
 
+def _quantised_layers(llm: dict) -> bool:
+    """Whether any linear of the stack's layers is quantised."""
+    def rec(d):
+        return any(rec(v) for v in d.values() if isinstance(v, dict)) or (
+            "weight" not in d and any(k.startswith("weight_") for k in d))
+    return rec(llm["layers"])
+
+
 def _bucket(n: int) -> int:
     return max(32, -(-n // 32) * 32)
 
@@ -106,20 +123,31 @@ class CosyLMGenerator:
     def __init__(self, params, cfg: CosyLMConfig, max_cache: int | None = None, mesh=None,
                  cache_dtype: torch.dtype = torch.bfloat16):
         """max_cache: the cache's slots, or None (the default) for as many
-        as each request needs."""
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
-                                      "(ROADMAP A19)")
+        as each request needs. mesh: a DeviceMesh with a "tp" axis; the
+        stack's config on this rank is then `qwen` (its local heads), the tp
+        group `axis` (None where the tree runs replicated)."""
         self.last_spec_stats: dict | None = None
         self.params = dict(params, llm=transformer.fuse_fp_tree(params["llm"]))
         self.cfg = cfg
+        self.qwen, self.axis, self.mesh = cfg.qwen, None, mesh
+        if mesh is not None:
+            group, rank, tp = tp_quant.tp_axis(mesh)
+            if not _quantised_layers(self.params["llm"]):
+                self.params["llm"] = tp_quant.local_params(self.params["llm"], cfg.qwen, tp, rank)
+                self.qwen, self.axis = tp_quant.local_config(cfg.qwen, tp), group
         self.max_cache = max_cache
         self.cache_dtype = cache_dtype
         self.device = tree_device(params)
 
     def fused_ok(self) -> bool:
-        """Whether the T=1 steps run the whole-stack step kernel."""
-        return transformer.fused_decode_supported(self.cfg.qwen, self.params["llm"])
+        """Whether the T=1 steps run the whole-stack step kernel (never
+        under a mesh)."""
+        return self.mesh is None and transformer.fused_decode_supported(self.cfg.qwen,
+                                                                        self.params["llm"])
+
+    def _hidden(self, x, cache, extra):
+        return transformer.forward_hidden(self.params["llm"], self.qwen, x, cache, extra,
+                                          axis_name=self.axis)
 
     def _slots(self, total: int, steps: int) -> int:
         need = total + steps
@@ -158,17 +186,16 @@ class CosyLMGenerator:
         shift = total - real.shape[1]
         x = torch.zeros((1, total, real.shape[-1]), dtype=dt, device=dev)
         x[:, shift:] = real
+        fused = self.fused_ok() if fused is None else fused and self.mesh is None
         cache, extra = transformer.decode_cache_and_mask(
-            cfg.qwen, self._slots(total, steps), shift, self.fused_ok() if fused is None else fused,
-            dtype=self.cache_dtype, device=dev)
-        hidden, cache = transformer.forward_hidden(p["llm"], cfg.qwen, x, cache, extra)
+            self.qwen, self._slots(total, steps), shift, fused, dtype=self.cache_dtype, device=dev)
+        hidden, cache = self._hidden(x, cache, extra)
         return self.head(hidden[:, -1]), cache, extra
 
     def step_fn(self, extra):
         """(token (B, 1), cache) → (logits (B, V) f32, cache): one T=1 step."""
         def step(tok, cache):
-            h, cache = transformer.forward_hidden(self.params["llm"], self.cfg.qwen,
-                                                  self.embed_speech(tok), cache, extra)
+            h, cache = self._hidden(self.embed_speech(tok), cache, extra)
             return self.head(h[:, -1]), cache
         return step
 
@@ -191,8 +218,7 @@ class CosyLMGenerator:
         """(tokens (1, T), cache) → (logits (1, T, V) f32, cache): the
         speculative verify, T rows through the stack and the head."""
         def step(toks, cache):
-            h, cache = transformer.forward_hidden(self.params["llm"], self.cfg.qwen,
-                                                  self.embed_speech(toks), cache, extra)
+            h, cache = self._hidden(self.embed_speech(toks), cache, extra)
             return self.head(h), cache
         return step
 

@@ -21,6 +21,9 @@ synthesizer pads 50 to 64) carries the tails of its real frames: the JAX
 module carries the padded chunk's last frames, so its next chunk's
 position embedding reads the pads (ROADMAP C21). Attention always carries a mask here, so
 it is the plain `attend`: the JAX package runs no Pallas kernel in the DiT.
+
+Under tensor parallelism (`parallel.shardings.local_tree` with flow_rules,
+cfg.heads a rank's share) only the rank holding head 0 rotates.
 """
 
 from __future__ import annotations
@@ -124,8 +127,10 @@ def _blocks(params, cfg: DiTConfig, h, t_emb, pos, bias, kv=None):
         sh_msa, sc_msa, g_msa, sh_mlp, sc_mlp, g_mlp = _modulation(
             bp["attn_norm"]["linear"], t_emb, 6)
         hn = _ln(h) * (1 + sc_msa[:, None]) + sh_msa[:, None]
-        q = _rope_flat(layers.linear(bp["attn"]["to_q"], hn), pos, hd).reshape(b, t, cfg.heads, hd)
-        k = _rope_flat(layers.linear(bp["attn"]["to_k"], hn), pos, hd).reshape(b, t, cfg.heads, hd)
+        q, k = layers.linear(bp["attn"]["to_q"], hn), layers.linear(bp["attn"]["to_k"], hn)
+        if getattr(bp["attn"]["to_q"], "rank", 0) == 0:  # the rank holding head 0
+            q, k = _rope_flat(q, pos, hd), _rope_flat(k, pos, hd)
+        q, k = q.reshape(b, t, cfg.heads, hd), k.reshape(b, t, cfg.heads, hd)
         v = layers.linear(bp["attn"]["to_v"], hn).reshape(b, t, cfg.heads, hd)
         if kv is not None:
             k, v = kv(i, k, v)

@@ -14,10 +14,16 @@ sentence.
 
 `load()` reads the 4-bit checkpoint and S3TokenizerV3 (`load.py`) onto
 `device` (the card unless the caller asks for the CPU) and serves the LM
-as per-channel int8 ("w8a8", the default), W4A8 ("w4a8") or as it is
-("q4"). `from_params` takes built trees; its LM cache is sized for each
-request (the JAX engine's `max_cache=512` clamps, ROADMAP C18).
+as per-channel int8 ("w8a8", the default), W4A8 ("w4a8"), as it is
+("q4") or dequantised ("bf16", "fp16", "none", as CosyVoice2's engine).
+`from_params` takes built trees; its LM cache is sized for each request
+(the JAX engine's `max_cache=512` clamps, ROADMAP C18).
 `speculative="ngram"` streams the LM through the speculative loop.
+`from_params(mesh=)` (a `parallel.make_mesh` DeviceMesh with a "tp" axis)
+serves the LM through `lm.CosyLMGenerator`'s mesh (tensor-parallel on an fp
+tree, replicated on a quantised one) and the DiT by local shards under
+`parallel.flow_rules` (`cv3.tp_config`'s heads); the causal HiFT stays
+whole on every rank, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ from tpu_audio_torch.codecs.s3gen.noise import Noise
 from tpu_audio_torch.codecs.s3tokenizer import model as s3tok
 from tpu_audio_torch.convert import tree_device
 from tpu_audio_torch.models.cosyvoice2 import lm as lm_mod
-from tpu_audio_torch.models.cosyvoice2.engine import (ENDOFPROMPT, MODES, QUANTIZATIONS, SR_OUT,
-                                                      SR_TOK, CosyVoice2Speaker)
+from tpu_audio_torch.models.cosyvoice2.engine import (ENDOFPROMPT, FP_QUANTIZATIONS, MODES,
+                                                      QUANTIZATIONS, SR_OUT, SR_TOK,
+                                                      CosyVoice2Speaker, fp_lm)
 from tpu_audio_torch.models.cosyvoice3 import model as cv3
 from tpu_audio_torch.ops import frontends
 from tpu_audio_torch.ops.resample import resample
+from tpu_audio_torch.parallel import tp_quant
+from tpu_audio_torch.parallel.shardings import flow_rules, local_tree
 from tpu_audio_torch.utils import text as textutils
 from tpu_audio_torch.utils.tokenizer import load_tokenizer
 
@@ -69,9 +78,13 @@ class CosyVoice3Engine(TTSEngineBase):
         self.speaker: CosyVoice2Speaker | None = None
         self._whisper = None
 
-    def _serve(self, lm_params, lm_cfg, flow_params, flow_cfg, max_cache=None, chunk=25):
+    def _serve(self, lm_params, lm_cfg, flow_params, flow_cfg, max_cache=None, chunk=25,
+               mesh=None):
         self.lm_cfg = lm_cfg
-        self.lm = lm_mod.CosyLMGenerator(lm_params, lm_cfg, max_cache=max_cache)
+        self.lm = lm_mod.CosyLMGenerator(lm_params, lm_cfg, max_cache=max_cache, mesh=mesh)
+        if mesh is not None:
+            flow_params = local_tree(flow_params, mesh, flow_rules)
+            flow_cfg = cv3.tp_config(flow_cfg, tp_quant.tp_axis(mesh)[2])
         self.streamer = lm_mod.CosyLMStreamer(self.lm, chunk=chunk, first_extra=cv3.PRE_LOOKAHEAD)
         self.flow_params, self.flow_cfg = flow_params, flow_cfg
         self.synth = cv3.CV3Synthesizer(flow_params, flow_cfg)
@@ -88,18 +101,24 @@ class CosyVoice3Engine(TTSEngineBase):
             lm_params = quant.requantize_tree_int8(lm_params)
         elif self.quantization == "w4a8":
             lm_params = quant.repack_tree_w4a8(lm_params)
+        elif self.quantization in FP_QUANTIZATIONS:
+            lm_params = fp_lm(lm_params, self.quantization, self.device)
         self._serve(lm_params, lm_cfg, flow_params, flow_cfg)
         self.is_loaded = True
 
     @classmethod
     def from_params(cls, lm_params, lm_cfg, flow_params, flow_cfg, tok_params, tok_cfg,
                     tokenizer=None, max_cache: int | None = None, chunk: int = 8,
-                    speculative: str | None = None, gamma: int = 4) -> "CosyVoice3Engine":
+                    speculative: str | None = None, gamma: int = 4,
+                    mesh=None) -> "CosyVoice3Engine":
         """An engine over built trees (the LM bf16, int8, q4 or W4A8); the
         LM streams chunks of `chunk` tokens. The LM cache holds `max_cache`
-        slots, or with None (the default) as many as each request needs."""
+        slots, or with None (the default) as many as each request needs.
+        mesh: a DeviceMesh with a "tp" axis (tensor-parallel LM and DiT)."""
+        if mesh is not None:
+            tp_quant.tp_axis(mesh)  # refuses a non-mesh object, naming it
         eng = cls(speculative=speculative, gamma=gamma, device=tree_device(flow_params))
-        eng._serve(lm_params, lm_cfg, flow_params, flow_cfg, max_cache, chunk)
+        eng._serve(lm_params, lm_cfg, flow_params, flow_cfg, max_cache, chunk, mesh)
         eng.tok_params, eng.tok_cfg = tok_params, tok_cfg
         eng.tokenizer = tokenizer or load_tokenizer(None)
         eng.is_loaded = True

@@ -59,6 +59,15 @@ class CV3FlowConfig:
     hift: hift.HiFTConfig = field(default_factory=hift.HiFTConfig)
 
 
+def tp_config(cfg: CV3FlowConfig, tp: int) -> CV3FlowConfig:
+    """The config a rank of `tp` serves its DiT shards at
+    (`parallel.shardings.local_tree` with flow_rules): the heads divided by
+    tp."""
+    if cfg.dit.heads % tp:
+        raise ValueError(f"DiT heads {cfg.dit.heads} not divisible by tp={tp}")
+    return replace(cfg, dit=replace(cfg.dit, heads=cfg.dit.heads // tp))
+
+
 def numpy_params(rng: np.random.Generator, cfg: CV3FlowConfig) -> dict:
     """The JAX `init_params` tree (JAX layouts) as f32 numpy arrays."""
     init, d = Init(rng), cfg.dit.dim

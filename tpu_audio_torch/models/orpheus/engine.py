@@ -19,7 +19,9 @@ repacks it to W4A8 ("w4a8": the W4A8 kernels, layer by layer) or keeps it
 sized for each request. `speculative="ngram"` (prompt lookup) or a
 `DraftModel` decodes each sentence by `generate_speculative`, gamma drafts
 a target pass; speculative runs keep the sentence path, as in the JAX
-engine. `mesh=` is ROADMAP A19 and raises.
+engine. `mesh=` (a `parallel.make_mesh` DeviceMesh with a "tp" axis)
+serves the LM tensor-parallel on every quantisation (each rank its shard,
+`CausalLMGenerator`); SNAC runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from tpu_audio_torch.models.orpheus import model as omodel
 from tpu_audio_torch.models.orpheus.model import (CausalLMGenerator, build_prompt_ids,
                                                   parse_frames)
 from tpu_audio_torch.ops.sampling import SamplerConfig
+from tpu_audio_torch.parallel import tp_quant
 from tpu_audio_torch.utils import text as textutils
 from tpu_audio_torch.utils.tokenizer import load_tokenizer
 
@@ -87,11 +90,12 @@ class OrpheusEngine(TTSEngineBase):
                  device: torch.device | str = "cuda"):
         """speculative: None, "ngram" (prompt-lookup drafting) or a
         DraftModel (a same-vocabulary draft model); gamma drafts a target
-        pass. device: the card unless the caller asks for the CPU."""
+        pass. mesh: a DeviceMesh with a "tp" axis, for tensor-parallel
+        serving of the LM. device: the card unless the caller asks for the
+        CPU."""
         super().__init__()
         if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
-                                      "(ROADMAP A19)")
+            tp_quant.tp_axis(mesh)  # refuses a non-mesh object, naming it
         check_speculative(speculative)
         if quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization must be one of {QUANTIZATIONS}, got {quantization!r}")
@@ -99,6 +103,7 @@ class OrpheusEngine(TTSEngineBase):
         self.temperature = temperature
         self.top_p = top_p
         self.quantization = quantization
+        self.mesh = mesh
         self.speculative = speculative
         self.gamma = gamma
         self.device = device
@@ -119,7 +124,8 @@ class OrpheusEngine(TTSEngineBase):
             lm_params = quant.requantize_tree_int8(lm_params)
         elif self.quantization == "w4a8":
             lm_params = quant.repack_tree_w4a8(lm_params)
-        self.lm = CausalLMGenerator(lm_params, cfg, max_cache=None, pad_id=omodel.PAD_TOKEN)
+        self.lm = CausalLMGenerator(lm_params, cfg, max_cache=None, pad_id=omodel.PAD_TOKEN,
+                                    mesh=self.mesh)
         self.tokenizer = tok
         self.snac_params = snac_params
         self.snac_cfg = snac_cfg
@@ -131,9 +137,11 @@ class OrpheusEngine(TTSEngineBase):
                     gamma: int = 8) -> "OrpheusEngine":
         """An engine over a built LM tree (bf16, int8, q4 or W4A8) and SNAC
         parameters. The LM cache holds `max_cache` slots, or with None (the
-        default) as many as each request needs."""
+        default) as many as each request needs. mesh: tensor-parallel
+        serving of the LM, each rank holding its shard."""
         eng = cls(mesh=mesh, speculative=speculative, gamma=gamma)
-        eng.lm = CausalLMGenerator(lm_params, cfg, max_cache=max_cache, pad_id=omodel.PAD_TOKEN)
+        eng.lm = CausalLMGenerator(lm_params, cfg, max_cache=max_cache, pad_id=omodel.PAD_TOKEN,
+                                   mesh=mesh)
         eng.snac_params = snac_params
         eng.snac_cfg = snac_cfg or snac.SNACConfig()
         eng.tokenizer = load_tokenizer(None)

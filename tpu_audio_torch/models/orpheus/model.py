@@ -28,7 +28,19 @@ per-layer pass at gamma + 1 rows (the int8 and W4A8 matmuls at that row
 count), as the JAX generator forces it; only the draft's T = 1 and T = 2
 steps ride the whole-stack step kernel, where it serves the draft's tree.
 
-Not ported yet (ROADMAP A19): tensor-parallel serving (`mesh=`); it raises.
+`mesh=` (a `parallel.make_mesh` DeviceMesh with a "tp" axis) serves the
+stack tensor-parallel, by one route for fp and quantised trees: each rank
+keeps its contiguous megatron shard (`parallel/tp_quant.local_params`),
+runs the layers at `local_config`'s head counts through the same kernels on
+its local shapes, with a KV cache of its local heads, and all-reduces the
+row-parallel partial sums over the tp group (`transformer.forward_hidden`'s
+`axis_name`). The JAX generator has two modes (GSPMD for fp trees,
+`shard_map` for quantised ones); the port's one route is the second. Under
+a mesh the whole-stack step is off (every step runs per layer, as in JAX),
+and a draft model runs replicated, without the group. Every rank emits the
+same token: the all-reduce leaves the same hidden state, hence the same
+logits, on every rank, and every rank's `torch.Generator` is seeded with
+the same `seed`, so each draws the same sample.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from tpu_audio_torch.nn import attention, transformer
 from tpu_audio_torch.ops import sampling, speculative
 from tpu_audio_torch.ops.decoding import decode_loop
 from tpu_audio_torch.ops.sampling import SamplerConfig
+from tpu_audio_torch.parallel import tp_quant
 
 SAMPLE_RATE = 24000
 MAX_TOKENS = 1200
@@ -95,27 +108,36 @@ class DraftModel:
 class CausalLMGenerator:
     """Prefill + decode over `nn/transformer.py` for a Llama-family config;
     shared by the LLM TTS engines. fp q/k/v and gate/up leaves are fused
-    (quantised trees arrive fused)."""
+    (quantised trees arrive fused). Under `mesh` the tree becomes this
+    rank's shard (`params`), `cfg_run` its local config and `axis` the tp
+    process group; without one `cfg_run` is `cfg` and `axis` None."""
 
     def __init__(self, params, cfg: transformer.TransformerConfig,
                  max_cache: int | None = 2048, pad_id: int = 0,
                  cache_dtype: torch.dtype = torch.bfloat16, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh=) is not ported yet "
-                                      "(ROADMAP A19)")
-        self.cfg = cfg
+        self.cfg = self.cfg_run = cfg
+        self.mesh = mesh
+        self.axis = None
         self.last_spec_stats: dict | None = None
         self.max_cache = max_cache
         self.pad_id = pad_id
         self.cache_dtype = cache_dtype
         self.params = transformer.fuse_fp_tree(params)
+        if mesh is not None:
+            self.axis, rank, tp = tp_quant.tp_axis(mesh)
+            self.params = tp_quant.local_params(self.params, cfg, tp, rank)
+            self.cfg_run = tp_quant.local_config(cfg, tp)
         self.device = tree_device(params)
 
     # ------------------------------------------------------------ helpers
 
     def _fused_ok(self) -> bool:
-        """Whole-stack step eligibility (single stream)."""
-        return transformer.fused_decode_supported(self.cfg, self.params)
+        """Whole-stack step eligibility (single stream, no mesh)."""
+        return self.mesh is None and transformer.fused_decode_supported(self.cfg, self.params)
+
+    def _forward(self, tokens, cache, extra, off):
+        return transformer.forward(self.params, self.cfg_run, tokens, cache, extra_mask=extra,
+                                   axis_name=self.axis, pos_offset=off)
 
     @staticmethod
     def _fit(max_cache: int | None, prompt_pad: int, steps: int) -> int:
@@ -144,19 +166,17 @@ class CausalLMGenerator:
         """The prompt through the stack: (first token (1,), cache, extra
         mask, pos_offset). A single-stream cache in the whole-stack step's
         layout where that step serves the tree."""
-        cfg = self.cfg
         cache, extra = transformer.decode_cache_and_mask(
-            cfg, slots, start, self._fused_ok(), dtype=self.cache_dtype, device=self.device)
+            self.cfg_run, slots, start, self._fused_ok(), dtype=self.cache_dtype,
+            device=self.device)
         off = torch.tensor([start], device=self.device)
-        logits, cache = transformer.forward(self.params, cfg, prompt[None], cache,
-                                            extra_mask=extra, pos_offset=off)
+        logits, cache = self._forward(prompt[None], cache, extra, off)
         first = sampling.sample(logits[:, -1].float(), sampler, None, gen)
         return first, cache, extra, off
 
     def _step(self, extra, off):
         def step(tok, cache):
-            lg, cache = transformer.forward(self.params, self.cfg, tok, cache,
-                                            extra_mask=extra, pos_offset=off)
+            lg, cache = self._forward(tok, cache, extra, off)
             return lg[:, -1].float(), cache
         return step
 
@@ -246,14 +266,14 @@ class CausalLMGenerator:
             pad_amounts[r] = pad - len(ids)
         arr, off = arr.to(self.device), pad_amounts.to(self.device)
         slots = self._slots(pad, max_new)
-        cache = transformer.make_cache(self.cfg, b, slots, self.cache_dtype, device=self.device)
+        cache = transformer.make_cache(self.cfg_run, b, slots, self.cache_dtype,
+                                       device=self.device)
         slot = torch.arange(slots, device=self.device)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         extra = torch.where(slot[None] >= off[:, None], zero,
                             attention.NEG_INF)[:, None, None, :]
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        logits, cache = transformer.forward(self.params, self.cfg, arr, cache, extra_mask=extra,
-                                            pos_offset=off)
+        logits, cache = self._forward(arr, cache, extra, off)
         first = sampling.sample(logits[:, -1].float(), sampler, None, gen)
         res = decode_loop(self._step(extra, off), cache, first, max_new - 1, eos_ids=eos_ids,
                           sampler=sampler, generator=gen, pad_id=self.pad_id)
@@ -266,8 +286,7 @@ class CausalLMGenerator:
 
     def _target_step(self, extra, off):
         def step(toks, cache):
-            lg, cache = transformer.forward(self.params, self.cfg, toks, cache,
-                                            extra_mask=extra, pos_offset=off)
+            lg, cache = self._forward(toks, cache, extra, off)
             return lg.float(), cache
         return step
 
@@ -286,17 +305,19 @@ class CausalLMGenerator:
         pad = prompt.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         steps = speculative.loop_slots(max_new - 1, gamma)
-        cfg, dev = self.cfg, self.device
+        dev = self.device
         cache, extra = transformer.decode_cache_and_mask(
-            cfg, self._slots(pad, steps), start, False, dtype=self.cache_dtype, device=dev)
+            self.cfg_run, self._slots(pad, steps), start, False, dtype=self.cache_dtype,
+            device=dev)
         off = torch.tensor([start], device=dev)
-        logits, cache = transformer.forward(self.params, cfg, prompt[None], cache,
-                                            extra_mask=extra, pos_offset=off)
+        logits, cache = self._forward(prompt[None], cache, extra, off)
         first = sampling.sample(logits[:, -1].float(), sampler, None, gen)
         common = dict(max_new_tokens=max_new - 1, gamma=gamma, eos_ids=eos_ids,
                       sampler=sampler, pad_id=self.pad_id, generator=gen, draws=draws)
         if draft is not None:
-            d_fused = transformer.fused_decode_supported(draft.cfg, draft.params)
+            # replicated under a mesh (no group), and per layer there, as in JAX
+            d_fused = self.mesh is None and transformer.fused_decode_supported(draft.cfg,
+                                                                              draft.params)
             d_cache, d_extra = transformer.decode_cache_and_mask(
                 draft.cfg, self._fit(draft.max_cache, pad, steps), start, d_fused,
                 dtype=self.cache_dtype, device=dev)

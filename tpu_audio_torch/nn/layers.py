@@ -6,7 +6,10 @@ masked_instance_norm, zero_pad_tail, leaky_relu).
 Conventions kept from the JAX module:
   - linear weights are (out_features, in_features);
   - sequence tensors are channels-last, (B, T, C);
-  - a param dict without "weight" is quantised (`ops/quant.py`).
+  - a param dict without "weight" is quantised (`ops/quant.py`);
+  - a `TPLinear` is one rank's block of a linear under tensor parallelism
+    (`parallel.shardings.local_tree`): a row-parallel one's product is
+    all-reduced over its group.
 Changed for PyTorch: conv1d weights are (out, in/groups, kernel) and
 transposed-conv weights (in, out/groups, kernel), torch's own layouts (the
 JAX tree stores (kernel, in, out); `convert.params_from_numpy` transposes).
@@ -19,16 +22,33 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_audio_torch.ops import quant
 
 
+class TPLinear(dict):
+    """A linear leaf's block on rank `rank` of a tensor-parallel group. A
+    column-parallel block (`group` None) holds the rank's output channels;
+    a row-parallel one holds its input columns, and `linear` all-reduces
+    its partial product over `group` (its bias, whole, is kept on rank 0
+    only, inside that rank's product)."""
+
+    def __init__(self, leaf: dict, rank: int, group=None):
+        super().__init__(leaf)
+        self.rank, self.group = rank, group
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     if "weight" not in p:
-        return quant.quantized_linear(p, x)
-    bias = p["bias"].to(x.dtype) if "bias" in p else None
-    return F.linear(x, p["weight"].to(x.dtype), bias)
+        y = quant.quantized_linear(p, x)
+    else:
+        bias = p["bias"].to(x.dtype) if "bias" in p else None
+        y = F.linear(x, p["weight"].to(x.dtype), bias)
+    if getattr(p, "group", None) is not None:
+        dist.all_reduce(y, group=p.group)
+    return y
 
 
 def embedding(p, ids: torch.Tensor) -> torch.Tensor:

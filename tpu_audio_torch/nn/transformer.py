@@ -21,8 +21,14 @@ layout view of that cache, with the key slots before `start` masked.
 Over a `QuantizedKVCache` (the int8 cache, `make_cache(quantized=True)`)
 each layer writes its keys and values quantised at `pos` and attends over
 the layer read back dequantised into q's dtype, as the JAX module's
-quantised branch does. The shard_map tensor-parallel `axis_name` is not
-ported yet (ROADMAP A19) and raises.
+quantised branch does.
+
+Tensor parallelism (`axis_name`): each rank of the tp process group holds
+its megatron shard of the layers (`parallel/tp_quant.local_params`) and runs
+the stack at the local head counts (`local_config`); the partial sums of the
+row-parallel o-projection and MLP are all-reduced (sum) over the group, where
+the JAX module psums under `shard_map`. A `FusedKVCache` refuses it, as in
+the JAX module.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_audio_torch.nn import attention, layers, rope
 from tpu_audio_torch.ops import quant
@@ -119,9 +126,17 @@ def _qkv(cfg: TransformerConfig, attn_p, hn, b, t):
     return q.reshape(b, t, h_, hd), k.reshape(b, t, kvh, hd), v.reshape(b, t, kvh, hd)
 
 
-def _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask):
-    """Pre-norm attention of one layer: (x + attention, the layer's k, v).
-    kv(k, v) returns the keys and values to attend (the cache's, or k, v)."""
+def psum(t: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """t summed over the process group `axis_name` in place (None: t)."""
+    if axis_name is not None:
+        dist.all_reduce(t, group=axis_name)
+    return t
+
+
+def _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask, axis_name=None):
+    """Pre-norm attention of one layer: x + attention. kv(k, v) returns the
+    keys and values to attend (the cache's, or k, v); under `axis_name` the
+    o-projection's partial sums are all-reduced before the residual."""
     b, t, _ = x.shape
     hn = _norm(cfg, lp["ln1"], x)
     q, k, v = _qkv(cfg, lp["attn"], hn, b, t)
@@ -133,7 +148,8 @@ def _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask):
         k = rope.apply_rope(k, rope_pos, inv_freq)
     kl, vl = kv(k, v)
     o = attention.attend(q, kl.to(q.dtype), vl.to(q.dtype), mask, scale=1.0 / math.sqrt(cfg.hd))
-    return x + layers.linear(lp["attn"]["o"], o.reshape(b, t, cfg.n_heads * cfg.hd))
+    return x + psum(layers.linear(lp["attn"]["o"], o.reshape(b, t, cfg.n_heads * cfg.hd)),
+                    axis_name)
 
 
 # ------------------------------------------------------------------ params
@@ -264,7 +280,7 @@ def fused_decode_supported(cfg: TransformerConfig, params: dict, max_len: int = 
 # ------------------------------------------------------------------ forward
 
 def forward_hidden(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache,
-                   extra_mask: torch.Tensor | None = None, axis_name: str | None = None,
+                   extra_mask: torch.Tensor | None = None, axis_name=None,
                    pos_offset: torch.Tensor | None = None):
     """Run the stack on embedded inputs x (B, T, D), writing into `cache`
     at cache.pos and advancing it, in place. Returns (hidden (B, T, D),
@@ -273,10 +289,16 @@ def forward_hidden(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache,
     extra_mask: optional additive (B, 1, T, S_max) bias composed onto the
     causal decode mask. pos_offset: optional (B,) per-row offset subtracted
     from the positions fed to RoPE / learned embeddings (cache slots are
-    unaffected), clamped at 0."""
-    if axis_name is not None:
-        raise NotImplementedError("tensor-parallel axis_name is not ported yet (ROADMAP A19)")
+    unaffected), clamped at 0. axis_name: the tensor-parallel process group
+    (`mesh.get_group("tp")`) over which this rank's partial sums of the
+    o-projection and the MLP are all-reduced; params and cfg are then the
+    rank's local tree and `local_config`, and the cache holds its heads."""
+    if axis_name is not None and not isinstance(axis_name, dist.ProcessGroup):
+        raise TypeError(f"axis_name must be the tp process group (mesh.get_group('tp')), "
+                        f"got {type(axis_name).__name__} {axis_name!r}")
     if isinstance(cache, FusedKVCache):
+        if axis_name is not None:
+            raise ValueError("FusedKVCache does not support tensor parallelism (axis_name)")
         return _forward_fused(params, cfg, x, cache, extra_mask, pos_offset)
     quantized = isinstance(cache, QuantizedKVCache)
     if not (quantized or isinstance(cache, KVCache)):
@@ -303,8 +325,8 @@ def forward_hidden(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache,
             cache.write(i, k, v)
             return cache.read_layer(i, k.dtype) if quantized else (cache.k[i], cache.v[i])
 
-        x = _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask)
-        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+        x = _attention_block(cfg, lp, x, rope_pos, inv_freq, kv, mask, axis_name)
+        x = x + psum(_mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x)), axis_name)
     cache.advance(t)
     return _norm(cfg, params["norm"], x), cache
 
@@ -343,7 +365,7 @@ def _forward_fused(params: dict, cfg: TransformerConfig, x: torch.Tensor, cache:
 
 
 def forward(params: dict, cfg: TransformerConfig, tokens: torch.Tensor, cache,
-            extra_mask: torch.Tensor | None = None, axis_name: str | None = None,
+            extra_mask: torch.Tensor | None = None, axis_name=None,
             pos_offset: torch.Tensor | None = None):
     """Token ids (B, T) → (logits (B, T, V), cache advanced in place)."""
     x = layers.embedding(params["embed"], tokens)

@@ -14,8 +14,11 @@ plus 8 bytes of scale and bias per 64 weights; at Qwen3-0.6B's tied lm head
 tiles streamed by a producer warp into a ring of stages before the kernel
 waits on the kernel before it (a programmatic dependent launch), x read
 in its own dtype, the columns split over a cluster's blocks only where the
-terms of x would not fit in shared memory. `LAUNCHES` counts calls, each
-one device launch.
+terms of x would not fit in shared memory. Where no plan holds all the
+rows (f32 x of 32 rows at K 8192, the Llama-3.2-3B down projection: their
+exact bf16 terms overflow a block's shared memory even split over a
+cluster of 8), the rows go in as few launches as the plan allows
+(`rows_a_launch`). `LAUNCHES` counts device launches.
 
 The packed words are int32 tensors holding the uint32 bits (torch has few
 uint32 operations); `unpack_words` masks the sign extension off.
@@ -24,6 +27,7 @@ uint32 operations); `unpack_words` masks the sign extension off.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -98,6 +102,22 @@ def launch_plan(device: torch.device, rows: int, in_features: int, out_features:
                      "tiles_a_span"), out.tolist()))
 
 
+@functools.lru_cache(maxsize=None)
+def rows_a_launch(device: torch.device, rows: int, in_features: int, out_features: int,
+                  bits: int, x_dtype: torch.dtype) -> int:
+    """The most rows of x one launch takes at these sizes: `rows`, or where
+    no plan holds them, the largest of rows / 2, rows / 4, … (rounded up)
+    that one does."""
+    n = rows
+    while n > 1:
+        try:
+            launch_plan(device, n, in_features, out_features, bits=bits, x_dtype=x_dtype)
+            return n
+        except RuntimeError:
+            n = (n + 1) // 2
+    return 1
+
+
 def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                  biases: torch.Tensor, *, bits: int = 4) -> torch.Tensor:
     """x (B, I) float · dequant(packed (O, I·bits/32), scales and biases
@@ -107,7 +127,9 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     in the kernel, as the TPU kernel widens it (rows may lie apart; a
     layout whose rows are not contiguous and 16-byte aligned is copied
     first); bits 4 or 8, group 64, packed int32, scales and biases f32,
-    all contiguous. A launch that the card or the kernel refuses raises."""
+    all contiguous. Rows that no single launch's plan holds go in several
+    launches (`rows_a_launch`). A launch that the card or the kernel
+    refuses raises."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, packed, scales, biases, bits=bits)
     device = _build.require_cuda("quant_matmul", x, packed, scales, biases)
@@ -121,6 +143,10 @@ def quant_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     _build.check("quant_matmul packed", packed, torch.int32, (o, i * bits // 32))
     _build.check("quant_matmul scales", scales, torch.float32, (o, i // GROUP))
     _build.check("quant_matmul biases", biases, torch.float32, (o, i // GROUP))
+    step = rows_a_launch(device, b, i, o, bits, x.dtype)
+    if step < b:
+        return torch.cat([quant_matmul(x[r:r + step], packed, scales, biases, bits=bits)
+                          for r in range(0, b, step)])
     ldx = x.stride(0) if b > 1 else i
     if x.stride(1) != 1 or (ldx * x.element_size()) % 16 or x.data_ptr() % 16:
         x = x.clone(memory_format=torch.contiguous_format)  # a copy, only for such layouts

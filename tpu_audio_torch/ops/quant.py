@@ -142,6 +142,21 @@ def quantize_tree(tree: dict, bits: int = 4, group: int = 64, predicate=None) ->
 
 # ------------------------------------------------------------ int8 (W8A8)
 
+def dequantize_tree(tree: dict, dtype: torch.dtype) -> dict:
+    """Every quantised leaf dict of a param tree (group-affine, int8, W4A8)
+    as an fp {"weight", optional "bias"} leaf in `dtype`; fp leaves pass
+    through."""
+    if any(k in tree for k in ("weight_q4", "weight_q8", "weight_q4p", "weight_q4s",
+                               "weight_i8")):
+        out = {"weight": dequantize(tree).to(dtype)}
+    else:
+        return {k: dequantize_tree(v, dtype) if isinstance(v, dict) else v
+                for k, v in tree.items()}
+    if "bias" in tree:
+        out["bias"] = tree["bias"]
+    return out
+
+
 def quantize_array_int8(w: torch.Tensor) -> dict:
     """fp weight (…, O, I) → {"weight_i8" (…, O, I) int8, "scale_i8"
     (…, O, 1) f32}, per-output-channel symmetric, on w's device."""

@@ -22,6 +22,7 @@ import re
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
+from tpu_audio_torch.nn.layers import TPLinear
 from tpu_audio_torch.utils import pytree
 
 
@@ -116,3 +117,53 @@ def shard_tree(tree, mesh: DeviceMesh, rules=None, **kw):
     shardings = pytree.flatten(param_shardings(tree, mesh, rules, **kw))
     return pytree.unflatten({k: distribute_tensor(v, mesh, shardings[k])
                              for k, v in pytree.flatten(tree).items()})
+
+
+def local_tree(tree, mesh: DeviceMesh, rules, layer_prefixes: tuple[str, ...] = (),
+               axis: str = "tp"):
+    """This rank's tree for serving by local shards (no DTensor): every leaf
+    that `rules` shard over `axis` cut to the rank's block along that dim,
+    each its own contiguous tensor, the rest the caller's tensors. A linear
+    leaf dict whose weight is sharded on its output dim becomes a
+    column-parallel `TPLinear`, on its input (last) dim a row-parallel one,
+    which `nn.layers.linear` all-reduces over the axis's group; its bias
+    stays on rank 0 only.
+
+    layer_prefixes defaults to none: the flows keep their blocks as dicts
+    keyed by index, not stacked (L, …) leaves. The JAX `shard_tree` passes
+    ("blocks", "layers") for them too, so every leaf under a path holding
+    "blocks" (the CFM estimator's down/mid/up blocks, the DiT's blocks) has
+    its spec shifted by one dim (ROADMAP C34): harmless under GSPMD, which
+    partitions any placement correctly, but not a megatron layout."""
+    from tpu_audio_torch.parallel.tp_quant import tp_axis
+
+    group, rank, tp = tp_axis(mesh, axis)
+
+    def rec(d, prefix):
+        out = {}
+        for k, v in d.items():
+            path = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = rec(v, path)
+                w = v.get("weight")
+                if w is None or w.dim() < 2:
+                    continue
+                spec = _spec_for(f"{path}.weight", w, rules, layer_prefixes)
+                if spec[-1] == axis:
+                    leaf = {n: t for n, t in out[k].items() if n != "bias" or rank == 0}
+                    out[k] = TPLinear(leaf, rank, group)
+                elif spec[-2] == axis:
+                    out[k] = TPLinear(out[k], rank)
+                continue
+            spec = _spec_for(path, v, rules, layer_prefixes)
+            if axis in spec:
+                dim = spec.index(axis)
+                if v.shape[dim] % tp:
+                    raise ValueError(f"{path}: {v.shape[dim]} along dim {dim} not divisible "
+                                     f"by tp={tp}")
+                n = v.shape[dim] // tp
+                v = v.narrow(dim, rank * n, n).contiguous()
+            out[k] = v
+        return out
+
+    return rec(tree, "")
